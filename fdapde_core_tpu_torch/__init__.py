@@ -1,0 +1,27 @@
+"""fdapde-core-tpu-torch: the PyTorch/CUDA port of `fdapde_core_tpu`.
+
+The JAX package beside this one is the reference; this package reproduces
+its public names and layout module for module (``ops/grid_dia.py`` <->
+``ops/grid_dia.py``, ...) and is held against it by the tests in
+``tests/test_torch_*.py``.
+
+Conventions:
+
+- plain functions on tensors, dataclasses of tensors where JAX used pytrees,
+- every function takes its dtype and device from its arguments or inputs:
+  there is no global precision switch (JAX's x64 flag has no counterpart)
+  and no automatic device pick (constructors take ``device=``, default
+  ``"cpu"``),
+- hand-written CUDA kernels live in ``csrc/`` and are built with ``nvcc``
+  at first use (``_build.py``); on CPU tensors every kernel wrapper runs its
+  plain PyTorch version instead, so importing the package and running it on
+  the CPU never needs a GPU toolchain.
+
+Ported so far: the device-scale structured Poisson path
+(``models.StructuredPoisson``) and the fused coords->stencil assembly
+kernel it runs (``ops/assembly_kernels.py``, ``csrc/p1_stencil.cu``).
+"""
+
+from . import models, ops
+
+__version__ = "0.1.0"

@@ -1,0 +1,39 @@
+"""Carry operators read out of the JAX package (``np.asarray``) across into
+this package's objects, so one operator can feed both solvers."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.grid_dia import GridDIAMatrix
+from .ops.grid_mg import GridMG
+
+__all__ = ["grid_dia_from_numpy", "grid_mg_from_numpy"]
+
+
+def _tensor(a, device):
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def _offsets(offsets2d):
+    return tuple((int(a), int(b)) for a, b in offsets2d)
+
+
+def grid_dia_from_numpy(data, offsets2d, shape2d, device="cpu") -> GridDIAMatrix:
+    """GridDIAMatrix from a (K, mx, my) array and its offsets and shape."""
+    return GridDIAMatrix(
+        _tensor(data, device), _offsets(offsets2d), tuple(int(s) for s in shape2d)
+    )
+
+
+def grid_mg_from_numpy(datas, offsets, shapes, omega, nu, coarse_iters,
+                       device="cpu") -> GridMG:
+    """GridMG from per-level (K_l, m_l, m_l) arrays and the hierarchy's
+    parameters (the fields of the JAX ``GridMG``)."""
+    return GridMG(
+        [_tensor(d, device) for d in datas],
+        tuple(_offsets(o) for o in offsets),
+        tuple(int(s) for s in shapes),
+        float(omega), int(nu), int(coarse_iters),
+    )
