@@ -19,9 +19,13 @@ Conventions:
 
 Ported so far: the device-scale structured Poisson path
 (``models.StructuredPoisson``) and the fused coords->stencil assembly
-kernel it runs (``ops/assembly_kernels.py``, ``csrc/p1_stencil.cu``).
+kernel it runs (``ops/assembly_kernels.py``, ``csrc/p1_stencil.cu``); the
+general-mesh gather path (``models.MatrixFreePoisson``,
+``models.MatrixFreeElliptic`` with ``gather_kernel="xla"`` or ``"lane"``)
+and the ELL gather SpMV kernel it runs (``ops/gather_spmv.py``,
+``csrc/ell_spmv.cu``).
 """
 
-from . import models, ops
+from . import fem, geometry, linear_algebra, models, ops
 
 __version__ = "0.1.0"

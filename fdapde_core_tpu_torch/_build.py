@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``) at first use.
 
-The sources compile with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, which is loaded with ``ctypes``. The
-library is cached under ``_build/`` by a hash of the sources and flags, so
-an unchanged checkout builds once. A failed build raises with nvcc's output;
-there is no fallback. Nothing here runs at import time: CPU-only use of the
-package never needs a CUDA toolchain.
+Each source compiles with its own ``nvcc`` for Hopper (``sm_90a``), all of
+them started together, and the objects link into one shared library with a
+plain C interface, which is loaded with ``ctypes``. The library is cached
+under ``_build/`` by a hash of the sources and flags, so an unchanged
+checkout builds once. A failed build raises with nvcc's output; there is no
+fallback. Nothing here runs at import time: CPU-only use of the package
+never needs a CUDA toolchain.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ _BUILD = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # per-kernel registers / spills into the build log
 )
 
@@ -36,6 +37,9 @@ _VP, _I64 = ctypes.c_void_p, ctypes.c_int64
 _SIGNATURES = {
     "p1_stencil_layers_f32": (_VP, _VP, _I64, _I64, _I64, _VP, _I64, _I64, _VP),
     "p1_stencil_layers_f64": (_VP, _VP, _I64, _I64, _I64, _VP, _I64, _I64, _VP),
+    "ell_spmv_f32": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
+    "ell_spmv_f64": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
+    "ell_spmv_bf16": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
 }
 
 
@@ -72,26 +76,48 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _run(cmd: list[str], proc: subprocess.Popen) -> str:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return out
+
+
+def _compile_and_link(tmpdir: Path) -> str:
+    """One nvcc per source, all running at once, then one link into
+    ``tmpdir/lib.so``. Returns the compilers' combined output."""
+    nvcc = _nvcc()
+    jobs = []
+    try:
+        for src in _sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmpdir / f"{src.stem}.o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = [_run(cmd, proc) for cmd, proc in jobs]
+    finally:
+        for _, proc in jobs:  # a failed job must not leave the others running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    objects = [str(tmpdir / f"{src.stem}.o") for src in _sources()]
+    cmd = [nvcc, "-shared", "-o", str(tmpdir / "lib.so"), *objects]
+    logs.append(_run(cmd, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return "".join(logs)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Compile ``csrc/*.cu`` if the cached library is stale, then load it."""
     so = _library_path()
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
-        # build to a private name, then rename: concurrent builders never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+        with tempfile.TemporaryDirectory(dir=_BUILD) as tmpdir:
+            log = _compile_and_link(Path(tmpdir))
+            so.with_suffix(".log").write_text(log)
+            # link to a private name, then rename: concurrent builders
+            # never load a half-written library
+            os.replace(Path(tmpdir) / "lib.so", so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

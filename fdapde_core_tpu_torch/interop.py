@@ -8,8 +8,9 @@ import torch
 
 from .ops.grid_dia import GridDIAMatrix
 from .ops.grid_mg import GridMG
+from .ops.matfree_soa import ELLSoA
 
-__all__ = ["grid_dia_from_numpy", "grid_mg_from_numpy"]
+__all__ = ["ell_from_numpy", "grid_dia_from_numpy", "grid_mg_from_numpy"]
 
 
 def _tensor(a, device):
@@ -36,4 +37,14 @@ def grid_mg_from_numpy(datas, offsets, shapes, omega, nu, coarse_iters,
         tuple(_offsets(o) for o in offsets),
         tuple(int(s) for s in shapes),
         float(omega), int(nu), int(coarse_iters),
+    )
+
+
+def ell_from_numpy(vals, cols, shape, device="cpu") -> ELLSoA:
+    """ELLSoA from (K, n) values and int32 columns and its (n, n_src) shape
+    (the fields of the JAX ``ELLSoA``)."""
+    return ELLSoA(
+        torch.tensor(np.ascontiguousarray(vals), device=device),
+        torch.tensor(np.ascontiguousarray(cols, dtype=np.int32), device=device),
+        tuple(int(s) for s in shape),
     )
