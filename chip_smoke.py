@@ -37,9 +37,33 @@ Phases (each raises on failure; nothing is caught):
 9. MatrixFreePoisson on the unscrambled n = 3200 mesh (aux grid, f64 ELL
    on K2) converges to 1e-9;
 10. harmonic check on the scrambled n = 256 mesh through the lane path:
-    Dirichlet data g = x + y is reproduced to 1e-9.
+    Dirichlet data g = x + y is reproduced to 1e-9;
+11. hold the closed-form P1 local-stiffness kernels K4, K5 and K6 against
+    their plain PyTorch versions on the card, tolerance 8 eps(dtype)
+    max|A|, bitwise stable: K6 on the (6, C) coordinates of phase 12's
+    mesh in f64 and f32, and all three in f32 on the perturbed n = 3200
+    criss-cross mesh (20.48M cells) as cell coordinates and edge vectors;
+    time each and its plain version with CUDA events; then, with the
+    launch counts zeroed, the structured-stencil path p1_grid_stencil(K4)
+    and p1_grid_stencil_offdiag(K5) against K1's stencil_from_coords on
+    the same planes (32 eps max|L|: the three sum in other orders);
+12. drive the general-mesh PDE API path at bench.py's `general` size:
+    PDE(Triangulation(jittered Delaunay, nx = 720: 519,841 dofs, ~1.04M
+    cells), -laplacian(), order=1, device="cuda") with forcing
+    2 pi^2 sin(pi x) sin(pi y), g = 0 and rtol 1e-12 ("auto" -> auxgrid),
+    every launch count zeroed before init() and K6's read after solve();
+    the solve must converge without the recovery step, with the true
+    residual recomputed on the host in f64 <= 1e-10 (CG stops on its
+    recurrence residual; the true one drifts from it by about iterations x
+    eps || |A| |x| || / ||b||, printed beside it), and an L2 error below
+    1e-5;
+13. harmonic reproduction through the same PDE on the same mesh (g = x + y,
+    f = 0, to 1e-9), and the entry() problem on unit_square_mesh(32)
+    (f = 4, g = 1 - x^2 - y^2) converges.
 
-Prints one JSON line of per-kernel results, then, as the last line,
+Prints one JSON line of per-kernel results (each with its bound on the
+card from this run's shapes: bytes over 3.35 TB/s or operations over the
+type's peak, whichever is larger), then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device or
 without the package beside it.
 """
@@ -48,8 +72,10 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 
 N_MAIN = 3200
@@ -60,6 +86,14 @@ SEED = 1234
 DEVICE = "cuda"
 SCRAMBLE = (4096, 1361)  # block size S and multiplier G (coprime) at n = 3200
 SCRAMBLE_SMALL = (512, 397)  # at n = 256
+NX_PDE = 720  # bench.py's `general` group at full size (bench.py:695-705)
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and the vector (non-tensor
+# core) peaks of the types these kernels compute in
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 67e12}
+# operations per cell of the closed forms (b, c, det, 1/(2|det|), 4 per
+# unique entry)
+OPS_PER_CELL = {"K6": 40, "K4": 35, "K5": 23}
 
 
 def log(msg):
@@ -101,6 +135,15 @@ def time_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def least_time(nbytes, ops, dtype):
+    """The least time the card could take: bytes moved (each input read and
+    each output written once) over HBM bandwidth, or operations over the
+    type's peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def synced_seconds(fn):
@@ -147,16 +190,24 @@ def phase_kernel_vs_plain(ak):
     k2, p2 = time_ms(kernel, 50), time_ms(plain, 5)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     cells = 2 * n * n
+    # reads the X, Y planes, writes 7 layers; every cell's closed form plus
+    # six adds per stencil entry
+    b = least_time(9 * m * m * 4, cells * OPS_PER_CELL["K6"] + 6 * 7 * m * m, torch.float32)
     log(f"K1 n={n} float32: kernel {k1:.4f} / {k2:.4f} ms "
         f"({cells / (ms * 1e-3):.4e} elements/s), plain {p1:.4f} / {p2:.4f} ms "
-        f"({cells / (plain_ms * 1e-3):.4e} elements/s)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"({cells / (plain_ms * 1e-3):.4e} elements/s); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
 def zero_launch_counts(ak, gs):
     """Set every kernel wrapper's launch count to 0."""
+    from fdapde_core_tpu_torch.ops import local_stiffness as ls
+
     ak.p1_stencil_launches = 0
     gs.ell_spmv_launches = 0
+    ls.p1_stiffness_2d_launches = 0
+    ls.p1_stiffness_edges_launches = 0
+    ls.p1_stiffness_edges_offdiag_launches = 0
 
 
 def phase_main_path(ak, gs, StructuredPoisson):
@@ -269,16 +320,28 @@ def phase_k2_vs_plain(gs):
         check(bool(torch.isfinite(got).all()), f"K2 {name} produced non-finite values")
         check(torch.equal(got, gs.ell_spmv(V, C, xv)), f"K2 {name} is not bitwise stable")
         if name in ("float32", "float64"):
+            # the same product as one library call: a CSR SpMV through
+            # torch.sparse on the same K entries per row (timed, never used)
+            csr = torch.sparse_csr_tensor(
+                torch.arange(0, K * n + 1, K, dtype=torch.int64, device=DEVICE),
+                C.T.contiguous().reshape(-1).long(), V.T.contiguous().reshape(-1), (n, src),
+                check_invariants=False)
+            lib_err = (csr @ xv - ref).abs().max().item()
             kernel = lambda: gs.ell_spmv(V, C, xv)  # noqa: E731
             plain = lambda: gs.ell_spmv_reference(V, C, xv)  # noqa: E731
-            k1, p1 = time_ms(kernel, 50), time_ms(plain, 5)
-            k2, p2 = time_ms(kernel, 50), time_ms(plain, 5)
-            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            library = lambda: csr @ xv  # noqa: E731
+            k1, p1, l1 = time_ms(kernel, 50), time_ms(plain, 5), time_ms(library, 50)
+            k2, p2, l2 = time_ms(kernel, 50), time_ms(plain, 5), time_ms(library, 50)
+            ms, plain_ms, library_ms = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+            del csr
             nbytes = K * n * (V.element_size() + 4) + 2 * n * xv.element_size()
+            b = least_time(nbytes, 2 * K * n, V.dtype)
             log(f"K2 {name} n={N_MAIN}: kernel {k1:.4f} / {k2:.4f} ms "
                 f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes / 1e9:.3f} GB computed), "
-                f"plain {p1:.4f} / {p2:.4f} ms")
-            out[name] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms)
+                f"plain {p1:.4f} / {p2:.4f} ms, torch.sparse CSR {l1:.4f} / {l2:.4f} ms "
+                f"(max|csr-plain| {lib_err:.3e}); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            out[name] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, **b)
     return out["float32"]
 
 
@@ -358,6 +421,224 @@ def phase_general_harmonic():
     check(err < 1e-9, "harmonic data not reproduced to 1e-9 on the general path")
 
 
+def delaunay_mesh(nx, seed=7, amp=0.35):
+    """bench.py's `general` mesh (bench.py:695-705): the (nx+1)^2 lattice
+    with interior nodes jittered by +-amp h, scipy Delaunay. Host NumPy:
+    (nodes (N, 2), cells (C, 3) int32, boundary (N,) bool)."""
+    from scipy.spatial import Delaunay
+
+    rng = np.random.default_rng(seed)
+    ii, jj = np.meshgrid(np.arange(nx + 1), np.arange(nx + 1), indexing="ij")
+    pts = np.stack([ii, jj], axis=-1).reshape(-1, 2).astype(np.float64)
+    interior = (pts[:, 0] > 0) & (pts[:, 0] < nx) & (pts[:, 1] > 0) & (pts[:, 1] < nx)
+    pts[interior] += rng.uniform(-amp, amp, size=(interior.sum(), 2))
+    pts /= nx
+    return pts, Delaunay(pts).simplices.astype(np.int32), ~interior
+
+
+def criss_cross_cells(n):
+    """(2 n^2, 3) cells of the n x n criss-cross split on the card, the
+    type-A block (a, b, a+1) then the type-B block (b, b+1, a+1), a = node
+    (i, j), b = node (i+1, j): the order p1_grid_stencil reads."""
+    m = n + 1
+    ar = torch.arange(n, device=DEVICE)
+    a = (ar[:, None] * m + ar[None, :]).reshape(-1)
+    b = a + m
+    return torch.cat([torch.stack([a, b, a + 1], 1), torch.stack([b, b + 1, a + 1], 1)])
+
+
+def phase_local_stiffness(ak, gs, ls, pts, cells):
+    """K4, K5 and K6 against their plain versions, timed (K6 on the cells of
+    phase 12's mesh); then the structured-stencil path through K4 and K5
+    against K1. Returns {name: measurements} with K4's and K5's launches on
+    that path."""
+    from fdapde_core_tpu_torch.ops.grid_assembly import (
+        p1_grid_stencil,
+        p1_grid_stencil_offdiag,
+        stencil_from_coords,
+    )
+
+    def compare(name, kernel, plain, inp, where):
+        got, ref = kernel(inp), plain(inp)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 8 * torch.finfo(inp.dtype).eps * ref.abs().max().item()
+        stable = torch.equal(got, kernel(inp))
+        log(f"{name} {where} {inp.dtype} {tuple(inp.shape)}: max|kernel-plain| = {err:.3e} "
+            f"(tol {tol:.3e}), bitwise stable: {stable}")
+        check(err <= tol, f"{name} {where} {inp.dtype} disagrees with its plain version")
+        check(bool(torch.isfinite(got).all()), f"{name} {where} produced non-finite entries")
+        check(stable, f"{name} is not bitwise stable from run to run")
+        return err
+
+    def timed(name, kernel, plain, inp, out_rows, where):
+        k1, p1 = time_ms(lambda: kernel(inp), 20), time_ms(lambda: plain(inp), 5)
+        k2, p2 = time_ms(lambda: kernel(inp), 20), time_ms(lambda: plain(inp), 5)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        cells = inp[0].numel()
+        nbytes = cells * (inp.shape[0] + out_rows) * inp.element_size()
+        b = least_time(nbytes, cells * OPS_PER_CELL[name], inp.dtype)
+        log(f"{name} {where} {inp.dtype}: kernel {k1:.4f} / {k2:.4f} ms "
+            f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes / 1e9:.4f} GB computed), "
+            f"plain {p1:.4f} / {p2:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+    out = {}
+    # K6 at the PDE path's shapes: the (6, C) coordinates of phase 12's mesh
+    coords64 = torch.as_tensor(pts[cells].reshape(-1, 6).T.copy(), device=DEVICE)
+    for dtype in (torch.float64, torch.float32):
+        c = coords64.to(dtype)
+        err = compare("K6", ls.p1_stiffness_2d, ls.p1_stiffness_2d_reference, c, f"nx={NX_PDE}")
+        if dtype == torch.float64:
+            out["K6"] = dict(max_abs_err=err, **timed(
+                "K6", ls.p1_stiffness_2d, ls.p1_stiffness_2d_reference, c, 9, f"nx={NX_PDE}"))
+    del coords64, c
+
+    # all three on the perturbed n = 3200 criss-cross mesh in f32
+    n = N_MAIN
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    X, Y = perturbed_planes(n, torch.float32, gen)
+    tri = criss_cross_cells(n)
+    xs, ys = X.reshape(-1), Y.reshape(-1)
+    coords = torch.stack([v[tri[:, k]] for k in range(3) for v in (xs, ys)])
+    edges = torch.stack([coords[2] - coords[0], coords[3] - coords[1],
+                         coords[4] - coords[0], coords[5] - coords[1]])
+    del tri
+    where = f"n={n}"
+    compare("K6", ls.p1_stiffness_2d, ls.p1_stiffness_2d_reference, coords, where)
+    timed("K6", ls.p1_stiffness_2d, ls.p1_stiffness_2d_reference, coords, 9, where)
+    del coords
+    for name, kernel, plain, rows in (
+        ("K4", ls.p1_stiffness_edges, ls.p1_stiffness_edges_reference, 6),
+        ("K5", ls.p1_stiffness_edges_offdiag, ls.p1_stiffness_edges_offdiag_reference, 3),
+    ):
+        err = compare(name, kernel, plain, edges, where)
+        out[name] = dict(max_abs_err=err, **timed(name, kernel, plain, edges, rows, where))
+    compare("K4 eps=0.5", lambda e: ls.p1_stiffness_edges(e, 0.5),
+            lambda e: ls.p1_stiffness_edges_reference(e, 0.5), edges, where)
+
+    # the structured-stencil path: K4 / K5 local matrices -> grid stencil
+    zero_launch_counts(ak, gs)
+    G4 = p1_grid_stencil(ls.p1_stiffness_edges(edges), n)
+    G5 = p1_grid_stencil_offdiag(ls.p1_stiffness_edges_offdiag(edges), n)
+    out["K4"]["launches"] = ls.p1_stiffness_edges_launches
+    out["K5"]["launches"] = ls.p1_stiffness_edges_offdiag_launches
+    G1 = stencil_from_coords(X, Y, n)
+    torch.cuda.synchronize()
+    tol = 32 * torch.finfo(torch.float32).eps * G1.data.abs().max().item()
+    for name, G in (("p1_grid_stencil(K4)", G4), ("p1_grid_stencil_offdiag(K5)", G5)):
+        err = (G.data - G1.data).abs().max().item()
+        log(f"{name} n={n} float32 vs K1 stencil_from_coords: max diff {err:.3e} (tol {tol:.3e})")
+        check(G.offsets2d == G1.offsets2d and err <= tol, f"{name} disagrees with K1's stencil")
+    check(out["K4"]["launches"] > 0 and out["K5"]["launches"] > 0,
+          "the structured-stencil path never launched K4 / K5")
+    return out
+
+
+def phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh):
+    """PDE(mesh, -laplacian()).init().solve() at nx = 720 on the mesh
+    delaunay_mesh built in t_mesh seconds; returns (pde, K6 launches)."""
+    import fdapde_core_tpu_torch as fdt
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = fdt.Triangulation(pts, cells, bnd)
+    t_mesh += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pde = fdt.PDE(mesh, -fdt.laplacian(), order=1, device=DEVICE)
+    q = pde.quadrature_nodes()
+    pde.space.scatter  # the sorted-COO pattern, computed once per space
+    t_space = time.perf_counter() - t0
+    pde.set_forcing(2 * np.pi ** 2 * np.sin(np.pi * q[:, 0]) * np.sin(np.pi * q[:, 1]))
+    pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
+
+    # the fixed-order scatter tables (host, once per space and device),
+    # which init() would otherwise build on its first call
+    _, t_tables = synced_seconds(lambda: [pde.space.segment_sum(w, pde.device)
+                                          for w in ("matrix", "forcing")])
+    zero_launch_counts(ak, gs)
+    _, t_init = synced_seconds(pde.init)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        x, t_solve = synced_seconds(pde.solve)
+    k6_launches, k2_launches = ls.p1_stiffness_2d_launches, gs.ell_spmv_launches
+    recovered = any("escalating to GMRES" in str(w.message) for w in caught)
+    info = pde.solve_info
+
+    # true residual of the masked system, recomputed on the host in f64,
+    # beside its rounding floor eps || |A~| |x| || / ||b~||
+    A = pde.stiff().to_scipy()
+    free = ~pde.space.boundary_dofs
+    xh = x.cpu().numpy()
+    b_mod = pde.force().cpu().numpy() * free
+    r = b_mod - (free * (A @ (free * xh)) + ~free * xh)
+    rel = float(np.linalg.norm(r) / np.linalg.norm(b_mod))
+    absA = abs(A)
+    floor = float(np.finfo(np.float64).eps * np.linalg.norm(
+        free * (absA @ (free * abs(xh))) + ~free * abs(xh)) / np.linalg.norm(b_mod))
+    c = pde.dof_coords()
+    l2 = float(np.sqrt(pde.l2_error(np.sin(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1]))))
+    log(f"PDE main path nx={NX_PDE} ({pde.n_dofs} dofs, {mesh.n_cells} cells, nnz "
+        f"{pde.stiff().nnz}): mesh {t_mesh:.4f} s, FEMSpace {t_space:.4f} s, init "
+        f"{t_tables + t_init:.4f} s (scatter tables {t_tables:.4f} s + assembly {t_init:.4f} s), "
+        f"solve {t_solve:.4f} s; {info.iterations} iterations, converged {info.converged}, "
+        f"recovery taken {recovered}, true rel residual (host f64) {rel:.4e} "
+        f"(rounding floor {floor:.4e}); "
+        f"L2 error {l2:.4e}; K6 launches {k6_launches}, K2 launches {k2_launches}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(k6_launches >= 1, "the PDE main path never launched the K6 kernel")
+    check(bool(torch.isfinite(x).all()) and x.shape == (pde.n_dofs,), "PDE solution shape / finite")
+    check(info.converged and not recovered, "the PDE solve did not converge without recovery")
+    # CG stops on its recurrence residual (1e-12); the true one drifts from
+    # it by about iterations x the rounding floor
+    check(rel <= 1e-10, f"true relative residual {rel:.3e} > 1e-10")
+    check(l2 < 1e-5, f"L2 error {l2:.3e} >= 1e-5")
+
+    # where the time goes: one warm solve under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, t_prof = synced_seconds(pde.solve)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernels:
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        log(f"profiled warm solve: {t_prof:.4f} s on the host clock, {len(kernels)} device "
+            f"events, device busy {busy:.4f} s ({100 * busy / t_prof:.1f} %); top by device time: "
+            + "; ".join(f"{name[:60]} {sec:.4f} s" for name, sec in top))
+    else:
+        log("profiled warm solve: the profiler recorded no device events (idle share not measured)")
+    return pde, k6_launches
+
+
+def phase_pde_harmonic(pde):
+    """Harmonic data through the same PDE and mesh; then entry()'s problem."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.geometry import unit_square_mesh
+
+    c = pde.dof_coords()
+    g = c[:, 0] + c[:, 1]
+    pde.set_dirichlet_bc(g)
+    pde.set_forcing(np.zeros(pde.quadrature_nodes().shape[0]))
+    pde.init()
+    x, t_solve = synced_seconds(pde.solve)
+    err = (x - torch.as_tensor(g, device=DEVICE)).abs().max().item()
+    log(f"PDE harmonic nx={NX_PDE}: max|x - g| = {err:.3e} ({pde.solve_info.iterations} "
+        f"iterations, {t_solve:.4f} s)")
+    check(err < 1e-9, "harmonic data not reproduced to 1e-9 through the PDE API")
+
+    small = fdt.PDE(unit_square_mesh(32), -fdt.laplacian(), order=1, device=DEVICE)
+    c = small.dof_coords()
+    small.set_forcing(np.full(small.quadrature_nodes().shape[0], 4.0))
+    small.set_dirichlet_bc(1.0 - c[:, 0] ** 2 - c[:, 1] ** 2)
+    small.solve()
+    log(f"entry() problem, unit_square_mesh(32): {small.report()}")
+    check(small.success, "the entry() problem did not converge")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -367,6 +648,7 @@ def main():
     from fdapde_core_tpu_torch.models import StructuredPoisson
     from fdapde_core_tpu_torch.ops import assembly_kernels as ak
     from fdapde_core_tpu_torch.ops import gather_spmv as gs
+    from fdapde_core_tpu_torch.ops import local_stiffness as ls
     from fdapde_core_tpu_torch.ops.grid_cg import grid_cg
 
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -396,6 +678,14 @@ def main():
     phase_matfree_poisson(ak, gs)
     torch.cuda.empty_cache()
     phase_general_harmonic()
+    torch.cuda.empty_cache()
+
+    (pts, cells, bnd), t_mesh = synced_seconds(lambda: delaunay_mesh(NX_PDE))
+    k456 = phase_local_stiffness(ak, gs, ls, pts, cells)
+    torch.cuda.empty_cache()
+    pde, k6_launches = phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh)
+    phase_pde_harmonic(pde)
+    del pde
 
     kernels = [dict(
         name="p1_stencil_layers",
@@ -411,6 +701,25 @@ def main():
         replaces="fdapde_core_tpu/ops/pallas_gather_spmv.py:563",
         launches=k2_launches,
         **k2,
+    ), dict(
+        name="p1_stiffness_2d",
+        route="cuda",
+        source="fdapde_core_tpu_torch/csrc/p1_local_stiffness.cu",
+        replaces="fdapde_core_tpu/ops/pallas_assembly.py:50",
+        launches=k6_launches,
+        **k456["K6"],
+    ), dict(
+        name="p1_stiffness_edges",
+        route="cuda",
+        source="fdapde_core_tpu_torch/csrc/p1_local_stiffness.cu",
+        replaces="fdapde_core_tpu/ops/pallas_assembly.py:107",
+        **k456["K4"],
+    ), dict(
+        name="p1_stiffness_edges_offdiag",
+        route="cuda",
+        source="fdapde_core_tpu_torch/csrc/p1_local_stiffness.cu",
+        replaces="fdapde_core_tpu/ops/pallas_assembly.py:152",
+        **k456["K5"],
     )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,10 @@ Conventions:
 
 - plain functions on tensors, dataclasses of tensors where JAX used pytrees,
 - every function takes its dtype and device from its arguments or inputs:
-  there is no global precision switch (JAX's x64 flag has no counterpart)
-  and no automatic device pick (constructors take ``device=``, default
-  ``"cpu"``),
+  there is no global precision switch (JAX's x64 flag has no counterpart),
+  and every entry point that creates tensors runs on the card unless the
+  caller asks for the CPU (``device=``, default ``"cuda"``; without a card
+  that default raises, it never falls back),
 - hand-written CUDA kernels live in ``csrc/`` and are built with ``nvcc``
   at first use (``_build.py``); on CPU tensors every kernel wrapper runs its
   plain PyTorch version instead, so importing the package and running it on
@@ -23,9 +24,16 @@ kernel it runs (``ops/assembly_kernels.py``, ``csrc/p1_stencil.cu``); the
 general-mesh gather path (``models.MatrixFreePoisson``,
 ``models.MatrixFreeElliptic`` with ``gather_kernel="xla"`` or ``"lane"``)
 and the ELL gather SpMV kernel it runs (``ops/gather_spmv.py``,
-``csrc/ell_spmv.cu``).
+``csrc/ell_spmv.cu``); the general-mesh PDE API (``PDE`` over a
+``Triangulation`` and ``FEMSpace``, ``fem/assembler.py``,
+``linear_algebra/sparse.py``, ``fem/solvers.solve_elliptic``) and the
+closed-form P1 local-stiffness kernels it runs (``ops/local_stiffness.py``,
+``csrc/p1_local_stiffness.cu``).
 """
 
-from . import fem, geometry, linear_algebra, models, ops
+from . import fem, geometry, linear_algebra, models, ops, pde, utils
+from .fem import FEMSpace
+from .geometry import Triangulation
+from .pde import PDE, advection, diffusion, laplacian, reaction
 
 __version__ = "0.1.0"

@@ -33,13 +33,19 @@ NVCC_FLAGS = (
 )
 
 # C entry points: (name, argtypes); every one returns a cudaError_t as int
-_VP, _I64 = ctypes.c_void_p, ctypes.c_int64
+_VP, _I64, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
     "p1_stencil_layers_f32": (_VP, _VP, _I64, _I64, _I64, _VP, _I64, _I64, _VP),
     "p1_stencil_layers_f64": (_VP, _VP, _I64, _I64, _I64, _VP, _I64, _I64, _VP),
     "ell_spmv_f32": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
     "ell_spmv_f64": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
     "ell_spmv_bf16": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
+    "p1_stiffness_2d_f32": (_VP, _VP, _I64, _VP),
+    "p1_stiffness_2d_f64": (_VP, _VP, _I64, _VP),
+    "p1_stiffness_edges_f32": (_VP, _VP, _I64, _F64, _VP),
+    "p1_stiffness_edges_f64": (_VP, _VP, _I64, _F64, _VP),
+    "p1_stiffness_edges_offdiag_f32": (_VP, _VP, _I64, _F64, _VP),
+    "p1_stiffness_edges_offdiag_f64": (_VP, _VP, _I64, _F64, _VP),
 }
 
 

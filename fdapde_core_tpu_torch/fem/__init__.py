@@ -1,5 +1,10 @@
-"""FEM solvers ported so far: ``DirichletSystem`` (symmetric masking)."""
+"""FEM: reference elements and Lagrange bases (host copies), ``FEMSpace``,
+batched assembly (``assembler``) and the Dirichlet-masked solvers
+(``solvers``)."""
 
-from .solvers import DirichletSystem
+from .assembler import assemble_forcing, assemble_matrix, local_matrices
+from .solvers import DirichletSystem, masked_matrix, solve_elliptic
+from .space import FEMSpace
 
-__all__ = ["DirichletSystem"]
+__all__ = ["DirichletSystem", "FEMSpace", "assemble_forcing", "assemble_matrix",
+           "local_matrices", "masked_matrix", "solve_elliptic"]

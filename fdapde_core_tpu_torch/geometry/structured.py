@@ -1,7 +1,10 @@
-"""Irregular triangulations of [0, 1]^2 generated on the device.
+"""Triangulations of [0, 1]^2: the uniform host mesh and irregular device
+meshes.
 
-Port of ``fdapde_core_tpu/geometry/structured.py`` ``irregular_mesh_device``
-and ``irregular_mesh_device_soa``: the same deterministic sin-hash picks
+Port of ``fdapde_core_tpu/geometry/structured.py``. ``unit_square_mesh``
+is a NumPy copy (a host ``Triangulation``, the node and cell numbering of
+the JAX function). In ``irregular_mesh_device`` and
+``irregular_mesh_device_soa`` the same deterministic sin-hash picks
 each quad's diagonal and jitters the interior nodes, so the same ``n`` and
 ``amp`` give the same mesh as the JAX package.
 
@@ -13,9 +16,32 @@ Both functions therefore default to float64.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["irregular_mesh_device", "irregular_mesh_device_soa"]
+from .triangulation import Triangulation
+
+__all__ = ["irregular_mesh_device", "irregular_mesh_device_soa", "unit_square_mesh"]
+
+
+def unit_square_mesh(n: int) -> Triangulation:
+    """Uniform triangulation of [0,1]^2 with (n+1)^2 nodes, 2*n^2 cells."""
+    xs = np.linspace(0.0, 1.0, n + 1)
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    nodes = np.stack([X.reshape(-1), Y.reshape(-1)], axis=1)
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    a = (i * (n + 1) + j).reshape(-1)  # lower-left node of each quad
+    b = a + (n + 1)  # lower-right (next row in x)
+    lower = np.stack([a, b, a + 1], axis=1)
+    upper = np.stack([b, b + 1, a + 1], axis=1)
+    cells = np.concatenate([lower, upper], axis=0).astype(np.int32)
+    boundary = (
+        (nodes[:, 0] == 0.0)
+        | (nodes[:, 0] == 1.0)
+        | (nodes[:, 1] == 0.0)
+        | (nodes[:, 1] == 1.0)
+    )
+    return Triangulation(nodes, cells, boundary)
 
 
 def _frac_hash(a, b, ka, kb, scale):
@@ -48,7 +74,7 @@ def _quad_corners(n, dtype, device):
 
 
 def irregular_mesh_device_soa(n: int, amp=0.2, dtype=torch.float64,
-                              device="cpu"):
+                              device="cuda"):
     """Irregular triangulation in SoA layout: (x, y, c0, c1, c2, boundary).
 
     x, y: (m^2,) node coordinates, node (i, j) at id i*m + j (m = n+1);
@@ -70,7 +96,7 @@ def irregular_mesh_device_soa(n: int, amp=0.2, dtype=torch.float64,
     return x, y, c0, c1, c2, on_bnd
 
 
-def irregular_mesh_device(n: int, amp=0.2, dtype=torch.float64, device="cpu"):
+def irregular_mesh_device(n: int, amp=0.2, dtype=torch.float64, device="cuda"):
     """The same mesh as ``irregular_mesh_device_soa`` in stacked layout:
     (nodes (m^2, 2), cells (2 n^2, 3) int32, boundary (m^2,) bool)."""
     x, y, c0, c1, c2, on_bnd = irregular_mesh_device_soa(n, amp, dtype, device)

@@ -1,5 +1,7 @@
-"""Krylov solvers ported so far (``solvers.py``): CG, BiCGStab, their
-chunked and split forms, and the Jacobi preconditioner."""
+"""Linear algebra ported so far: the sorted-COO ``SparseMatrix`` with
+fixed-order sums (``sparse.py``) and the Krylov solvers (``solvers.py``):
+CG, BiCGStab, GMRES, the chunked and split forms, and the Jacobi
+preconditioner."""
 
 from .solvers import (
     SolveInfo,
@@ -8,8 +10,11 @@ from .solvers import (
     cg,
     cg_chunked,
     cg_split_programs,
+    gmres,
     jacobi_preconditioner,
 )
+from .sparse import SegmentSum, SparseMatrix, coo_sum_duplicates
 
-__all__ = ["SolveInfo", "bicgstab", "bicgstab_chunked", "cg", "cg_chunked",
-           "cg_split_programs", "jacobi_preconditioner"]
+__all__ = ["SegmentSum", "SolveInfo", "SparseMatrix", "bicgstab", "bicgstab_chunked", "cg",
+           "cg_chunked", "cg_split_programs", "coo_sum_duplicates", "gmres",
+           "jacobi_preconditioner"]

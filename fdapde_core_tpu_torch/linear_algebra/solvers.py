@@ -1,8 +1,9 @@
-"""Preconditioned Krylov solvers: CG and BiCGStab.
+"""Preconditioned Krylov solvers: CG, BiCGStab and restarted GMRES.
 
 Port of ``fdapde_core_tpu/linear_algebra/solvers.py`` ``SolveInfo``,
-``cg``, ``bicgstab``, ``jacobi_preconditioner`` and the host-driven forms
-``cg_chunked``, ``bicgstab_chunked`` and ``cg_split_programs``. The JAX
+``cg``, ``bicgstab``, ``gmres``, ``jacobi_preconditioner`` and the
+host-driven forms ``cg_chunked``, ``bicgstab_chunked`` and
+``cg_split_programs``. The JAX
 package splits a solve into device programs to stay under a TPU
 executor's run-time and compile limits; PyTorch runs eagerly, so the
 chunked forms are the plain loop with a host hook after every ``chunk``
@@ -22,10 +23,11 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 __all__ = ["SolveInfo", "cg", "cg_chunked", "cg_split_programs", "bicgstab",
-           "bicgstab_chunked", "jacobi_preconditioner"]
+           "bicgstab_chunked", "gmres", "jacobi_preconditioner"]
 
 
 class SolveInfo(NamedTuple):
@@ -153,6 +155,77 @@ def bicgstab_chunked(A, b, M_inv=None, x0=None, rtol=1e-12, atol=0.0,
                      maxiter=200, chunk=10, on_chunk=None):
     """``bicgstab`` with the ``cg_chunked`` hook; the same iterates."""
     return _bicgstab(A, b, M_inv, x0, rtol, atol, maxiter, int(chunk), on_chunk)
+
+
+def gmres(A, b, M_inv=None, x0=None, rtol=1e-12, atol=0.0, maxiter=None, restart=20):
+    """Restarted, right-preconditioned GMRES(m) for general systems
+    (residual norms refer to the original system). Per cycle, ``restart``
+    Arnoldi steps with twice-iterated classical Gram-Schmidt and a
+    Givens-rotation least-squares solve; breakdown steps are guarded (a
+    zero divisor counts as 1), so a cycle always runs its m steps, as in
+    the JAX function. The (m+1)-sized Hessenberg column, rotations and back
+    substitution run on the host in b's precision. Reports iterations =
+    completed cycles x restart."""
+    op = _as_operator(A)
+    pre = _as_operator(M_inv) if M_inv is not None else _identity
+    n = b.shape[0]
+    m = min(restart, n)
+    if maxiter is None:
+        maxiter = 20 * n
+    max_cycles = max(1, -(-maxiter // m))
+    x = torch.zeros_like(b) if x0 is None else x0
+    tolf = float(_tolerance(b, rtol, atol))
+    hdt = np.float32 if b.dtype == torch.float32 else np.float64
+
+    def safe(z):
+        return z if z != 0 else 1.0
+
+    def cycle(x):
+        r = b - op(x)
+        beta = torch.linalg.norm(r)
+        V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+        V[0] = r / safe(float(beta))
+        R = np.zeros((m + 1, m), hdt)
+        g = np.zeros(m + 1, hdt)
+        g[0] = float(beta)
+        cs = np.zeros(m, hdt)
+        sn = np.zeros(m, hdt)
+        for j in range(m):
+            w = op(pre(V[j]))
+            Vj = V[:j + 1]
+            h1 = Vj @ w
+            w = w - Vj.T @ h1
+            h2 = Vj @ w  # CGS2 re-orthogonalization
+            w = w - Vj.T @ h2
+            hnext = torch.linalg.norm(w)
+            V[j + 1] = w / safe(float(hnext))
+            hcol = np.zeros(m + 1, hdt)
+            hcol[:j + 1] = (h1 + h2).cpu().numpy()
+            hcol[j + 1] = float(hnext)
+            for i in range(j):
+                hi, hi1 = hcol[i], hcol[i + 1]
+                hcol[i] = cs[i] * hi + sn[i] * hi1
+                hcol[i + 1] = -sn[i] * hi + cs[i] * hi1
+            denom = np.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
+            cs[j] = 1.0 if denom == 0 else hcol[j] / denom
+            sn[j] = 0.0 if denom == 0 else hcol[j + 1] / denom
+            hcol[j], hcol[j + 1] = denom, 0.0
+            gj = g[j]
+            g[j], g[j + 1] = cs[j] * gj, -sn[j] * gj
+            R[:, j] = hcol
+        y = np.zeros(m, hdt)
+        for i in range(m - 1, -1, -1):
+            y[i] = 0.0 if R[i, i] == 0 else (g[i] - R[i, :] @ y) / R[i, i]
+        return x + pre(V[:m].T @ torch.as_tensor(y, device=b.device))
+
+    k = 0
+    rnorm = torch.linalg.norm(b - op(x))
+    while float(rnorm) > tolf and k < max_cycles and math.isfinite(float(rnorm)):
+        x = cycle(x)
+        k += 1
+        rnorm = torch.linalg.norm(b - op(x))
+    rn = float(rnorm)
+    return x, SolveInfo(k * m, rnorm, rn <= tolf and math.isfinite(rn))
 
 
 def _guarded_div(num, den):

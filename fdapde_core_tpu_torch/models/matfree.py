@@ -78,7 +78,7 @@ class MatrixFreePoisson:
                  grid_n: int | None = None, bbox=None,
                  format: str = "ell", max_cols: int | None = None,
                  kappa=None, preconditioner: str = "auto",
-                 split_plan=None, device="cpu"):
+                 split_plan=None, device="cuda"):
         self.nodes = torch.as_tensor(nodes, device=device)
         self.cells = torch.as_tensor(cells, device=device).to(torch.int32)
         self.boundary = torch.as_tensor(boundary, device=device).to(torch.bool)
@@ -272,7 +272,7 @@ class MatrixFreeElliptic:
                  format: str = "ell", max_cols: int | None = None,
                  preconditioner: str = "auto", split_plan=None,
                  gather_kernel: str = "xla", aux_kernel: str = "xla",
-                 device="cpu"):
+                 device="cuda"):
         if gather_kernel not in _KERNELS:
             raise ValueError(f"gather_kernel must be one of {_KERNELS}, got {gather_kernel!r}")
         if aux_kernel not in _KERNELS:

@@ -30,7 +30,7 @@ class StructuredPoisson:
     """
 
     def __init__(self, n: int, dtype=torch.float32, coarse_n: int = 32,
-                 device="cpu"):
+                 device="cuda"):
         self.n = n
         self.m = n + 1
         self.dtype = dtype

@@ -60,7 +60,7 @@ class AuxGridPreconditioner:
     @classmethod
     def build(cls, nodes, diag, grid_n: int | None = None, bbox=None,
               grid_free=None, omega: float = 0.5, coarse_n: int = 32,
-              mg_nu: int = 2, dtype=None, device="cpu"):
+              mg_nu: int = 2, dtype=None, device="cuda"):
         """Host setup (numpy) for (n, 2) node coordinates and the (n,)
         diagonal of the masked mesh operator. grid_n defaults to ~sqrt(n),
         rounded to even; bbox to the nodes' bounding box; grid_free (an

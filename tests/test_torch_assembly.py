@@ -58,24 +58,25 @@ def _tol(dtype, ref):
     return 8 * np.finfo(np.float32).eps * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("dtype", [np.float64, np.float32])
-def test_stencil_layers_match_jax(dtype):
+def test_stencil_layers_match_jax():
     """Plain version and CPU wrapper == JAX p1_stencil_layers_from_coords,
-    padded layout, element for element."""
-    for perturbed in (False, True):
-        for n in (8, 16, 37):
-            X, Y = _planes(n, perturbed)
-            X, Y = X.astype(dtype), Y.astype(dtype)
-            ref = np.asarray(j_layers(jnp.asarray(X), jnp.asarray(Y), n))
-            tX, tY = torch.from_numpy(X), torch.from_numpy(Y)
-            plain = ak.p1_stencil_layers_from_coords_reference(tX, tY, n).numpy()
-            wrapped = ak.p1_stencil_layers_from_coords(tX, tY, n).numpy()
-            assert plain.shape == ref.shape == (7, n + 16, 128)
-            atol = _tol(dtype, ref)
-            np.testing.assert_allclose(plain, ref, rtol=0, atol=atol)
-            np.testing.assert_array_equal(wrapped, plain)
-            if perturbed:  # the anti-diagonal layers are live here
-                assert np.abs(ref[GRID_OFFSETS2D.index((-1, 1))]).max() > 1e-3
+    padded layout, element for element, in f64 and f32."""
+    for dtype in (np.float64, np.float32):
+        for perturbed in (False, True):
+            for n in (8, 16, 37):
+                case = f"{dtype.__name__} n={n} perturbed={perturbed}"
+                X, Y = _planes(n, perturbed)
+                X, Y = X.astype(dtype), Y.astype(dtype)
+                ref = np.asarray(j_layers(jnp.asarray(X), jnp.asarray(Y), n))
+                tX, tY = torch.from_numpy(X), torch.from_numpy(Y)
+                plain = ak.p1_stencil_layers_from_coords_reference(tX, tY, n).numpy()
+                wrapped = ak.p1_stencil_layers_from_coords(tX, tY, n).numpy()
+                assert plain.shape == ref.shape == (7, n + 16, 128), case
+                atol = _tol(dtype, ref)
+                np.testing.assert_allclose(plain, ref, rtol=0, atol=atol, err_msg=case)
+                np.testing.assert_array_equal(wrapped, plain, err_msg=case)
+                if perturbed:  # the anti-diagonal layers are live here
+                    assert np.abs(ref[GRID_OFFSETS2D.index((-1, 1))]).max() > 1e-3, case
 
 
 def test_stencil_from_coords_matches_jax():
@@ -183,11 +184,37 @@ def test_port_never_imports_jax():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_card():
-    """The CUDA kernel == its plain version on the card: perturbed geometry,
-    junk-padded planes, n not a multiple of 128, f32 and f64 (tolerance
-    8 eps max|L|: nvcc contracts products into FMAs)."""
+    """The CUDA kernels K1 and K4-K6 == their plain versions on the card:
+    perturbed geometry, junk-padded planes, n not a multiple of 128, cell
+    counts not a multiple of the block, f32 and f64 (tolerance 8 eps max|L|:
+    nvcc contracts products into FMAs); bitwise stable."""
+    from fdapde_core_tpu_torch.ops import local_stiffness as ls
+
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    rng = np.random.default_rng(4)
+    for dtype in (torch.float32, torch.float64):
+        for C in (1, 777, 70001):
+            p = rng.uniform(size=(C, 3, 2))
+            coords = torch.from_numpy(p.reshape(C, 6).T.copy()).to("cuda", dtype)
+            edges = torch.from_numpy(np.stack([p[:, 1, 0] - p[:, 0, 0], p[:, 1, 1] - p[:, 0, 1],
+                                               p[:, 2, 0] - p[:, 0, 0], p[:, 2, 1] - p[:, 0, 1]]))
+            edges = edges.to("cuda", dtype)
+            for name, kernel, plain, inp in (
+                ("K6", ls.p1_stiffness_2d, ls.p1_stiffness_2d_reference, coords),
+                ("K4", ls.p1_stiffness_edges, ls.p1_stiffness_edges_reference, edges),
+                ("K5", ls.p1_stiffness_edges_offdiag, ls.p1_stiffness_edges_offdiag_reference, edges),
+            ):
+                counter = {"K6": "p1_stiffness_2d_launches", "K4": "p1_stiffness_edges_launches",
+                           "K5": "p1_stiffness_edges_offdiag_launches"}[name]
+                before = getattr(ls, counter)
+                got = kernel(inp)
+                torch.cuda.synchronize()
+                assert getattr(ls, counter) == before + 1, name
+                ref = plain(inp)
+                tol = 8 * torch.finfo(dtype).eps * ref.abs().max().item()
+                assert (got - ref).abs().max().item() <= tol, f"{name} {dtype} C={C}"
+                assert torch.equal(got, kernel(inp)), f"{name} is not bitwise stable"
     for dtype in (torch.float32, torch.float64):
         for n in (8, 37, 257):
             X, Y = _planes(n, True, W=-(-(n + 1) // 128) * 128)

@@ -106,8 +106,8 @@ def test_soa_pipeline_matches_jax():
     with_added_diagonal (1e-13 of scale) and the band plan (equal)."""
     n = 24
     for name, ref, got in (
-        ("soa", j_mesh_soa(n, 0.2, dtype=jnp.float64), irregular_mesh_device_soa(n, 0.2)),
-        ("stacked", j_mesh(n, 0.2, dtype=jnp.float64), irregular_mesh_device(n, 0.2)),
+        ("soa", j_mesh_soa(n, 0.2, dtype=jnp.float64), irregular_mesh_device_soa(n, 0.2, device="cpu")),
+        ("stacked", j_mesh(n, 0.2, dtype=jnp.float64), irregular_mesh_device(n, 0.2, device="cpu")),
     ):
         for k, (r, g) in enumerate(zip(ref, got)):
             r, g = np.asarray(r), _np(g)
@@ -185,7 +185,7 @@ def test_soa_pipeline_matches_jax():
         # band plan: the lattice numbering is banded, the scrambled one not
         assert plan_split_width(tE) == j_plan(jE), f"plan_split_width ({kind})"
     vals, cols, nd_s = _scrambled_fem_ell(n, S=128, G=29)
-    E_s = ell_from_numpy(vals, cols, (nd_s, nd_s))
+    E_s = ell_from_numpy(vals, cols, (nd_s, nd_s), device="cpu")
     assert plan_split_width(E_s) == j_plan(jms.ELLSoA(jnp.asarray(vals), jnp.asarray(cols),
                                                       (nd_s, nd_s))) == (None, 0), \
         "plan_split_width must reject the scrambled numbering"
@@ -200,7 +200,7 @@ def test_lane_routed_ell_matches_jax():
     wrapper's argument checks (no launch counted on the CPU)."""
     vals, cols, nd = _scrambled_fem_ell()
     jE = jms.ELLSoA(jnp.asarray(vals), jnp.asarray(cols), (nd, nd))
-    E = ell_from_numpy(vals, cols, (nd, nd))
+    E = ell_from_numpy(vals, cols, (nd, nd), device="cpu")
     jop = JLane.from_ell(jE, p_max=12, rounds=12)
     launches = gs.ell_spmv_launches
     op = LaneRoutedELL.from_ell(E, p_max=12, rounds=12)
@@ -235,7 +235,7 @@ def test_lane_routed_ell_matches_jax():
     rvals = rng.standard_normal((K, n))
     rvals[0, 7] = 0.0
     jR = JLane.from_ell(jms.ELLSoA(jnp.asarray(rvals), jnp.asarray(rcols), (n, n_src)))
-    R = LaneRoutedELL.from_ell(ell_from_numpy(rvals, rcols, (n, n_src)))
+    R = LaneRoutedELL.from_ell(ell_from_numpy(rvals, rcols, (n, n_src), device="cpu"))
     assert R.shape == (n, n_src) == jR.shape, "rectangular shape"
     w = rng.standard_normal(n_src)
     np.testing.assert_allclose(_np(R @ _t(w)), np.asarray(jR @ jnp.asarray(w)),
@@ -257,9 +257,9 @@ def test_lane_routed_ell_matches_jax():
     with pytest.raises(ValueError, match="remap"):
         op.with_vals(S_ell)
     with pytest.raises(ValueError):  # other sparsity
-        LaneRoutedELL.from_ell(E, keep_remap=True).with_vals(ell_from_numpy(rvals, rcols, (n, n_src)))
+        LaneRoutedELL.from_ell(E, keep_remap=True).with_vals(ell_from_numpy(rvals, rcols, (n, n_src), device="cpu"))
     with pytest.raises(ValueError):  # a column outside [0, n_src)
-        LaneRoutedELL.from_ell(ell_from_numpy(rvals, rcols, (n, 3000)))
+        LaneRoutedELL.from_ell(ell_from_numpy(rvals, rcols, (n, 3000), device="cpu"))
 
     # the wrapper on CPU tensors: plain version, argument checks, no count
     vt = _t(v)
@@ -286,7 +286,7 @@ def test_auxgrid_and_solvers_match_jax():
     nd = x.shape[0]
     jop, _ = jms.MatrixFreeSoA.build(*(jnp.asarray(a) for a in (x, y, c0, c1, c2)), nd, 8)
     jE, _ = jax.jit(lambda o: o.to_ell(9))(jop)
-    E = ell_from_numpy(jE.vals, jE.cols, jE.shape)
+    E = ell_from_numpy(jE.vals, jE.cols, jE.shape, device="cpu")
     jsys, sys = JDirichlet(jE, jnp.asarray(bnd)), DirichletSystem(E, _t(bnd))
     diag = np.asarray(jsys.diagonal())
     np.testing.assert_allclose(_np(sys.diagonal()), diag, rtol=1e-14, err_msg="DirichletSystem.diagonal")
@@ -296,7 +296,8 @@ def test_auxgrid_and_solvers_match_jax():
     jaux = JAux.build_device((jnp.asarray(x), jnp.asarray(y)), jnp.asarray(diag, jnp.float32))
     aux = AuxGridPreconditioner.build_device((_t(x), _t(y)), _t(diag).float())
     jaux_h = JAux.build(np.stack([x, y], 1), jnp.asarray(diag, jnp.float32), grid_n=24)
-    aux_h = AuxGridPreconditioner.build(np.stack([x, y], 1), _t(diag).float(), grid_n=24)
+    aux_h = AuxGridPreconditioner.build(np.stack([x, y], 1), _t(diag).float(), grid_n=24,
+                                        device="cpu")
     for name, j, t in (("build_device", jaux, aux), ("build", jaux_h, aux_h)):
         assert t.n_grid == j.n_grid and t.mg.shapes == tuple(j.mg.shapes), f"{name}: grid"
         np.testing.assert_array_equal(_np(t.idx), np.asarray(j.idx), err_msg=f"{name}: idx")
@@ -377,40 +378,42 @@ def test_models_match_jax():
 
     compare("MatrixFreePoisson",
             JPoisson(jnp.asarray(nodes), jnp.asarray(cells), jnp.asarray(bnd), preconditioner="auxgrid"),
-            MatrixFreePoisson(_t(nodes), _t(cells), _t(bnd), preconditioner="auxgrid"), 1e-10)
+            MatrixFreePoisson(_t(nodes), _t(cells), _t(bnd), preconditioner="auxgrid", device="cpu"),
+            1e-10)
     compare("MatrixFreePoisson chunked",
             JPoisson(jnp.asarray(nodes), jnp.asarray(cells), jnp.asarray(bnd), preconditioner="auxgrid",
                      format="matfree"),
             MatrixFreePoisson(_t(nodes), _t(cells), _t(bnd), preconditioner="auxgrid",
-                              format="matfree"), 1e-10, chunk=10)
+                              format="matfree", device="cpu"), 1e-10, chunk=10)
     adv = dict(K=1.0, b=(1.0, 0.5), c=0.5, preconditioner="auxgrid")
     compare("MatrixFreeElliptic advection (bicgstab)",
             JElliptic((jnp.asarray(x), jnp.asarray(y)), jnp.asarray(cells), jnp.asarray(bnd), **adv),
-            MatrixFreeElliptic((_t(x), _t(y)), _t(cells), _t(bnd), **adv), 1e-10)
+            MatrixFreeElliptic((_t(x), _t(y)), _t(cells), _t(bnd), device="cpu", **adv), 1e-10)
 
     xs, ys, cells_s, bnd_s = _scrambled_mesh(n, S=256, G=89)
     lane = dict(K=1.0, c=0.5, preconditioner="auxgrid", gather_kernel="lane")
     jm = JElliptic((jnp.asarray(xs), jnp.asarray(ys)), jnp.asarray(cells_s), jnp.asarray(bnd_s), **lane)
-    tm = MatrixFreeElliptic((_t(xs), _t(ys)), _t(cells_s), _t(bnd_s), **lane)
+    tm = MatrixFreeElliptic((_t(xs), _t(ys)), _t(cells_s), _t(bnd_s), device="cpu", **lane)
     assert tm.preconditioner == jm.preconditioner == "auxgrid+lane"
     assert tm.op.vals.dtype == torch.float32 and tm.op_ref.vals.dtype == torch.float64
     assert plan_split_width(tm.op_ref) == (None, 0), "scrambled numbering must be rejected"
     compare("MatrixFreeElliptic lane", jm, tm, 1e-10, it_slack=1)
     with pytest.raises(NotImplementedError):  # the plan accepts the lattice numbering
-        MatrixFreeElliptic((_t(x), _t(y)), _t(cells), _t(bnd), K=1.0)
+        MatrixFreeElliptic((_t(x), _t(y)), _t(cells), _t(bnd), K=1.0, device="cpu")
 
     # gather_kernel / aux_kernel validation (JAX accepts these silently)
     mesh = ((_t(xs), _t(ys)), _t(cells_s), _t(bnd_s))
     for bad in (dict(aux_kernel="lanes", gather_kernel="lane"), dict(aux_kernel="lane"),
                 dict(gather_kernel="pallas")):
         with pytest.raises(ValueError):
-            MatrixFreeElliptic(*mesh, preconditioner="auxgrid", **bad)
+            MatrixFreeElliptic(*mesh, preconditioner="auxgrid", device="cpu", **bad)
     with pytest.raises(NotImplementedError):
-        MatrixFreeElliptic(*mesh, preconditioner="auxgrid", gather_kernel="lane", aux_kernel="lane")
+        MatrixFreeElliptic(*mesh, preconditioner="auxgrid", gather_kernel="lane", aux_kernel="lane",
+                           device="cpu")
     with pytest.raises(NotImplementedError):
         MatrixFreeElliptic.from_space(None)
     with pytest.raises(NotImplementedError):
-        MatrixFreeParabolic(_t(nodes), _t(cells), _t(bnd), dt=1e-3)
+        MatrixFreeParabolic(_t(nodes), _t(cells), _t(bnd), dt=1e-3, device="cpu")
 
 
 @pytest.mark.cuda
