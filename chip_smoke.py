@@ -59,7 +59,29 @@ Phases (each raises on failure; nothing is caught):
     1e-5;
 13. harmonic reproduction through the same PDE on the same mesh (g = x + y,
     f = 0, to 1e-9), and the entry() problem on unit_square_mesh(32)
-    (f = 4, g = 1 - x^2 - y^2) converges.
+    (f = 4, g = 1 - x^2 - y^2) converges;
+14. hold the off-diagonal-planes kernel K3 against its plain version (n =
+    3200 in f32 at its path's shapes; n = 257 in f32 and f64 on junk-padded
+    planes), tolerance 8 eps(dtype) max|plane|, bitwise stable, both timed
+    with CUDA events; then, with the launch counts zeroed, its path
+    stencil_from_offdiag_planes(K3) against K1's stencil_from_coords on the
+    same planes (32 eps max|L|);
+16. drive the DIA-storage API path at unit_square_mesh(1024) (1,050,625
+    dofs) in f64 with every launch count zeroed: assemble_dia ->
+    prune_zero_offsets -> solve_elliptic (Jacobi CG, forcing
+    2 pi^2 sin(pi x) sin(pi y), g = 0, rtol 1e-8) converges, its true
+    residual recomputed in f64 printed beside its rounding floor, and K7
+    launched at least once per iteration; GridDIAMatrix.from_dia -> GridMG
+    MG-CG converges in <= 15 iterations and agrees with the Jacobi solution
+    to 1e-6 max|x|; harmonic g = x + y through solve_elliptic on the DIA
+    operator (V-cycle preconditioner) is reproduced to 1e-9;
+15. (run after 16, on its operator) hold the DIA SpMV kernel K7 against its
+    plain version on the DIA path's (5, 1,050,625) f64 operator and on the
+    n = 3200 K1 stencil flattened to a (7, 10,246,401) f32 DIA matrix (whose
+    entries that would wrap across a grid row are checked to be exactly 0,
+    so it equals the grid stencil's product); per-row tolerance K eps
+    sum_k |data x|, bitwise stable; time K7, the plain version and a
+    torch.sparse CSR SpMV (cuSPARSE, built once from to_sparse()) on each.
 
 Prints one JSON line of per-kernel results (each with its bound on the
 card from this run's shapes: bytes over 3.35 TB/s or operations over the
@@ -87,13 +109,16 @@ DEVICE = "cuda"
 SCRAMBLE = (4096, 1361)  # block size S and multiplier G (coprime) at n = 3200
 SCRAMBLE_SMALL = (512, 397)  # at n = 256
 NX_PDE = 720  # bench.py's `general` group at full size (bench.py:695-705)
+N_DIA = 1024  # the DIA path's unit_square_mesh: 1,050,625 dofs, 2,097,152 cells
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the vector (non-tensor
 # core) peaks of the types these kernels compute in
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 67e12}
 # operations per cell of the closed forms (b, c, det, 1/(2|det|), 4 per
-# unique entry)
+# unique entry); K3: per quad, 8 edge differences and two triangles' three
+# off-diagonal entries (22 each)
 OPS_PER_CELL = {"K6": 40, "K4": 35, "K5": 23}
+OPS_PER_QUAD_K3 = 52
 
 
 def log(msg):
@@ -201,9 +226,12 @@ def phase_kernel_vs_plain(ak):
 
 def zero_launch_counts(ak, gs):
     """Set every kernel wrapper's launch count to 0."""
+    from fdapde_core_tpu_torch.ops import dia_spmv as ds
     from fdapde_core_tpu_torch.ops import local_stiffness as ls
 
     ak.p1_stencil_launches = 0
+    ak.p1_offdiag_planes_launches = 0
+    ds.dia_spmv_launches = 0
     gs.ell_spmv_launches = 0
     ls.p1_stiffness_2d_launches = 0
     ls.p1_stiffness_edges_launches = 0
@@ -639,6 +667,210 @@ def phase_pde_harmonic(pde):
     check(small.success, "the entry() problem did not converge")
 
 
+def phase_k3(ak, gs):
+    """K3 against its plain version, timed at n = 3200; then its path
+    stencil_from_offdiag_planes(K3) against K1. Returns the measurements
+    with K3's launches on that path."""
+    from fdapde_core_tpu_torch.ops.grid_assembly import (
+        stencil_from_coords,
+        stencil_from_offdiag_planes,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+
+    def compare(X, Y, n, where):
+        got = ak.p1_offdiag_planes_from_coords(X, Y, n)
+        ref = ak.p1_offdiag_planes_from_coords_reference(X, Y, n)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = 8 * torch.finfo(X.dtype).eps * ref.abs().max().item()
+        stable = torch.equal(got, ak.p1_offdiag_planes_from_coords(X, Y, n))
+        log(f"K3 n={n} {X.dtype} {where}: max|kernel-plain| = {err:.3e} (tol {tol:.3e}), "
+            f"bitwise stable: {stable}")
+        check(err <= tol, f"K3 n={n} {X.dtype} disagrees with its plain version")
+        check(bool(torch.isfinite(got).all()), "K3 produced non-finite planes")
+        check(stable, "K3 is not bitwise stable from run to run")
+        return err
+
+    for dtype in (torch.float32, torch.float64):
+        W = -(-(N_ODD + 1) // 128) * 128
+        compare(*perturbed_planes(N_ODD, dtype, gen, shape=(N_ODD + 8, W)), N_ODD, "junk-padded")
+    n, m = N_MAIN, N_MAIN + 1
+    X, Y = perturbed_planes(n, torch.float32, gen)
+    err = compare(X, Y, n, "(m, m) planes")
+
+    kernel = lambda: ak.p1_offdiag_planes_from_coords(X, Y, n)  # noqa: E731
+    plain = lambda: ak.p1_offdiag_planes_from_coords_reference(X, Y, n)  # noqa: E731
+    k1, p1 = time_ms(kernel, 50), time_ms(plain, 5)
+    k2, p2 = time_ms(kernel, 50), time_ms(plain, 5)
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    # reads the X, Y planes over nodes [0, n]^2, writes six (n, n) planes
+    nbytes = (2 * m * m + 6 * n * n) * 4
+    b = least_time(nbytes, OPS_PER_QUAD_K3 * n * n, torch.float32)
+    log(f"K3 n={n} float32: kernel {k1:.4f} / {k2:.4f} ms "
+        f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes / 1e9:.4f} GB computed), "
+        f"plain {p1:.4f} / {p2:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+
+    # its path: planes -> pad-sum stencil conversion, against K1
+    zero_launch_counts(ak, gs)
+    G3 = stencil_from_offdiag_planes(ak.p1_offdiag_planes_from_coords(X, Y, n), n)
+    launches = ak.p1_offdiag_planes_launches
+    G1 = stencil_from_coords(X, Y, n)
+    torch.cuda.synchronize()
+    tol = 32 * torch.finfo(torch.float32).eps * G1.data.abs().max().item()
+    diff = (G3.data - G1.data).abs().max().item()
+    log(f"stencil_from_offdiag_planes(K3) n={n} float32 vs K1 stencil_from_coords: max diff "
+        f"{diff:.3e} (tol {tol:.3e}); K3 launches {launches}")
+    check(G3.offsets2d == G1.offsets2d and diff <= tol, "K3's stencil disagrees with K1's")
+    check(launches > 0, "the planes path never launched K3")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, launches=launches, **b)
+
+
+def phase_dia_main_path(ak, gs, ds, ls):
+    """assemble_dia -> prune_zero_offsets -> solve_elliptic on
+    unit_square_mesh(1024), then the grid multigrid and the harmonic check
+    on the same operator. Returns (pruned DIAMatrix, K7 launches)."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import FEMSpace, assemble_dia, assemble_forcing, solve_elliptic
+    from fdapde_core_tpu_torch.fem.solvers import DirichletSystem
+    from fdapde_core_tpu_torch.geometry import unit_square_mesh
+    from fdapde_core_tpu_torch.linear_algebra import prune_zero_offsets
+    from fdapde_core_tpu_torch.ops.grid_dia import GridDIAMatrix, prune_zero_offsets_grid
+    from fdapde_core_tpu_torch.ops.grid_mg import GridMG, mg_preconditioned_cg
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(ak, gs)
+    t0 = time.perf_counter()
+    space = FEMSpace(unit_square_mesh(N_DIA), 1)
+    space.scatter  # the sorted-COO pattern, computed once per space
+    t_space = time.perf_counter() - t0
+    q = space.quadrature_nodes
+    f = 2 * np.pi ** 2 * np.sin(np.pi * q[:, 0]) * np.sin(np.pi * q[:, 1])
+    D, t_init = synced_seconds(lambda: prune_zero_offsets(
+        assemble_dia(space, -fdt.laplacian(), device=DEVICE)))
+    b = assemble_forcing(space, f, device=DEVICE)
+    mask = torch.as_tensor(space.boundary_dofs, device=DEVICE)
+    zero = torch.zeros(space.n_dofs, dtype=torch.float64, device=DEVICE)
+    (x, info), t_solve = synced_seconds(lambda: solve_elliptic(D, b, mask, zero, rtol=1e-8,
+                                                               maxiter=20000, recovery=False))
+    k7, k6 = ds.dia_spmv_launches, ls.p1_stiffness_2d_launches
+
+    # true residual of the masked system through the plain SpMV in f64,
+    # beside its rounding floor eps || |A~| |x| || / ||b~||
+    sys_ = DirichletSystem(D, mask)
+    free = (~mask).to(torch.float64)
+    b_mod = sys_.rhs(b, zero)
+    Ax = ds.dia_spmv_reference(D.data, D.offsets, x * free) * free + x * mask
+    rel = (torch.linalg.norm(b_mod - Ax) / torch.linalg.norm(b_mod)).item()
+    absAx = ds.dia_spmv_reference(D.data.abs(), D.offsets, x.abs() * free) * free + x.abs() * mask
+    floor = (torch.finfo(torch.float64).eps * torch.linalg.norm(absAx) / torch.linalg.norm(b_mod)).item()
+    log(f"DIA path unit_square_mesh({N_DIA}) ({space.n_dofs} dofs, {space.mesh.n_cells} cells): "
+        f"offsets {D.offsets} after pruning; FEMSpace {t_space:.4f} s, init (assemble_dia + prune) "
+        f"{t_init:.4f} s, solve {t_solve:.4f} s; Jacobi CG {info.iterations} iterations, converged "
+        f"{info.converged}, true rel residual (f64) {rel:.4e} (rounding floor {floor:.4e}); "
+        f"K7 launches {k7}, K6 launches {k6}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(info.converged and rel <= 1e-8, "the DIA path's Jacobi solve did not reach 1e-8")
+    check(k7 >= info.iterations > 0, f"K7 launched {k7} times for {info.iterations} iterations")
+    check(k6 >= 1, "assemble_dia never launched K6")
+    check(bool(torch.isfinite(x).all()) and x.shape == (space.n_dofs,), "DIA solution shape / finite")
+
+    # the same operator on the grid: Dirichlet fold, V-cycle MG-CG
+    m = N_DIA + 1
+    G = prune_zero_offsets_grid(GridDIAMatrix.from_dia(D, (m, m)).with_dirichlet_identity(free))
+    mg, t_mg = synced_seconds(lambda: GridMG.build(G))
+    (xm, relm, km), t_mgcg = synced_seconds(lambda: mg_preconditioned_cg(G, b_mod, rtol=1e-10,
+                                                                       maxiter=60, mg=mg))
+    dx = (xm - x).abs().max().item() / xm.abs().max().item()
+    log(f"DIA path MG-CG (from_dia, levels {mg.shapes}): build {t_mg:.4f} s, solve {t_mgcg:.4f} s, "
+        f"{km} iterations, rel residual {relm.item():.4e}; max|x_mg - x_jacobi| / max|x| = {dx:.3e}")
+    check(relm.item() <= 1e-10 and km <= 15, f"MG-CG on the DIA operator: {km} iterations")
+    check(dx <= 1e-6, "MG-CG and Jacobi solutions of the DIA path disagree")
+
+    # harmonic data through solve_elliptic on the DIA operator
+    c = torch.as_tensor(space.dof_coords, device=DEVICE)
+    g = c[:, 0] + c[:, 1]
+    (xh, infoh), t_h = synced_seconds(lambda: solve_elliptic(
+        D, zero, mask, g, rtol=1e-12, maxiter=200, preconditioner=mg.v_cycle))
+    err = (xh - g).abs().max().item()
+    log(f"DIA path harmonic: max|x - g| = {err:.3e} ({infoh.iterations} iterations, "
+        f"V-cycle preconditioner, {t_h:.4f} s)")
+    check(infoh.converged and err < 1e-9, "harmonic data not reproduced to 1e-9 on the DIA path")
+    return D, k7
+
+
+def flat_stencil_dia(G):
+    """The (m, m) grid stencil G as a flat DIAMatrix over m^2 dofs (offset
+    di m + dj), after checking that every entry that would wrap across a
+    grid row is exactly zero."""
+    from fdapde_core_tpu_torch.linear_algebra import DIAMatrix
+
+    m = G.shape2d[1]
+    for k, (di, dj) in enumerate(G.offsets2d):
+        edge = G.data[k][:, m - 1] if dj > 0 else G.data[k][:, 0] if dj < 0 else None
+        check(edge is None or not bool(edge.any()), f"layer {(di, dj)} wraps across a grid row")
+    offsets = tuple(di * m + dj for di, dj in G.offsets2d)
+    check(offsets == tuple(sorted(offsets)), "flat offsets are not sorted")
+    return DIAMatrix(G.data.reshape(len(offsets), -1), offsets, G.n)
+
+
+def csr_of(S):
+    """A torch.sparse CSR tensor of a sorted-COO SparseMatrix (int64 indices)."""
+    n = S.shape[0]
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=DEVICE)
+    crow[1:] = torch.cumsum(torch.bincount(S.rows.long(), minlength=n), 0)
+    return torch.sparse_csr_tensor(crow, S.cols.long(), S.vals, S.shape, check_invariants=False)
+
+
+def phase_k7(ds, operators):
+    """K7 against its plain version and a cuSPARSE CSR SpMV on each
+    (name, DIAMatrix, reference product or None); returns {name: measurements}."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    out = {}
+    for name, D, other in operators:
+        K, n = D.data.shape
+        dt = D.data.dtype
+        x = torch.rand(n, generator=gen, dtype=torch.float64, device=DEVICE).to(dt) - 0.5
+        offs = torch.tensor(D.offsets, dtype=torch.int64, device=DEVICE)
+        got = ds.dia_spmv(D.data, offs, x)
+        ref = ds.dia_spmv_reference(D.data, D.offsets, x)
+        bound = K * torch.finfo(dt).eps * ds.dia_spmv_reference(D.data.abs(), D.offsets, x.abs())
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        stable = torch.equal(got, ds.dia_spmv(D.data, offs, x))
+        log(f"K7 {name} ({K}, {n}) {dt}: max|kernel-plain| = {err.max().item():.3e}, max err/bound = "
+            f"{(err / bound.clamp_min(torch.finfo(dt).tiny)).max().item():.3e}, bitwise stable: {stable}")
+        check(bool((err <= bound).all()), f"K7 {name} disagrees with its plain version")
+        check(bool(torch.isfinite(got).all()), f"K7 {name} produced non-finite values")
+        check(stable, f"K7 {name} is not bitwise stable")
+        if other is not None:  # the grid stencil's own product on the same x
+            diff = ((other(x) - ref).abs() <= bound).all().item()
+            log(f"K7 {name}: flat DIA product == grid stencil product within the bound: {diff}")
+            check(diff, f"K7 {name}: the flat DIA matrix is not the grid stencil")
+
+        csr, t_csr = synced_seconds(lambda: csr_of(D.to_sparse()))
+        lib_err = (csr @ x - ref).abs().max().item()
+        kernel = lambda: ds.dia_spmv(D.data, offs, x)  # noqa: E731
+        plain = lambda: ds.dia_spmv_reference(D.data, D.offsets, x)  # noqa: E731
+        library = lambda: csr @ x  # noqa: E731
+        k1, p1, l1 = time_ms(kernel, 50), time_ms(plain, 5), time_ms(library, 50)
+        k2, p2, l2 = time_ms(kernel, 50), time_ms(plain, 5), time_ms(library, 50)
+        ms, plain_ms, library_ms = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
+        nnz = csr.values().numel()
+        del csr
+        # reads the K diagonals and x, writes y; a multiply-add per entry
+        nbytes = (K + 2) * n * D.data.element_size() + 8 * K
+        b = least_time(nbytes, 2 * K * n, dt)
+        log(f"K7 {name} {dt}: kernel {k1:.4f} / {k2:.4f} ms "
+            f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes / 1e9:.4f} GB computed), plain "
+            f"{p1:.4f} / {p2:.4f} ms, torch.sparse CSR ({nnz} entries, built from to_sparse() in "
+            f"{t_csr:.4f} s) {l1:.4f} / {l2:.4f} ms (max|csr-plain| {lib_err:.3e}); "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        out[name] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, **b)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -647,8 +879,10 @@ def main():
     from fdapde_core_tpu_torch import _build
     from fdapde_core_tpu_torch.models import StructuredPoisson
     from fdapde_core_tpu_torch.ops import assembly_kernels as ak
+    from fdapde_core_tpu_torch.ops import dia_spmv as ds
     from fdapde_core_tpu_torch.ops import gather_spmv as gs
     from fdapde_core_tpu_torch.ops import local_stiffness as ls
+    from fdapde_core_tpu_torch.ops.grid_assembly import stencil_from_coords
     from fdapde_core_tpu_torch.ops.grid_cg import grid_cg
 
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -686,6 +920,17 @@ def main():
     pde, k6_launches = phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh)
     phase_pde_harmonic(pde)
     del pde
+    torch.cuda.empty_cache()
+
+    k3 = phase_k3(ak, gs)
+    torch.cuda.empty_cache()
+    D, k7_launches = phase_dia_main_path(ak, gs, ds, ls)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    G = stencil_from_coords(*perturbed_planes(N_MAIN, torch.float32, gen), N_MAIN)
+    k7 = phase_k7(ds, [("DIA path", D, None),
+                       (f"flattened n={N_MAIN} stencil", flat_stencil_dia(G), G.__matmul__)])
+    del D, G
 
     kernels = [dict(
         name="p1_stencil_layers",
@@ -720,6 +965,19 @@ def main():
         source="fdapde_core_tpu_torch/csrc/p1_local_stiffness.cu",
         replaces="fdapde_core_tpu/ops/pallas_assembly.py:152",
         **k456["K5"],
+    ), dict(
+        name="p1_offdiag_planes",
+        route="cuda",
+        source="fdapde_core_tpu_torch/csrc/p1_stencil.cu",
+        replaces="fdapde_core_tpu/ops/pallas_assembly.py:242",
+        **k3,
+    ), dict(
+        name="dia_spmv",
+        route="cuda",
+        source="fdapde_core_tpu_torch/csrc/dia_spmv.cu",
+        replaces="fdapde_core_tpu/ops/pallas_dia.py:50",
+        launches=k7_launches,
+        **k7["DIA path"],
     )]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

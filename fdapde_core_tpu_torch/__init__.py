@@ -28,7 +28,11 @@ and the ELL gather SpMV kernel it runs (``ops/gather_spmv.py``,
 ``Triangulation`` and ``FEMSpace``, ``fem/assembler.py``,
 ``linear_algebra/sparse.py``, ``fem/solvers.solve_elliptic``) and the
 closed-form P1 local-stiffness kernels it runs (``ops/local_stiffness.py``,
-``csrc/p1_local_stiffness.cu``).
+``csrc/p1_local_stiffness.cu``); DIA storage (``fem/assembler.assemble_dia``,
+``linear_algebra/dia.py``) and the DIA SpMV kernel its products run
+(``ops/dia_spmv.py``, ``csrc/dia_spmv.cu``); and the coords->off-diagonal
+planes kernel, the fused assembly's first stage
+(``ops/assembly_kernels.p1_offdiag_planes_from_coords``).
 """
 
 from . import fem, geometry, linear_algebra, models, ops, pde, utils

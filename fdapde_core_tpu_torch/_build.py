@@ -37,6 +37,10 @@ _VP, _I64, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
     "p1_stencil_layers_f32": (_VP, _VP, _I64, _I64, _I64, _VP, _I64, _I64, _VP),
     "p1_stencil_layers_f64": (_VP, _VP, _I64, _I64, _I64, _VP, _I64, _I64, _VP),
+    "p1_offdiag_planes_f32": (_VP, _VP, _I64, _I64, _I64, _VP, _VP),
+    "p1_offdiag_planes_f64": (_VP, _VP, _I64, _I64, _I64, _VP, _VP),
+    "dia_spmv_f32": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
+    "dia_spmv_f64": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
     "ell_spmv_f32": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
     "ell_spmv_f64": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
     "ell_spmv_bf16": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),

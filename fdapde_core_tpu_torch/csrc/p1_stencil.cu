@@ -29,6 +29,10 @@
 // re-read by neighbouring threads from L1/L2, so device-memory traffic stays
 // near the 36 B/node minimum. Tensor cores and TMA have no part in it.
 //
+// A second entry point, p1_offdiag_planes_*, writes the six off-diagonal
+// planes themselves (the first stage of the assembly, K3) from the same
+// per-quad device function; see p1_offdiag_planes_kernel.
+//
 // C interface (bound with ctypes): pointers and the stream are void*, sizes
 // and strides int64 (element units); returns cudaGetLastError() after the
 // launch, 0 on success.
@@ -145,6 +149,52 @@ p1_stencil_kernel(const T* __restrict__ X, const T* __restrict__ Y,
   o[6 * layer_stride] = L10;
 }
 
+// The six off-diagonal planes alone (K3): one thread per quad (i, j), j on
+// threadIdx.x, reading the quad's 4 corners and writing
+// out[p][i][j], p = a12, a13, a23, b12, b13, b23, as six coalesced (n, n)
+// planes. Replaces fdapde_core_tpu/ops/pallas_assembly.py
+// p1_offdiag_planes_from_coords, whose n % 128, block rows, DMA buffers,
+// 8-row slabs and eps guard are TPU plumbing this kernel has no need of.
+// Memory-bound: 2 (n+1)^2 coordinates in, 6 n^2 planes out.
+template <typename T>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+p1_offdiag_planes_kernel(const T* __restrict__ X, const T* __restrict__ Y,
+                         int64_t x_row_stride, int64_t y_row_stride, int64_t n,
+                         T* __restrict__ out, int64_t col_tiles) {
+  const int64_t tile = blockIdx.x;
+  const int64_t i = (tile / col_tiles) * kBlockY + threadIdx.y;
+  const int64_t j = (tile % col_tiles) * kBlockX + threadIdx.x;
+  if (i >= n || j >= n) return;
+  const T* x0 = X + i * x_row_stride + j;  // node (i, j); (i+1, j) one row on
+  const T* y0 = Y + i * y_row_stride + j;
+  const Quad<T> q = quad(__ldg(x0), __ldg(y0),
+                         __ldg(x0 + x_row_stride), __ldg(y0 + y_row_stride),
+                         __ldg(x0 + 1), __ldg(y0 + 1),
+                         __ldg(x0 + x_row_stride + 1), __ldg(y0 + y_row_stride + 1),
+                         true);
+  const int64_t plane = n * n;
+  T* o = out + i * n + j;
+  o[0 * plane] = q.a12;
+  o[1 * plane] = q.a13;
+  o[2 * plane] = q.a23;
+  o[3 * plane] = q.b12;
+  o[4 * plane] = q.b13;
+  o[5 * plane] = q.b23;
+}
+
+template <typename T>
+int launch_planes(const void* X, const void* Y, int64_t x_row_stride,
+                  int64_t y_row_stride, int64_t n, void* out, void* stream) {
+  const int64_t col_tiles = (n + kBlockX - 1) / kBlockX;
+  const int64_t row_tiles = (n + kBlockY - 1) / kBlockY;
+  const dim3 block(kBlockX, kBlockY);
+  const dim3 grid(static_cast<unsigned int>(col_tiles * row_tiles));
+  p1_offdiag_planes_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(X), static_cast<const T*>(Y), x_row_stride,
+      y_row_stride, n, static_cast<T*>(out), col_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* X, const void* Y, int64_t x_row_stride,
            int64_t y_row_stride, int64_t n, void* out, int64_t layer_stride,
@@ -179,6 +229,18 @@ int p1_stencil_layers_f64(const void* X, const void* Y, int64_t x_row_stride,
                           void* stream) {
   return launch<double>(X, Y, x_row_stride, y_row_stride, n, out, layer_stride,
                         out_row_stride, stream);
+}
+
+int p1_offdiag_planes_f32(const void* X, const void* Y, int64_t x_row_stride,
+                          int64_t y_row_stride, int64_t n, void* out,
+                          void* stream) {
+  return launch_planes<float>(X, Y, x_row_stride, y_row_stride, n, out, stream);
+}
+
+int p1_offdiag_planes_f64(const void* X, const void* Y, int64_t x_row_stride,
+                          int64_t y_row_stride, int64_t n, void* out,
+                          void* stream) {
+  return launch_planes<double>(X, Y, x_row_stride, y_row_stride, n, out, stream);
 }
 
 }  // extern "C"

@@ -180,11 +180,18 @@ def assemble_matrix(space, op, layout: str = "aos", dtype=torch.float64,
                         vals, (space.n_dofs, space.n_dofs))
 
 
-def assemble_dia(space, op):
-    """DIA (offset-diagonal) storage: waits for K7's slice."""
-    raise NotImplementedError(
-        "assemble_dia needs linear_algebra/dia.py and its DIA SpMV kernel K7 "
-        "(ops/pallas_dia.py), not ported yet: ROADMAP queue 2, K7")
+def assemble_dia(space, op, dtype=torch.float64, device="cuda"):
+    """Discretize into DIA (offset-diagonal) storage on ``device``: the
+    sparse assembly (K6 for the 2D P1 Laplacian), then one fixed-order sum
+    into the diagonals of ``unique_offsets(space.dofs)``. Products run on
+    the K7 kernel (``linear_algebra/dia.py``). Efficient when the dof
+    numbering gives a small offset set (structured or banded meshes: check
+    ``len(unique_offsets(space.dofs))`` first)."""
+    from ..linear_algebra.dia import dia_from_coo, unique_offsets
+
+    A = assemble_matrix(space, op, dtype=dtype, device=device)
+    rows, cols, _ = space.scatter  # A's pattern on the host: no copy back
+    return dia_from_coo(rows, cols, A.vals, space.n_dofs, unique_offsets(space.dofs))
 
 
 def assemble_forcing(space, f, dtype=torch.float64, device="cuda") -> torch.Tensor:

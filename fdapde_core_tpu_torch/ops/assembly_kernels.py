@@ -17,6 +17,11 @@ stencil, in ``grid_assembly.GRID_OFFSETS2D`` order, in one pass.
   compare the two element for element.
 - ``p1_stencil_layers_from_coords_reference`` is the plain PyTorch version,
   written the way the JAX function's non-TPU branch is.
+- ``p1_offdiag_planes_from_coords`` (K3, port of the JAX module's
+  ``p1_offdiag_planes_from_coords``) stops at the assembly's first stage,
+  the six off-diagonal planes; it launches the second entry point of
+  ``csrc/p1_stencil.cu`` (count ``p1_offdiag_planes_launches``), beside its
+  plain version ``p1_offdiag_planes_from_coords_reference``.
 """
 
 from __future__ import annotations
@@ -24,13 +29,16 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "p1_offdiag_planes_from_coords",
+    "p1_offdiag_planes_from_coords_reference",
     "p1_stencil_layers_from_coords",
     "p1_stencil_layers_from_coords_reference",
     "p1_stencil_layers_into",
 ]
 
-# kernel launches since import (or since a caller last reset it to 0)
+# kernel launches since import (or since a caller last reset them to 0)
 p1_stencil_launches = 0
+p1_offdiag_planes_launches = 0
 
 # layer stack order must match grid_assembly.GRID_OFFSETS2D
 _LAYER_ORDER = ((-1, 0), (-1, 1), (0, -1), (0, 0), (0, 1), (1, -1), (1, 0))
@@ -112,7 +120,7 @@ def p1_stencil_layers_from_coords_reference(X, Y, n: int):
     return out
 
 
-def _check(X, Y, n, out):
+def _check_planes(X, Y, n):
     if not isinstance(n, int) or n < 1:
         raise ValueError(f"n must be a positive int, got {n!r}")
     m = n + 1
@@ -125,6 +133,13 @@ def _check(X, Y, n, out):
             raise ValueError(f"{name} needs a unit column stride, got strides {t.stride()}")
         if t.dtype != X.dtype or t.device != X.device:
             raise ValueError("X and Y must share dtype and device")
+    if X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {X.device}")
+
+
+def _check(X, Y, n, out):
+    _check_planes(X, Y, n)
+    m = n + 1
     if out.dtype != X.dtype or out.device != X.device:
         raise ValueError("out must share X's dtype and device")
     if tuple(out.shape) != (7, m, m) or out.stride(2) != 1:
@@ -132,8 +147,22 @@ def _check(X, Y, n, out):
             f"out must be (7, {m}, {m}) with a unit last stride, got "
             f"{tuple(out.shape)} with strides {out.stride()}"
         )
-    if X.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {X.device}")
+
+
+def _launch(symbol, X, Y, n, side, *out_args):
+    """Run ``symbol``_f32/_f64 of ``csrc/p1_stencil.cu`` on X's stream over a
+    (side, side) grid of threads; raises if the launch fails."""
+    from .._build import library
+
+    tiles = -(-side // _BLOCK[0]) * -(-side // _BLOCK[1])
+    if tiles >= 2**31:
+        raise ValueError(f"n = {n} needs {tiles} blocks, above the grid limit")
+    fn = getattr(library(), f"{symbol}_{'f32' if X.dtype == torch.float32 else 'f64'}")
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = fn(X.data_ptr(), Y.data_ptr(), X.stride(0), Y.stride(0), n, *out_args, stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
 
 
 def p1_stencil_layers_into(X, Y, n: int, out):
@@ -149,22 +178,7 @@ def p1_stencil_layers_into(X, Y, n: int, out):
     if X.device.type == "cpu":
         out.copy_(p1_stencil_layers_from_coords_reference(X, Y, n)[:, 7:7 + m, :m])
         return out
-
-    from .._build import library
-
-    tiles = -(-m // _BLOCK[0]) * -(-m // _BLOCK[1])
-    if tiles >= 2**31:
-        raise ValueError(f"n = {n} needs {tiles} blocks, above the grid limit")
-    lib = library()
-    fn = lib.p1_stencil_layers_f32 if X.dtype == torch.float32 else lib.p1_stencil_layers_f64
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        err = fn(
-            X.data_ptr(), Y.data_ptr(), X.stride(0), Y.stride(0), n,
-            out.data_ptr(), out.stride(0), out.stride(1), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"p1_stencil kernel launch failed: cudaError {err}")
+    _launch("p1_stencil_layers", X, Y, n, m, out.data_ptr(), out.stride(0), out.stride(1))
     p1_stencil_launches += 1
     return out
 
@@ -176,4 +190,33 @@ def p1_stencil_layers_from_coords(X, Y, n: int):
     m = n + 1
     out = torch.zeros((7, n + 16, X.shape[1]), dtype=X.dtype, device=X.device)
     p1_stencil_layers_into(X, Y, n, out[:, 7:7 + m, :m])
+    return out
+
+
+def p1_offdiag_planes_from_coords_reference(X, Y, n: int):
+    """Plain PyTorch version of K3 (the JAX function's non-TPU branch):
+    (6, n, n) planes [a12, a13, a23, b12, b13, b23] over quads [0, n)^2."""
+    lane_roll = lambda a: torch.roll(a, -1, dims=1)  # noqa: E731
+    planes = _coords_offdiag_planes(X[:n], Y[:n], X[1:n + 1], Y[1:n + 1], lane_roll)
+    return torch.stack([p[:, :n] for p in planes])
+
+
+def p1_offdiag_planes_from_coords(X, Y, n: int):
+    """K3: the (6, n, n) off-diagonal planes [a12, a13, a23, b12, b13, b23]
+    of quads [0, n)^2 (input of ``grid_assembly.stencil_from_offdiag_planes``).
+
+    X, Y: (>= n+1, >= n+1) coordinate planes, float32 or float64, unit
+    column stride; rows and columns beyond n are never read. On a CUDA
+    tensor it launches the second entry point of ``csrc/p1_stencil.cu`` and
+    counts it in ``p1_offdiag_planes_launches``; on a CPU tensor it runs the
+    plain version. JAX's ``n % 128``, ``block_rows``, ``n_buf`` and ``eps``
+    serve its TPU DMA pipeline and have no counterpart here.
+    """
+    global p1_offdiag_planes_launches
+    _check_planes(X, Y, n)
+    if X.device.type == "cpu":
+        return p1_offdiag_planes_from_coords_reference(X, Y, n)
+    out = torch.empty((6, n, n), dtype=X.dtype, device=X.device)
+    _launch("p1_offdiag_planes", X, Y, n, n, out.data_ptr())
+    p1_offdiag_planes_launches += 1
     return out

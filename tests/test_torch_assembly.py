@@ -19,6 +19,9 @@ from fdapde_core_tpu.ops import closed_form as jcf
 from fdapde_core_tpu.ops.grid_assembly import stencil_from_coords as j_stencil_from_coords
 from fdapde_core_tpu.ops.grid_dia import prune_zero_offsets_grid as j_prune
 from fdapde_core_tpu.ops.pallas_assembly import (
+    p1_offdiag_planes_from_coords as j_offdiag_planes,
+)
+from fdapde_core_tpu.ops.pallas_assembly import (
     p1_stencil_layers_from_coords as j_layers,
 )
 from fdapde_core_tpu_torch.ops import assembly_kernels as ak
@@ -98,8 +101,10 @@ def test_stencil_from_coords_matches_jax():
 def test_stencil_oracles_agree_with_fused_path():
     """The plain-torch oracles reach the fused path's operator another way:
     closed-form local stiffness + slice-add scatter (full and off-diagonal
-    packings), and quad-grid off-diagonal planes + pad-sum conversion. The
-    slice-add scatter also matches JAX's on the same local matrices."""
+    packings), and quad-grid off-diagonal planes (K3) + pad-sum conversion.
+    The slice-add scatter also matches JAX's on the same local matrices, and
+    K3's plain version JAX's p1_offdiag_planes_from_coords (n = 16 and 257,
+    f32 and f64, junk-padded planes)."""
     from fdapde_core_tpu.ops.grid_assembly import p1_grid_stencil as j_p1_grid_stencil
     from fdapde_core_tpu_torch.ops.grid_assembly import (
         p1_grid_stencil,
@@ -122,15 +127,29 @@ def test_stencil_oracles_agree_with_fused_path():
     A6 = tcf.p1_stiffness_2d_sym(coords)
     full = p1_grid_stencil(A6, n)
     offdiag = p1_grid_stencil_offdiag(A6[[1, 2, 4]], n)
-    planes = ak._coords_offdiag_planes(
-        X[:n], Y[:n], X[1:n + 1], Y[1:n + 1], lambda t: torch.roll(t, -1, dims=1)
-    )
-    pad_sum = stencil_from_offdiag_planes(torch.stack([p[:, :n] for p in planes]), n)
+    before = ak.p1_offdiag_planes_launches
+    pad_sum = stencil_from_offdiag_planes(ak.p1_offdiag_planes_from_coords(X, Y, n), n)
     for G in (full, offdiag, pad_sum):
         assert G.offsets2d == GRID_OFFSETS2D
         np.testing.assert_allclose(G.data.numpy(), fused.numpy(), rtol=0, atol=1e-12)
     ref = np.asarray(j_p1_grid_stencil(jnp.asarray(A6.numpy()), n).data)
     np.testing.assert_allclose(full.data.numpy(), ref, rtol=0, atol=1e-12)
+
+    # K3's plain version == JAX's p1_offdiag_planes_from_coords on
+    # junk-padded planes; the CPU wrapper takes it and launches nothing
+    for dtype in (np.float64, np.float32):
+        for n in (16, 257):
+            case = f"K3 {dtype.__name__} n={n}"
+            Xn, Yn = (a.astype(dtype) for a in _planes(n, True, W=-(-(n + 1) // 128) * 128))
+            ref = np.asarray(j_offdiag_planes(jnp.asarray(Xn), jnp.asarray(Yn), n))
+            tX, tY = torch.from_numpy(Xn), torch.from_numpy(Yn)
+            plain = ak.p1_offdiag_planes_from_coords_reference(tX, tY, n)
+            assert plain.shape == ref.shape == (6, n, n) and plain.is_contiguous(), case
+            np.testing.assert_allclose(plain.numpy(), ref, rtol=0, atol=_tol(dtype, ref), err_msg=case)
+            assert torch.equal(ak.p1_offdiag_planes_from_coords(tX, tY, n), plain), case
+    assert ak.p1_offdiag_planes_launches == before
+    with pytest.raises(ValueError):  # too few rows for n
+        ak.p1_offdiag_planes_from_coords(tX[:n], tY[:n], n)
 
 
 def test_cpu_wrapper_runs_plain_version_and_counts_nothing():
@@ -184,14 +203,52 @@ def test_port_never_imports_jax():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_card():
-    """The CUDA kernels K1 and K4-K6 == their plain versions on the card:
-    perturbed geometry, junk-padded planes, n not a multiple of 128, cell
-    counts not a multiple of the block, f32 and f64 (tolerance 8 eps max|L|:
-    nvcc contracts products into FMAs); bitwise stable."""
+    """The CUDA kernels K1-K7 == their plain versions on the card, bitwise
+    stable from run to run. K1, K3-K6: perturbed geometry, junk-padded
+    planes, n not a multiple of 128, cell counts not a multiple of the
+    block, f32 and f64 (tolerance 8 eps max|out|: nvcc contracts products
+    into FMAs). K2 (float32, float64 and bfloat16 values, a rectangular
+    operator) and K7 (f32 and f64, offsets past either end, n not a
+    multiple of the block): per-row bound K eps(acc) sum_k |a x|."""
+    from fdapde_core_tpu_torch.ops import dia_spmv as ds
+    from fdapde_core_tpu_torch.ops import gather_spmv as gs
     from fdapde_core_tpu_torch.ops import local_stiffness as ls
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    from test_torch_matfree import _scrambled_fem_ell
+
+    vals, cols, nd = _scrambled_fem_ell()
+    rng = np.random.default_rng(2)
+    cases = [(vals, cols, nd, dt) for dt in (torch.float32, torch.float64, torch.bfloat16)]
+    rcols = rng.integers(0, nd + 333, size=(5, nd - 77)).astype(np.int32)
+    cases.append((rng.standard_normal((5, nd - 77)), rcols, nd + 333, torch.float32))
+    for v_np, c_np, n_src, dt in cases:
+        V = torch.from_numpy(np.ascontiguousarray(v_np)).to("cuda", dt)
+        Cc = torch.from_numpy(np.ascontiguousarray(c_np)).cuda()
+        acc = gs.accumulation_dtype(dt)
+        x = torch.from_numpy(rng.standard_normal(n_src)).to("cuda", acc)
+        before = gs.ell_spmv_launches
+        got = gs.ell_spmv(V, Cc, x)
+        torch.cuda.synchronize()
+        assert gs.ell_spmv_launches == before + 1
+        ref = gs.ell_spmv_reference(V, Cc, x)
+        bound = V.shape[0] * torch.finfo(acc).eps * gs.ell_spmv_reference(V.abs(), Cc, x.abs())
+        assert bool(((got - ref).abs() <= bound).all()), f"K2 {dt} n_src={n_src}"
+        assert torch.equal(got, gs.ell_spmv(V, Cc, x)), "K2 is not bitwise stable"
+    for dtype in (torch.float32, torch.float64):
+        for n, offsets in ((1, (0,)), (70001, (-70001, -258, -1, 0, 1, 258, 1300, 70005))):
+            data = torch.from_numpy(rng.standard_normal((len(offsets), n))).to("cuda", dtype)
+            x = torch.from_numpy(rng.standard_normal(n)).to("cuda", dtype)
+            before = ds.dia_spmv_launches
+            got = ds.dia_spmv(data, offsets, x)
+            torch.cuda.synchronize()
+            assert ds.dia_spmv_launches == before + 1
+            ref = ds.dia_spmv_reference(data, offsets, x)
+            bound = len(offsets) * torch.finfo(dtype).eps * ds.dia_spmv_reference(
+                data.abs(), offsets, x.abs())
+            assert bool(((got - ref).abs() <= bound).all()), f"K7 {dtype} n={n}"
+            assert torch.equal(got, ds.dia_spmv(data, offsets, x)), "K7 is not bitwise stable"
     rng = np.random.default_rng(4)
     for dtype in (torch.float32, torch.float64):
         for C in (1, 777, 70001):
@@ -229,3 +286,11 @@ def test_kernel_matches_plain_version_on_card():
             assert (got - ref).abs().max().item() <= tol
             again = ak.p1_stencil_layers_from_coords(tX, tY, n)
             assert torch.equal(got, again)  # no atomics: bitwise stable
+            before = ak.p1_offdiag_planes_launches
+            got = ak.p1_offdiag_planes_from_coords(tX, tY, n)
+            torch.cuda.synchronize()
+            assert ak.p1_offdiag_planes_launches == before + 1
+            ref = ak.p1_offdiag_planes_from_coords_reference(tX, tY, n)
+            tol = 8 * torch.finfo(dtype).eps * ref.abs().max().item()
+            assert (got - ref).abs().max().item() <= tol, f"K3 {dtype} n={n}"
+            assert torch.equal(got, ak.p1_offdiag_planes_from_coords(tX, tY, n))

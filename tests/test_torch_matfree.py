@@ -5,8 +5,8 @@ against the JAX package, on the same numpy inputs.
 
 On the CPU the port's K2 wrapper runs its plain torch version and the JAX
 LaneRoutedELL its Pallas kernel in interpret mode. The CUDA kernel itself
-is held against the plain version by the `cuda`-marked test (skipped
-without a card).
+is held against the plain version by the `cuda`-marked test in
+tests/test_torch_assembly.py (skipped without a card).
 
 Mesh coordinates are compared to 2e-13, not to the last bit: the mesh hash
 takes frac(sin(t) * 43758.5453), and torch's float64 sin differs from the
@@ -415,30 +415,3 @@ def test_models_match_jax():
     with pytest.raises(NotImplementedError):
         MatrixFreeParabolic(_t(nodes), _t(cells), _t(bnd), dt=1e-3, device="cpu")
 
-
-@pytest.mark.cuda
-def test_ell_spmv_kernel_matches_plain_version_on_card():
-    """K2 == its plain version on the card: float32, float64 and bfloat16
-    values, a rectangular operator with n not a multiple of the block;
-    per-row bound K eps(acc) sum_k |vals x| (nvcc contracts into FMAs);
-    bitwise stable from run to run."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
-    vals, cols, nd = _scrambled_fem_ell()
-    rng = np.random.default_rng(2)
-    cases = [(vals, cols, nd, dt) for dt in (torch.float32, torch.float64, torch.bfloat16)]
-    rcols = rng.integers(0, nd + 333, size=(5, nd - 77)).astype(np.int32)
-    cases.append((rng.standard_normal((5, nd - 77)), rcols, nd + 333, torch.float32))
-    for v_np, c_np, n_src, dt in cases:
-        V = torch.from_numpy(np.ascontiguousarray(v_np)).to("cuda", dt)
-        Cc = torch.from_numpy(np.ascontiguousarray(c_np)).cuda()
-        acc = gs.accumulation_dtype(dt)
-        x = torch.from_numpy(rng.standard_normal(n_src)).to("cuda", acc)
-        before = gs.ell_spmv_launches
-        got = gs.ell_spmv(V, Cc, x)
-        torch.cuda.synchronize()
-        assert gs.ell_spmv_launches == before + 1
-        ref = gs.ell_spmv_reference(V, Cc, x)
-        bound = V.shape[0] * torch.finfo(acc).eps * gs.ell_spmv_reference(V.abs(), Cc, x.abs())
-        assert bool(((got - ref).abs() <= bound).all()), f"{dt} n_src={n_src}"
-        assert torch.equal(got, gs.ell_spmv(V, Cc, x)), "not bitwise stable"

@@ -328,8 +328,7 @@ def test_pde_solve_matches_jax(monkeypatch):
                  lambda: fdt.PDE(mt, -fdt.laplacian(), times=[0.0, 0.1], device=CPU),
                  lambda: fdt.PDE(mt, -fdt.laplacian(), device=CPU).eval_functional_basis(pts),
                  lambda: tsolvers.solve_elliptic(At, _t(b), _t(bnd), _t(g), preconditioner="amg"),
-                 lambda: tsolvers.solve_parabolic(),
-                 lambda: ta.assemble_dia(TSpace(mt, 1), -fdt.laplacian())):
+                 lambda: tsolvers.solve_parabolic()):
         with pytest.raises(NotImplementedError):
             call()
     if not torch.cuda.is_available():  # the default device is the card: no fallback
