@@ -81,7 +81,31 @@ Phases (each raises on failure; nothing is caught):
     entries that would wrap across a grid row are checked to be exactly 0,
     so it equals the grid stencil's product); per-row tolerance K eps
     sum_k |data x|, bitwise stable; time K7, the plain version and a
-    torch.sparse CSR SpMV (cuSPARSE, built once from to_sparse()) on each.
+    torch.sparse CSR SpMV (cuSPARSE, built once from to_sparse()) on each;
+17. point location on phase 12's mesh: 2,000,000 points drawn uniformly
+    from [-0.02, 1.02]^2 on the card (some outside the domain), located by
+    DeviceCellLocator on the card and by the host CellLocator: the ids must
+    be equal on every point; both timed, the bin table's K and bytes
+    printed;
+18. drive the regression path on the same mesh with every launch count
+    zeroed: SmoothingRegression(mesh, -laplacian()) (K6 assembles P),
+    select_lambda_gcv over LAMBDAS (Hutchinson, N_PROBES probes; the middle
+    one must win), a timed fit at the chosen lambda to rtol 1e-10 on the
+    inside points with y = sin(2 pi x) cos(2 pi y) + 0.2 eps (converged, true
+    relative residual in f64 through the plain products <= 1e-8), predict at
+    100,000 interior points (RMSE < 0.2 / 3); K2 and K6 launches read after
+    it; then K2 timed against its bound on the ELLs of P, Psi and Psi^T
+    (padding ratio printed), the peak memory, and one profiled fit's device
+    busy share;
+19. drive SpaceTimeSmoothing with the launch counts zeroed on a monitoring
+    design, 2,000 sites x 365 daily times, over unit_square_mesh(256) (P1,
+    66,049 dofs) and Interval(0, 1, 24) (cubic, 27 B-splines), lam_s = 1,
+    lam_t = 0.1: fit at rtol 1e-10 converges, predict on a 100-site x
+    7-time grid has RMSE < 0.06; whether the escalation fired and the K2
+    launches printed; then solve_space_time_fdm on the model's
+    (Mt, lam_t Pt, Ms, lam_s As + Ms) pencil agrees with the Kronecker CG
+    (mode-diagonal preconditioner) on the same two-term operator to 1e-8
+    relative, both at rtol 1e-12.
 
 Prints one JSON line of per-kernel results (each with its bound on the
 card from this run's shapes: bytes over 3.35 TB/s or operations over the
@@ -109,6 +133,16 @@ DEVICE = "cuda"
 SCRAMBLE = (4096, 1361)  # block size S and multiplier G (coprime) at n = 3200
 SCRAMBLE_SMALL = (512, 397)  # at n = 256
 NX_PDE = 720  # bench.py's `general` group at full size (bench.py:695-705)
+N_OBS = 2_000_000  # phase 17's query points, phase 18's observations (those inside)
+SIGMA = 0.2  # phase 18's noise
+# phase 18's lambda grid: GCV's minimum sits near 50 at this size
+# (examples/torch_data_fitting_scaling.py gcv puts it near 3 at nx = 90
+# and near 8 at nx = 180; it grows like n^(2/3)), so the middle one wins by
+# a wide margin on either side
+LAMBDAS = (2.5, 50.0, 1000.0)
+N_PROBES = 8
+N_ST_MESH, N_SITES, N_DAYS = 256, 2000, 365  # phase 19's monitoring design
+LAM_S, LAM_T = 1.0, 0.1
 N_DIA = 1024  # the DIA path's unit_square_mesh: 1,050,625 dofs, 2,097,152 cells
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the vector (non-tensor
 # core) peaks of the types these kernels compute in
@@ -177,6 +211,27 @@ def synced_seconds(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def profiled(what, fn):
+    """Run fn once under torch.profiler; print its host seconds, the device
+    busy time and share, and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, t_prof = synced_seconds(fn)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        log(f"profiled {what}: the profiler recorded no device events (idle share not measured)")
+        return
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"profiled {what}: {t_prof:.4f} s on the host clock, {len(kernels)} device "
+        f"events, device busy {busy:.4f} s ({100 * busy / t_prof:.1f} %); top by device time: "
+        + "; ".join(f"{name[:60]} {sec:.4f} s" for name, sec in top))
 
 
 def phase_kernel_vs_plain(ak):
@@ -623,22 +678,7 @@ def phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh):
     check(l2 < 1e-5, f"L2 error {l2:.3e} >= 1e-5")
 
     # where the time goes: one warm solve under the profiler
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, t_prof = synced_seconds(pde.solve)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if kernels:
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e6
-        busy = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        log(f"profiled warm solve: {t_prof:.4f} s on the host clock, {len(kernels)} device "
-            f"events, device busy {busy:.4f} s ({100 * busy / t_prof:.1f} %); top by device time: "
-            + "; ".join(f"{name[:60]} {sec:.4f} s" for name, sec in top))
-    else:
-        log("profiled warm solve: the profiler recorded no device events (idle share not measured)")
+    profiled("warm solve", pde.solve)
     return pde, k6_launches
 
 
@@ -871,6 +911,191 @@ def phase_k7(ds, operators):
     return out
 
 
+def phase_point_location(mesh):
+    """DeviceCellLocator against the host CellLocator on N_OBS points;
+    returns the inside points (host (n, 2) float64)."""
+    from fdapde_core_tpu_torch.geometry import CellLocator, DeviceCellLocator
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    pts = torch.rand((N_OBS, 2), generator=gen, dtype=torch.float64, device=DEVICE) * 1.04 - 0.02
+    loc, t_dev_build = synced_seconds(lambda: DeviceCellLocator(mesh, device=DEVICE))
+    ids, t_dev = synced_seconds(lambda: loc.locate(pts))
+    _, t_dev2 = synced_seconds(lambda: loc.locate(pts))
+    pts_h = pts.cpu().numpy()
+    host, t_host_build = synced_seconds(lambda: CellLocator(mesh))
+    ids_h, t_host = synced_seconds(lambda: host.locate(pts_h))
+    ids = ids.cpu().numpy()
+    n_diff = int((ids != ids_h).sum())
+    log(f"point location, {N_OBS} points on the nx={NX_PDE} mesh ({mesh.n_cells} cells): "
+        f"device build {t_dev_build:.4f} s, locate {t_dev:.4f} / {t_dev2:.4f} s; host build "
+        f"{t_host_build:.4f} s, locate {t_host:.4f} s; bin table {tuple(loc.table.shape)} "
+        f"(K = {loc.capacity}, {loc.table.numel() * 4 / 2**20:.1f} MiB); inside "
+        f"{int((ids >= 0).sum())}; ids that differ: {n_diff}")
+    check(n_diff == 0, f"device and host point location differ on {n_diff} points")
+    return pts_h[ids >= 0]
+
+
+def ell_spmv_vs_bound(gs, name, S, k=1):
+    """K2 on the ELL that S @ X launches for an (n_src, k) float64 X (k = 1:
+    a vector; else the ELL of I_c (x) S, c columns per launch), held to its
+    plain version with the per-row bound K eps sum|vals x| and timed against
+    its bound (each stored entry, x and y moved once: what the data needs,
+    padding and copies' columns excluded) and its plain version; prints the
+    padding ratio (ELL slots over entries)."""
+    c = S._block_columns(torch.float64, k)
+    vals, cols = S._ell_block(torch.float64, c)
+    K, n = vals.shape
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    x = torch.rand(c * S.shape[1], generator=gen, dtype=torch.float64, device=DEVICE) - 0.5
+    got, ref = gs.ell_spmv(vals, cols, x), gs.ell_spmv_reference(vals, cols, x)
+    bound = K * torch.finfo(torch.float64).eps * gs.ell_spmv_reference(vals.abs(), cols, x.abs())
+    err = (got - ref).abs()
+    check(bool((err <= bound).all()), f"K2 on {name} disagrees with its plain version")
+    check(bool(torch.isfinite(got).all()), f"K2 on {name} produced non-finite values")
+    ms = time_ms(lambda: gs.ell_spmv(vals, cols, x), 30)
+    plain_ms = time_ms(lambda: gs.ell_spmv_reference(vals, cols, x), 3)
+    nnz = c * S.nnz
+    nbytes = nnz * (8 + 4) + (x.numel() + n) * 8
+    b = least_time(nbytes, 2 * nnz, torch.float64)
+    block = f", {c} columns per launch (k = {k})" if k > 1 else ""
+    log(f"K2 on {name} {tuple(S.shape)}{block}: ELL ({K}, {n}), {nnz} entries, padding ratio "
+        f"{K * n / max(nnz, 1):.3f}; max|kernel-plain| {err.max().item():.3e}; kernel {ms:.4f} ms "
+        f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of the entries' {nbytes / 1e9:.4f} GB), plain "
+        f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+        f"{100 * b['bound_ms'] / ms:.0f} %)")
+
+
+def phase_regression(ak, gs, ls, mesh, obs):
+    """SmoothingRegression on the phase 17 observations: GCV sweep, fit,
+    predict; returns (K2 launches, K6 launches)."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem.evaluation import eval_basis_pointwise
+    from fdapde_core_tpu_torch.models import SmoothingRegression
+
+    def truth(p):
+        return np.sin(2 * np.pi * p[:, 0]) * np.cos(2 * np.pi * p[:, 1])
+
+    rng = np.random.default_rng(SEED + 6)
+    y = truth(obs) + SIGMA * rng.standard_normal(obs.shape[0])
+    grid = rng.uniform(0.1, 0.9, size=(100_000, 2))
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(ak, gs)
+    model, t_build = synced_seconds(
+        lambda: SmoothingRegression(mesh, -fdt.laplacian(), device=DEVICE))
+    (best, scores), t_gcv = synced_seconds(
+        lambda: model.select_lambda_gcv(obs, y, LAMBDAS, n_probes=N_PROBES))
+    c, t_fit = synced_seconds(lambda: model.fit(obs, y, best, rtol=1e-10))
+    info = model.solve_info_
+    pred, t_pred = synced_seconds(lambda: model.predict(grid))
+    k2, k6 = gs.ell_spmv_launches, ls.p1_stiffness_2d_launches
+    rmse = float(np.sqrt(((pred.cpu().numpy() - truth(grid)) ** 2).mean()))
+
+    # true relative residual of the normal equations in f64, every product
+    # through the plain gather-sum
+    Psi, _ = eval_basis_pointwise(model.space, obs, device_locate=True, device=DEVICE)
+    yt = torch.as_tensor(y, device=DEVICE)
+    rhs = Psi.T.matmul_reference(yt)
+    Ac = Psi.T.matmul_reference(Psi.matmul_reference(c)) + best * model.P.matmul_reference(c)
+    rel = (torch.linalg.norm(rhs - Ac) / torch.linalg.norm(rhs)).item()
+    log(f"regression path, {obs.shape[0]} observations on {model.space.n_dofs} dofs: build "
+        f"{t_build:.4f} s, select_lambda_gcv over {LAMBDAS} ({N_PROBES} probes) {t_gcv:.4f} s, "
+        f"scores {[f'{v:.6e}' for v in scores]} -> lambda {best}; fit {t_fit:.4f} s, "
+        f"{info.iterations} iterations, converged {info.converged}, true rel residual (f64) "
+        f"{rel:.4e}; predict at {grid.shape[0]} points {t_pred:.4f} s, RMSE {rmse:.4e} "
+        f"(sigma {SIGMA}); K2 launches {k2}, K6 launches {k6}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(best == LAMBDAS[1], f"GCV chose {best}, not the middle lambda {LAMBDAS[1]}")
+    check(info.converged and rel <= 1e-8, f"the fit did not converge to 1e-10 (true {rel:.3e})")
+    check(bool(torch.isfinite(c).all()) and c.shape == (model.space.n_dofs,), "fit shape / finite")
+    check(rmse < SIGMA / 3, f"RMSE {rmse:.4e} >= sigma / 3")
+    check(k2 > 0 and k6 >= 1, "the regression path never launched K2 / K6")
+
+    for name, S in (("P", model.P), ("Psi", Psi), ("Psi^T", Psi.T)):
+        ell_spmv_vs_bound(gs, name, S)
+    profiled("fit", lambda: model.fit(obs, y, best, rtol=1e-10))
+    return k2, k6
+
+
+def phase_space_time(ak, gs, ls):
+    """SpaceTimeSmoothing on the monitoring design, then the fast
+    diagonalization against the Kronecker CG; returns (K2, K6 launches)."""
+    from fdapde_core_tpu_torch.fem.evaluation import eval_basis_pointwise
+    from fdapde_core_tpu_torch.geometry import Interval, unit_square_mesh
+    from fdapde_core_tpu_torch.linear_algebra import cg
+    from fdapde_core_tpu_torch.models import (
+        ModeDiagPreconditioner,
+        SeparableOperator,
+        SpaceTimeSmoothing,
+        solve_space_time_fdm,
+    )
+
+    def truth(p, t):
+        return np.sin(np.pi * p[:, 0:1]) * np.sin(np.pi * p[:, 1:2]) * np.exp(-t[None, :])
+
+    rng = np.random.default_rng(SEED + 7)
+    locs = rng.uniform(0.05, 0.95, size=(N_SITES, 2))
+    times = np.linspace(0.0, 1.0, N_DAYS)
+    Y = truth(locs, times) + 0.1 * rng.standard_normal((N_SITES, N_DAYS))
+    grid, t_eval = rng.uniform(0.15, 0.85, size=(100, 2)), np.linspace(0.1, 0.9, 7)
+    mesh = unit_square_mesh(N_ST_MESH)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(ak, gs)
+    model, t_build = synced_seconds(
+        lambda: SpaceTimeSmoothing(mesh, Interval(0.0, 1.0, 24), device=DEVICE))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        C, t_fit = synced_seconds(lambda: model.fit(locs, times, Y, LAM_S, LAM_T, rtol=1e-10))
+    escalated = any("escalating" in str(w.message) for w in caught)
+    info = model.solve_info_
+    pred, t_pred = synced_seconds(lambda: model.predict(grid, t_eval))
+    k2, k6 = gs.ell_spmv_launches, ls.p1_stiffness_2d_launches
+    rmse = float(np.sqrt(((pred.cpu().numpy() - truth(grid, t_eval)) ** 2).mean()))
+    log(f"space-time path, {N_SITES} sites x {N_DAYS} times on {model.space.n_dofs} x "
+        f"{model.tspace.n_dofs} dofs: build {t_build:.4f} s, fit {t_fit:.4f} s, "
+        f"{info.iterations} iterations, converged {info.converged}, escalation fired {escalated}; "
+        f"predict {t_pred:.4f} s, RMSE {rmse:.4e}; K2 launches {k2}, K6 launches {k6}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(info.converged, "the space-time fit did not converge")
+    check(bool(torch.isfinite(C).all()) and C.shape == (27, model.space.n_dofs), "coefficients")
+    check(rmse < 0.06, f"space-time RMSE {rmse:.4e} >= 0.06")
+    check(k2 > 0 and k6 >= 1, "the space-time path never launched K2 / K6")
+
+    # K2 on the tables the fit launched: each term's space factor on the
+    # (n_s, n_t) block, its time factor on the (n_t, n_s) block
+    n_t, n_s = model.tspace.n_dofs, model.space.n_dofs
+    for (T, S), name in zip(model._op.terms, ("Phi^T Phi (x) Psi^T Psi", "lam_t Pt (x) Ms",
+                                              "lam_s Mt (x) As")):
+        ell_spmv_vs_bound(gs, f"{name}, space factor", S, n_t)
+        ell_spmv_vs_bound(gs, f"{name}, time factor", T, n_s)
+
+    # fast diagonalization against the Kronecker CG on one two-term pencil;
+    # the CG takes the mode-diagonal preconditioner (solve_space_time's
+    # escalation), as Jacobi stalls on the time factor's spectrum
+    Psi, _ = eval_basis_pointwise(model.space, locs, device_locate=True, device=DEVICE)
+    Phi, _ = model.tspace.eval(times, device=DEVICE)
+    ell_spmv_vs_bound(gs, "Phi^T (right-hand side)", Phi.T, N_SITES)
+    ell_spmv_vs_bound(gs, "Psi^T (right-hand side)", Psi.T, n_t)
+    Yt = torch.as_tensor(Y, device=DEVICE)
+    b = Psi.rmatvec(Phi.rmatvec(Yt.T).T).T.reshape(-1)
+    S1, T1 = model.As * LAM_S + model.Ms, model.Pt * LAM_T
+    op = SeparableOperator([(T1, model.Ms), (model.Mt, S1)])
+    pre = ModeDiagPreconditioner.build(model.Mt.toarray(), T1.toarray(), model.Ms.diagonal(),
+                                       S1.diagonal())
+    (x_cg, info_cg), t_cg = synced_seconds(
+        lambda: cg(op, b, M_inv=pre, rtol=1e-12, maxiter=20000))
+    (x_fdm, info_fdm), t_fdm = synced_seconds(
+        lambda: solve_space_time_fdm(model.Mt, T1, model.Ms, S1, b, rtol=1e-12, maxiter=20000))
+    rel = (torch.linalg.norm(x_fdm - x_cg) / torch.linalg.norm(x_cg)).item()
+    log(f"space-time pencil (Mt, lam_t Pt, Ms, lam_s As + Ms): Kronecker CG (mode-diagonal "
+        f"preconditioner) {t_cg:.4f} s, "
+        f"{info_cg.iterations} iterations, converged {info_cg.converged}; solve_space_time_fdm "
+        f"{t_fdm:.4f} s, max {info_fdm.iterations} iterations over 27 modes, converged "
+        f"{info_fdm.converged}; ||x_fdm - x_cg|| / ||x_cg|| = {rel:.3e}")
+    check(info_cg.converged and info_fdm.converged, "a pencil solve did not converge")
+    check(rel <= 1e-8, f"FDM and Kronecker CG differ by {rel:.3e} > 1e-8")
+    return k2, k6
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -919,8 +1144,20 @@ def main():
     torch.cuda.empty_cache()
     pde, k6_launches = phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh)
     phase_pde_harmonic(pde)
+    mesh = pde.domain
     del pde
     torch.cuda.empty_cache()
+    obs = phase_point_location(mesh)
+    torch.cuda.empty_cache()
+    k2_reg, k6_reg = phase_regression(ak, gs, ls, mesh, obs)
+    del mesh, obs
+    torch.cuda.empty_cache()
+    k2_st, k6_st = phase_space_time(ak, gs, ls)
+    torch.cuda.empty_cache()
+    log(f"K2 launches by path: lane solve {k2_launches}, regression {k2_reg}, space-time {k2_st}; "
+        f"K6: PDE init {k6_launches}, regression {k6_reg}, space-time {k6_st}")
+    k2_launches += k2_reg + k2_st
+    k6_launches += k6_reg + k6_st
 
     k3 = phase_k3(ak, gs)
     torch.cuda.empty_cache()

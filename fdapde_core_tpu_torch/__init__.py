@@ -32,12 +32,16 @@ closed-form P1 local-stiffness kernels it runs (``ops/local_stiffness.py``,
 ``linear_algebra/dia.py``) and the DIA SpMV kernel its products run
 (``ops/dia_spmv.py``, ``csrc/dia_spmv.cu``); and the coords->off-diagonal
 planes kernel, the fused assembly's first stage
-(``ops/assembly_kernels.p1_offdiag_planes_from_coords``).
+(``ops/assembly_kernels.p1_offdiag_planes_from_coords``); and the
+data-fitting path: point location (``geometry/point_location.py``), basis
+evaluation (``fem/evaluation.py``), B-splines (``splines/``),
+``models.SmoothingRegression`` and ``models.SpaceTimeSmoothing``, which run
+K2 for every sparse product and K6 in their penalties' assembly.
 """
 
-from . import fem, geometry, linear_algebra, models, ops, pde, utils
+from . import fem, geometry, linear_algebra, models, ops, pde, splines, utils
 from .fem import FEMSpace
-from .geometry import Triangulation
-from .pde import PDE, advection, diffusion, laplacian, reaction
+from .geometry import Interval, Triangulation
+from .pde import PDE, advection, bilaplacian, diffusion, dt, laplacian, reaction
 
 __version__ = "0.1.0"

@@ -6,12 +6,11 @@ Host-only NumPy copy of ``fdapde_core_tpu/geometry/triangulation.py``
 faces, neighbors, boundary markers) is derived vectorized on the host;
 geometric per-cell maps live in `affine.py` (torch, and a NumPy twin).
 
-Differences from the JAX package's module: sub-simplex numbering always
+Difference from the JAX package's module: sub-simplex numbering always
 takes the NumPy sort-based `first_encounter_unique` (the native C++ hash
 pass is not ported yet, ROADMAP queue 1 item 3; P1 meshes with explicit
-boundary markers never reach it), and point location (`locate`,
-`locate_device`) raises NotImplementedError until `geometry/
-point_location.py` is ported (ROADMAP queue 1 item 3).
+boundary markers never reach it). Point location (`locate` on the host,
+`locate_device` in torch) is `geometry/point_location.py`.
 
 Numbering parity with the reference (required so P2 degrees of freedom and
 golden matrices match bit-for-bit):
@@ -30,6 +29,7 @@ from __future__ import annotations
 from functools import cached_property
 
 import numpy as np
+import torch
 
 from ..utils.combinatorics import combinations
 
@@ -254,13 +254,32 @@ class Triangulation:
 
     # -- point location ------------------------------------------------------
     def locate(self, points: np.ndarray) -> np.ndarray:
-        """Cell id containing each point: not ported yet."""
-        raise NotImplementedError(
-            "point location (geometry/point_location.py) is not ported yet: "
-            "ROADMAP queue 1 item 3"
-        )
+        """Cell id containing each point (-1 if outside the mesh).
 
-    locate_device = locate
+        Replaces the reference's ADT tree search (tree_search.h:28-84) with a
+        uniform-grid candidate search + exact barycentric `contains` test
+        (simplex.h:115-127), a vectorization-friendly equivalent.
+        """
+        from .point_location import CellLocator
+
+        if not hasattr(self, "_locator"):
+            self._locator = CellLocator(self)
+        return self._locator.locate(np.asarray(points, dtype=np.float64))
+
+    def locate_device(self, points, device=None):
+        """Point location for large query batches on a device
+        (geometry/point_location.DeviceCellLocator, the same ids as
+        `locate`). The device is that of `points` when they are a tensor,
+        else `device` ("cuda" when None); returns an int32 tensor there."""
+        from .point_location import DeviceCellLocator
+
+        if isinstance(points, torch.Tensor):
+            device = points.device
+        device = torch.device("cuda" if device is None else device)
+        cache = self.__dict__.setdefault("_device_locators", {})
+        if str(device) not in cache:
+            cache[str(device)] = DeviceCellLocator(self, device=device)
+        return cache[str(device)].locate(points)
 
     def node_patch(self, node_id: int) -> np.ndarray:
         """Ids of cells having `node_id` as a vertex (triangulation.h:257-260)."""

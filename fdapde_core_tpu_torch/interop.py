@@ -1,5 +1,6 @@
-"""Carry operators read out of the JAX package (``np.asarray``) across into
-this package's objects, so one operator can feed both solvers."""
+"""Carry operators and fitted models read out of the JAX package
+(``np.asarray``) across into this package's objects, so one operator can
+feed both solvers and a fit made in JAX predicts the same values here."""
 
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ from .ops.grid_dia import GridDIAMatrix
 from .ops.grid_mg import GridMG
 from .ops.matfree_soa import ELLSoA
 
-__all__ = ["ell_from_numpy", "grid_dia_from_numpy", "grid_mg_from_numpy", "sparse_from_numpy"]
+__all__ = ["ell_from_numpy", "grid_dia_from_numpy", "grid_mg_from_numpy",
+           "smoothing_regression_from_numpy", "space_time_smoothing_from_numpy",
+           "sparse_from_numpy"]
 
 
 def _tensor(a, device):
@@ -60,3 +63,27 @@ def sparse_from_numpy(rows, cols, vals, shape, device="cuda") -> SparseMatrix:
         _tensor(vals, device),
         tuple(int(s) for s in shape),
     )
+
+
+def smoothing_regression_from_numpy(mesh, penalty_op, coefficients, order: int = 1,
+                                    device="cuda"):
+    """A fitted ``models.SmoothingRegression`` over ``mesh`` (a port
+    Triangulation on the same nodes and cells as the JAX model's) whose
+    coefficients are a fitted JAX model's ``coefficients_`` as numpy."""
+    from .models.regression import SmoothingRegression
+
+    model = SmoothingRegression(mesh, penalty_op, order=order, device=device)
+    model.coefficients_ = _tensor(np.asarray(coefficients, dtype=np.float64), device)
+    return model
+
+
+def space_time_smoothing_from_numpy(mesh, time_interval, coefficients, fem_order: int = 1,
+                                    spline_order: int = 3, device="cuda"):
+    """A fitted ``models.SpaceTimeSmoothing`` whose (n_t, n_s) coefficients
+    are a fitted JAX model's ``coefficients_`` as numpy."""
+    from .models.space_time import SpaceTimeSmoothing
+
+    model = SpaceTimeSmoothing(mesh, time_interval, fem_order=fem_order,
+                               spline_order=spline_order, device=device)
+    model.coefficients_ = _tensor(np.asarray(coefficients, dtype=np.float64), device)
+    return model

@@ -1,16 +1,18 @@
 """Preconditioned Krylov solvers: CG, BiCGStab and restarted GMRES.
 
 Port of ``fdapde_core_tpu/linear_algebra/solvers.py`` ``SolveInfo``,
-``cg``, ``bicgstab``, ``gmres``, ``jacobi_preconditioner`` and the
-host-driven forms ``cg_chunked``, ``bicgstab_chunked`` and
-``cg_split_programs``. The JAX
+``cg``, ``bicgstab``, ``gmres``, ``jacobi_preconditioner``,
+``dense_solve``, ``iterative_refinement`` and the host-driven forms
+``cg_chunked``, ``bicgstab_chunked`` and ``cg_split_programs``. The JAX
 package splits a solve into device programs to stay under a TPU
 executor's run-time and compile limits; PyTorch runs eagerly, so the
 chunked forms are the plain loop with a host hook after every ``chunk``
 iterations, and their iterates equal ``cg``'s / ``bicgstab``'s.
 ``cg_split_programs`` keeps what changes its iterates: the stop test is
 read only every ``check_every`` iterations, and guarded divisions make the
-iterations past convergence exact no-ops.
+iterations past convergence exact no-ops. ``dense_solve`` is Gauss-Jordan
+elimination in JAX only because the TPU has no float64 LU; here it is
+``torch.linalg.solve``, with the same (n,) / (n, k) contract.
 
 Operators are callables or objects with ``@``. Convergence is
 ``||r|| <= max(rtol*||b||, atol)`` with an iteration cap; a non-finite
@@ -27,7 +29,8 @@ import numpy as np
 import torch
 
 __all__ = ["SolveInfo", "cg", "cg_chunked", "cg_split_programs", "bicgstab",
-           "bicgstab_chunked", "gmres", "jacobi_preconditioner"]
+           "bicgstab_chunked", "dense_solve", "gmres", "iterative_refinement",
+           "jacobi_preconditioner"]
 
 
 class SolveInfo(NamedTuple):
@@ -271,6 +274,27 @@ def cg_split_programs(A, b, M_inv, rtol=1e-12, maxiter=200, check_every=10,
             if not v > tol2:  # converged or non-finite: stop
                 break
     return x, SolveInfo(k, torch.sqrt(rn2), float(rn2) <= tol2)
+
+
+def dense_solve(A, b):
+    """Dense solve of A x = b, b of shape (n,) or (n, k), on A's device
+    and in A's dtype (for the framework's small dense systems: SMW
+    capacitance matrices, the exact GCV trace)."""
+    A = torch.as_tensor(A)
+    b = torch.as_tensor(b, device=A.device).to(A.dtype)
+    return torch.linalg.solve(A, b)
+
+
+def iterative_refinement(A, b, inner_solve, n_refine: int = 3):
+    """Mixed-precision refinement: residuals in b's (high) precision,
+    corrections from inner_solve(residual in float32) (e.g. an f32 CG).
+    Returns (x, final residual norm)."""
+    op = _as_operator(A)
+    x = torch.zeros_like(b)
+    for _ in range(n_refine):
+        r = b - op(x)
+        x = x + torch.as_tensor(inner_solve(r.to(torch.float32))).to(b.dtype)
+    return x, torch.linalg.norm(b - op(x))
 
 
 def jacobi_preconditioner(diag):

@@ -15,10 +15,19 @@ built on it. Every sum here therefore runs in a fixed order:
   largest multiplicity, and reduces it over its first axis: slot s receives
   its positions in increasing order. It sums duplicates in ``from_coo`` and
   scatters local matrices and vectors in ``fem/assembler.py``.
-- ``A @ x`` for a vector x lays each row's entries out once as a (D, n)
-  ELL, D the longest row, in column order, and applies it with the port's
-  ELL gather SpMV kernel K2 (``ops/gather_spmv.ell_spmv``: one thread per
-  row, its slots in order). (n, k) blocks take the same ELL in plain torch.
+- ``A @ x`` lays each row's entries out once as a (D, n) ELL, D the
+  longest row, in column order, and applies it with the port's ELL gather
+  SpMV kernel K2 (``ops/gather_spmv.ell_spmv``: one thread per row, its
+  slots in order).
+- ``A @ X`` for an (n_src, k) block (a vector is one column) runs on K2,
+  c columns per launch: the ELL of I_c (x) A (c copies of the table, copy
+  j reading column j of X) applied to c columns of X laid end to end. Each
+  column's rows take their slots in the order a one-column launch takes
+  them, so the result equals k vector products bitwise. c is as large as
+  keeps the copied table within ``_BLOCK_ENTRIES`` (and its columns within
+  int32), at least 1; the copies are kept per (dtype, c), and c = 1 is the
+  ELL itself. ``matmul_reference`` is the plain gather-multiply-sum of
+  either form, the oracle the products are held to.
 """
 
 from __future__ import annotations
@@ -29,6 +38,11 @@ import torch
 from ..ops.gather_spmv import ell_spmv
 
 __all__ = ["SegmentSum", "SparseMatrix", "coo_sum_duplicates"]
+
+# ELL entries of one multi-column launch: c copies of a (D, n) table hold
+# c * D * n <= 2**24 entries (192 MiB of float64 values and int32 columns)
+_BLOCK_ENTRIES = 1 << 24
+_INT32_MAX = 2**31 - 1
 
 
 def coo_sum_duplicates(rows, cols, n_rows, n_cols):
@@ -93,6 +107,7 @@ class SparseMatrix:
         self.shape = tuple(int(s) for s in shape)
         self._row_sum = _row_sum  # the rows' ELL layout, shared by with_vals
         self._ell = None  # (vals, cols) ELL tables, built at the first product
+        self._ell_blocks = {}  # (dtype, c) -> ELL of I_c (x) A, see __matmul__
         self._T = None
 
     # -- construction -------------------------------------------------------
@@ -105,6 +120,21 @@ class SparseMatrix:
         v = SegmentSum.build(inv, r.shape[0], vals.device)(vals)
         return cls(torch.as_tensor(r, device=vals.device),
                    torch.as_tensor(c, device=vals.device), v, shape)
+
+    @classmethod
+    def from_scipy(cls, m, dtype=torch.float64, device="cuda") -> "SparseMatrix":
+        """From any scipy.sparse matrix (duplicates summed), on ``device``."""
+        m = m.tocoo()
+        vals = torch.as_tensor(np.asarray(m.data, dtype=np.float64), device=device).to(dtype)
+        return cls.from_coo(m.row, m.col, vals, m.shape)
+
+    @classmethod
+    def from_dense(cls, a, tol: float = 0.0, dtype=torch.float64, device="cuda") -> "SparseMatrix":
+        """The entries of a dense host array with |a_ij| > tol, on ``device``."""
+        a = np.asarray(a)
+        r, c = np.nonzero(np.abs(a) > tol)
+        vals = torch.as_tensor(np.asarray(a[r, c], dtype=np.float64), device=device).to(dtype)
+        return cls.from_coo(r, c, vals, a.shape)
 
     # -- algebra ------------------------------------------------------------
     @property
@@ -128,13 +158,58 @@ class SparseMatrix:
         vals, cols = self._ell
         return vals.to(dtype).contiguous(), cols
 
+    def _ell_block(self, dtype, c: int):
+        """The (D, c n) ELL of I_c (x) A: copy j of the table reads the
+        j-th n_src-long block of its operand (c = 1: the ELL itself)."""
+        if c == 1:
+            return self._ell_tables(dtype)
+        key = (dtype, c)
+        if key not in self._ell_blocks:
+            vals, cols = self._ell_tables(dtype)
+            step = torch.arange(c, dtype=torch.int32, device=cols.device) * self.shape[1]
+            self._ell_blocks[key] = (
+                vals.repeat(1, c).contiguous(),
+                (cols[:, None, :] + step[None, :, None]).reshape(cols.shape[0], -1).contiguous(),
+            )
+        return self._ell_blocks[key]
+
+    def _block_columns(self, dtype, k: int) -> int:
+        """Columns per launch of A @ X for an (n_src, k) X."""
+        n, n_src = self.shape
+        D = self._ell_tables(dtype)[0].shape[0]
+        return max(1, min(k, _BLOCK_ENTRIES // max(1, D * n), _INT32_MAX // max(1, n_src)))
+
     def __matmul__(self, x):
+        x = torch.as_tensor(x, device=self.vals.device)
+        dtype = torch.promote_types(self.vals.dtype, x.dtype)
+        n, n_src = self.shape
+        X = x.to(dtype).reshape(n_src, -1)  # a vector is a one-column block
+        k = X.shape[1]
+        c = self._block_columns(dtype, k)
+        xt = X.T.contiguous()  # (k, n_src): column j of X is row j
+        out = []
+        for j in range(0, k, c):
+            cj = min(c, k - j)
+            vals, cols = self._ell_block(dtype, cj)
+            out.append(ell_spmv(vals, cols, xt[j:j + cj].reshape(-1)).reshape(cj, n))
+        y = out[0] if len(out) == 1 else torch.cat(out)
+        return y.T if x.dim() == 2 else y.reshape(-1)
+
+    def matmul_reference(self, x):
+        """Plain PyTorch A @ x (vector or (n_src, k) block): the row's
+        entries gathered, multiplied and summed; the oracle of ``@``."""
         x = torch.as_tensor(x, device=self.vals.device)
         dtype = torch.promote_types(self.vals.dtype, x.dtype)
         vals, cols = self._ell_tables(dtype)
         if x.dim() == 2:
             return (vals[:, :, None] * x.to(dtype)[cols.long()]).sum(0)
-        return ell_spmv(vals, cols, x.to(dtype).contiguous())
+        return (vals * x.to(dtype)[cols.long()]).sum(0)
+
+    def row_sums(self, vals=None):
+        """Each row's sum of ``vals`` (this matrix's values by default; any
+        (nnz,) tensor on its pattern), added in column order."""
+        self._ell_tables(self.vals.dtype)  # builds the row layout once
+        return self._row_sum(self.vals if vals is None else vals)
 
     def rmatvec(self, x):
         """x @ A, i.e. A^T applied to x."""

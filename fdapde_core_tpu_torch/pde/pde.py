@@ -1,7 +1,8 @@
 """The PDE problem descriptor.
 
-Port of ``fdapde_core_tpu/pde/pde.py`` for ``discretization="fem"`` and
-elliptic operators (counterpart of fdaPDE-core's pde.h:40-114):
+Port of ``fdapde_core_tpu/pde/pde.py`` for elliptic operators, with
+``discretization="fem"`` or ``"spline"`` (counterpart of fdaPDE-core's
+pde.h:40-114):
 
     mesh = Triangulation(nodes, cells, boundary)
     pde = PDE(mesh, -laplacian(), order=1)     # device="cuda", float64
@@ -11,11 +12,10 @@ elliptic operators (counterpart of fdaPDE-core's pde.h:40-114):
     pde.solve()                       # CG / BiCGStab
     u = pde.solution()
 
-The mesh and the FEM space stay on the host (NumPy); matrices, vectors and
-the solve live on ``device``. Not ported yet, each raising
-NotImplementedError with its ROADMAP item: ``discretization="spline"``,
-parabolic problems (a ``dt()`` term or ``times``), ``eval_functional_basis``
-and the "amg" rung of the preconditioner ladder.
+The mesh and the FEM or spline space stay on the host (NumPy); matrices,
+vectors and the solve live on ``device``. Not ported yet, each raising
+NotImplementedError with its ROADMAP item: parabolic problems (a ``dt()``
+term or ``times``) and the "amg" rung of the preconditioner ladder.
 """
 
 from __future__ import annotations
@@ -33,10 +33,7 @@ __all__ = ["PDE"]
 # costs: switch to the "auto" preconditioner ladder
 _AUTO_PRECOND_DOFS = 20_000
 
-_TODO_SPLINE = "discretization='spline' (splines/) is not ported yet: ROADMAP queue 1 item 3"
 _TODO_PARABOLIC = "parabolic problems (solve_parabolic) are not ported yet: ROADMAP queue 1 item 3"
-_TODO_EVAL = ("eval_functional_basis (fem/evaluation.py, point location) is not ported "
-              "yet: ROADMAP queue 1 item 3")
 
 
 class PDE:
@@ -63,13 +60,18 @@ class PDE:
         device="cuda",
         dtype=torch.float64,
     ):
-        if discretization == "spline":
-            raise NotImplementedError(_TODO_SPLINE)
-        if discretization != "fem":
-            raise ValueError(discretization)
         if times is not None or operator.is_parabolic:
             raise NotImplementedError(_TODO_PARABOLIC)
-        from ..fem.space import FEMSpace
+        if discretization == "fem":
+            from ..fem.space import FEMSpace
+
+            self.space = FEMSpace(domain, order)
+        elif discretization == "spline":
+            from ..splines.space import SplineSpace
+
+            self.space = SplineSpace(domain, order)
+        else:
+            raise ValueError(discretization)
 
         self.domain = domain
         self.operator = operator
@@ -82,7 +84,6 @@ class PDE:
         self.solver_preconditioner = solver_preconditioner
         self.device = torch.device(device)
         self.dtype = dtype
-        self.space = FEMSpace(domain, order)
 
         self._forcing = forcing
         self._dirichlet = None
@@ -136,15 +137,33 @@ class PDE:
         return self.operator.is_parabolic
 
     def eval_functional_basis(self, locs, policy: str = "pointwise"):
-        raise NotImplementedError(_TODO_EVAL)
+        """Psi matrix of basis evaluations (pde.h:89-92), a SparseMatrix on
+        the PDE's device, and the subdomain measures D."""
+        kw = dict(dtype=self.dtype, device=self.device)
+        if self.discretization == "spline":
+            return self.space.eval(locs, policy, **kw)
+        from ..fem.evaluation import eval_basis_areal, eval_basis_pointwise
+
+        if policy == "pointwise":
+            return eval_basis_pointwise(self.space, locs, **kw)
+        if policy == "areal":
+            return eval_basis_areal(self.space, locs, **kw)
+        raise ValueError(policy)
 
     # -- init: assembly (fem_solver_base.h:104-139) ---------------------------
     def init(self):
-        from ..fem.assembler import assemble_forcing, assemble_matrix
-
         kw = dict(dtype=self.dtype, device=self.device)
-        self._stiff = assemble_matrix(self.space, self.operator, **kw)
-        self._mass = assemble_matrix(self.space, reaction(1.0), **kw)
+        if self.discretization == "spline":
+            from ..splines import assembler as spline_asm
+
+            self._stiff = spline_asm.assemble_operator(self.space, self.operator, **kw)
+            self._mass = spline_asm.assemble_mass(self.space, **kw)
+            assemble_forcing = spline_asm.assemble_forcing
+        else:
+            from ..fem.assembler import assemble_forcing, assemble_matrix
+
+            self._stiff = assemble_matrix(self.space, self.operator, **kw)
+            self._mass = assemble_matrix(self.space, reaction(1.0), **kw)
         if self._forcing is not None:
             self._force = assemble_forcing(self.space, self._forcing, **kw)
         else:
@@ -162,7 +181,8 @@ class PDE:
         kw = dict(dtype=self.dtype, device=self.device)
         if self._dirichlet is None:
             # no boundary data set: solve the raw system (the reference
-            # imposes conditions only when supplied)
+            # imposes conditions only when supplied; splines upstream have no
+            # BC handling at all, spline_solver_base.h:79)
             mask = torch.zeros(self.space.n_dofs, dtype=torch.bool, device=self.device)
             g = torch.zeros(self.space.n_dofs, **kw)
         else:

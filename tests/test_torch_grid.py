@@ -90,6 +90,9 @@ def test_grid_dia_ops_match_jax():
 
 
 def test_galerkin_coarsen_matches_jax():
+    """Galerkin coarsening, twice; then the V-cycle: the JAX hierarchy
+    carried across through interop gives the JAX V-cycle, and the port's
+    own build gives the same hierarchy."""
     Gj = _folded(16)
     Cj = jax.jit(jmg.galerkin_coarsen)(Gj)
     Ct = tmg.galerkin_coarsen(_port(Gj))
@@ -99,10 +102,6 @@ def test_galerkin_coarsen_matches_jax():
     np.testing.assert_allclose(tmg.galerkin_coarsen(Ct).data.numpy(),
                                np.asarray(jmg.galerkin_coarsen(Cj).data), rtol=0, atol=1e-12)
 
-
-def test_v_cycle_matches_jax():
-    """The JAX hierarchy carried across through interop gives the JAX
-    V-cycle; the port's own build gives the same hierarchy."""
     Gj = _folded(32)
     mgj = jmg.GridMG.build(Gj, coarse_n=4)
     mgt = grid_mg_from_numpy([np.asarray(d) for d in mgj.datas], mgj.offsets,
@@ -123,7 +122,14 @@ def test_grid_cg_matches_jax():
     """grid_cg with the stencil stored in f32 and in bf16, f64 vectors. Both
     packages round the layers to the same storage values and then run the
     same f64 arithmetic, so the iterates agree to f64 rounding even where
-    bf16 storage perturbs the operator."""
+    bf16 storage perturbs the operator.
+
+    Then grid_cg_refined: f32 outer / bf16 inner refinement on a
+    well-conditioned shifted system (I + A): both packages reduce the true
+    residual alike. bf16 vector arithmetic rounds at other places in the two
+    frameworks, so residuals are held within 2x of each other and solutions
+    to 1e-5 relative (bf16 inner cycles under f32 refinement), not to
+    digits."""
     Gj = _folded(16)
     Gt = _port(Gj)
     b = np.random.default_rng(2).normal(size=Gj.n)
@@ -140,14 +146,6 @@ def test_grid_cg_matches_jax():
         np.testing.assert_allclose(rt.item(), float(rj), rtol=1e-9, err_msg=data_dtype)
         assert rt.item() < 1e-3 * np.linalg.norm(b), data_dtype
 
-
-def test_grid_cg_refined_matches_jax():
-    """f32 outer / bf16 inner refinement on a well-conditioned shifted
-    system (I + A): both packages reduce the true residual alike. bf16
-    vector arithmetic rounds at other places in the two frameworks, so
-    residuals are held within 2x of each other and solutions to 1e-5
-    relative (bf16 inner cycles under f32 refinement), not to digits."""
-    Gj = _folded(16)
     k0 = Gj.offsets2d.index((0, 0))
     Sj = JGrid(Gj.data.at[k0].add(1.0), Gj.offsets2d, Gj.shape2d)
     St = _port(Sj)

@@ -323,10 +323,8 @@ def test_pde_solve_matches_jax(monkeypatch):
         pde.solve()
     assert isinstance(excinfo.value.__cause__, ValueError)
     monkeypatch.undo()
-    for call in (lambda: fdt.PDE(mt, -fdt.laplacian(), discretization="spline", device=CPU),
-                 lambda: fdt.PDE(mt, fdt.pde.dt() - fdt.laplacian(), device=CPU),
+    for call in (lambda: fdt.PDE(mt, fdt.pde.dt() - fdt.laplacian(), device=CPU),
                  lambda: fdt.PDE(mt, -fdt.laplacian(), times=[0.0, 0.1], device=CPU),
-                 lambda: fdt.PDE(mt, -fdt.laplacian(), device=CPU).eval_functional_basis(pts),
                  lambda: tsolvers.solve_elliptic(At, _t(b), _t(bnd), _t(g), preconditioner="amg"),
                  lambda: tsolvers.solve_parabolic()):
         with pytest.raises(NotImplementedError):
