@@ -33,7 +33,9 @@ Phases (each raises on failure; nothing is caught):
    model is "auxgrid+lane"), load_vector(1), solve(rtol=1e-8); every
    kernel's launch count reset just before and K2's read just after; the
    true residual recomputed through the plain SpMV in f64 must be <= 1e-8
-   within 150 inner iterations;
+   within 150 inner iterations; the solve run again must take as many
+   iterations and give the same solution bitwise (every sum of the path,
+   the aux grid's P^T on K2's sliced form included, runs in a fixed order);
 9. MatrixFreePoisson on the unscrambled n = 3200 mesh (aux grid, f64 ELL
    on K2) converges to 1e-9;
 10. harmonic check on the scrambled n = 256 mesh through the lane path:
@@ -94,9 +96,13 @@ Phases (each raises on failure; nothing is caught):
     inside points with y = sin(2 pi x) cos(2 pi y) + 0.2 eps (converged, true
     relative residual in f64 through the plain products <= 1e-8), predict at
     100,000 interior points (RMSE < 0.2 / 3); K2 and K6 launches read after
-    it; then K2 timed against its bound on the ELLs of P, Psi and Psi^T
-    (padding ratio printed), the peak memory, and one profiled fit's device
-    busy share;
+    it; the peak memory; then K2's sliced form on the products with P, Psi
+    and Psi^T (k2_table: held to its plain version within the per-row
+    bound, bitwise stable, equal to today's route, i.e. the (D, n) ELL,
+    built here; timed with today's route, a torch.sparse CSR SpMV and the
+    plain version against its bound; padding ratio printed), the same three
+    at the sort windows SIGMAS (padding and time of each, results equal),
+    and one profiled fit's device busy share;
 19. drive SpaceTimeSmoothing with the launch counts zeroed on a monitoring
     design, 2,000 sites x 365 daily times, over unit_square_mesh(256) (P1,
     66,049 dofs) and Interval(0, 1, 24) (cubic, 27 B-splines), lam_s = 1,
@@ -105,11 +111,18 @@ Phases (each raises on failure; nothing is caught):
     launches printed; then solve_space_time_fdm on the model's
     (Mt, lam_t Pt, Ms, lam_s As + Ms) pencil agrees with the Kronecker CG
     (mode-diagonal preconditioner) on the same two-term operator to 1e-8
-    relative, both at rtol 1e-12.
+    relative, both at rtol 1e-12. k2_table on every product the fit and
+    its right-hand side launch: each term's space factor on the transposed
+    view of the (27, 66,049) iterate and its time factor on the row-major
+    block (today's route: the I_c (x) A copies), Phi^T on the transposed
+    view of Y and Psi^T on the row-major (2,000, 27) block; every block
+    column equal to its vector launch bitwise; torch.sparse CSR as SpMM.
 
 Prints one JSON line of per-kernel results (each with its bound on the
 card from this run's shapes: bytes over 3.35 TB/s or operations over the
-type's peak, whichever is larger), then, as the last line,
+type's peak, whichever is larger; K2's entry is the compact (9, 10.25M)
+ELL of phase 7, with the sliced form on phase 18's Psi^T under "sliced"),
+then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device or
 without the package beside it.
 """
@@ -143,6 +156,8 @@ LAMBDAS = (2.5, 50.0, 1000.0)
 N_PROBES = 8
 N_ST_MESH, N_SITES, N_DAYS = 256, 2000, 365  # phase 19's monitoring design
 LAM_S, LAM_T = 1.0, 0.1
+SLEEP_CYCLES = 20_000_000  # time_ms's head start for the host: ~10 ms at the H100's clock
+SIGMAS = (1, 256, 1024, 4096)  # the sort windows phase 18 times K2's sliced form at
 N_DIA = 1024  # the DIA path's unit_square_mesh: 1,050,625 dofs, 2,097,152 cells
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the vector (non-tensor
 # core) peaks of the types these kernels compute in
@@ -183,11 +198,14 @@ def perturbed_planes(n, dtype, gen, shape=None, junk=7.0):
 
 
 def time_ms(fn, reps):
-    """Mean device milliseconds per call over `reps` calls, after a warm-up."""
+    """Mean device milliseconds per call over `reps` calls, after a warm-up.
+    The card first sleeps (~10 ms) while the host queues the calls, so a
+    call shorter than its launch on the host is timed on the device alone."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -450,6 +468,29 @@ def phase_general_main_path(ak, gs):
     b = model.load_vector(torch.ones(cells.shape[0], dtype=torch.float64, device=DEVICE))
     (xs, its, rel), t_solve = synced_seconds(lambda: model.solve(b, rtol=1e-8, maxiter=400))
     launches = gs.ell_spmv_launches
+    # the same solve again: every sum runs in a fixed order (the aux grid's
+    # P^T included), so the iterations and the solution repeat bitwise
+    (xs2, its2, _), t_solve2 = synced_seconds(lambda: model.solve(b, rtol=1e-8, maxiter=400))
+    log(f"general main path, the solve repeated: {its2} inner iterations in {t_solve2:.4f} s, "
+        f"solution bitwise equal: {torch.equal(xs, xs2)}")
+    check(its2 == its and torch.equal(xs, xs2), "the repeated lane solve differs from the first")
+    # the aux grid's P^T, K2's sliced form in float32, against its plain
+    # version, and timed beside the index_add_ it replaces (atomics)
+    PT, aux = model.aux.PT, model.aux
+    r = torch.rand(PT.shape[1], generator=torch.Generator(device=DEVICE).manual_seed(SEED + 10),
+                   dtype=torch.float32, device=DEVICE) - 0.5
+    got, ref = PT @ r, gs.sliced_ell_spmm_reference(PT, r)
+    # the bilinear weights are >= 0, so |P^T| = P^T
+    bound = PT.width * torch.finfo(torch.float32).eps * gs.sliced_ell_spmm_reference(PT, r.abs())
+    check(bool(((got - ref).abs() <= bound).all()), "K2 sliced on the aux grid's P^T disagrees")
+    check(torch.equal(got, PT @ r), "K2 sliced on the aux grid's P^T is not bitwise stable")
+    m2 = PT.shape[0]
+    scatter = lambda: torch.zeros(m2, dtype=r.dtype, device=DEVICE).index_add_(  # noqa: E731
+        0, aux.idx.reshape(-1), (aux.w * r[None, :]).reshape(-1))
+    t_pt, t_ia = time_ms(lambda: PT @ r, 20), time_ms(scatter, 20)
+    log(f"aux grid P^T {PT.shape} float32, {PT.dest.shape[0]} entries, padding ratio "
+        f"{PT.padding_ratio():.3f}: K2 sliced {t_pt:.4f} ms (within the bound of its plain version, "
+        f"bitwise stable), the index_add_ it replaces {t_ia:.4f} ms")
 
     log(f"general main path n={N_MAIN} scrambled ({x.shape[0]} dofs, {cells.shape[0]} cells): "
         f"mesh {t_mesh:.4f} s, build (assembly + ELL + aux) {t_build:.4f} s, "
@@ -935,34 +976,118 @@ def phase_point_location(mesh):
     return pts_h[ids >= 0]
 
 
-def ell_spmv_vs_bound(gs, name, S, k=1):
-    """K2 on the ELL that S @ X launches for an (n_src, k) float64 X (k = 1:
-    a vector; else the ELL of I_c (x) S, c columns per launch), held to its
-    plain version with the per-row bound K eps sum|vals x| and timed against
-    its bound (each stored entry, x and y moved once: what the data needs,
-    padding and copies' columns excluded) and its plain version; prints the
-    padding ratio (ELL slots over entries)."""
-    c = S._block_columns(torch.float64, k)
-    vals, cols = S._ell_block(torch.float64, c)
-    K, n = vals.shape
+def today_route(gs, S, X):
+    """The route S @ X took before K2's sliced form, built here for the
+    comparison: S's (D, n) ELL, every row padded to the longest (value 0,
+    column 0), and for a block the ELL of I_c (x) S (c copies of the table,
+    copy j reading column j), applied to the (k, n_src) transpose of X.
+    Returns (a closure computing S @ X that way, the padding ratio)."""
+    n, n_src = S.shape
+    ptr = torch.searchsorted(S.rows.long(), torch.arange(n + 1, device=DEVICE))
+    lens = ptr[1:] - ptr[:-1]
+    q = torch.arange(int(lens.max()), device=DEVICE)[:, None]
+    live = q < lens[None, :]
+    idx = torch.where(live, ptr[:-1][None, :] + q, 0)
+    vals = torch.where(live, S.vals.double()[idx], 0.0).contiguous()
+    cols = torch.where(live, S.cols[idx], 0).to(torch.int32).contiguous()
+    D = vals.shape[0]
+    if X.dim() == 1:
+        return (lambda: gs.ell_spmv(vals, cols, X)), D * n / S.nnz
+    k = X.shape[1]
+    c = max(1, min(k, (1 << 24) // max(1, D * n), (2**31 - 1) // max(1, n_src)))
+    step = torch.arange(c, dtype=torch.int32, device=DEVICE) * n_src
+    tables = {}
+    for cj in {min(c, k - j) for j in range(0, k, c)}:
+        tables[cj] = (vals.repeat(1, cj).contiguous(),
+                      (cols[:, None, :] + step[None, :cj, None]).reshape(D, -1).contiguous())
+
+    def run():
+        xt = X.T.contiguous()
+        out = []
+        for j in range(0, k, c):
+            cj = min(c, k - j)
+            out.append(gs.ell_spmv(*tables[cj], xt[j:j + cj].reshape(-1)).reshape(cj, n))
+        return (out[0] if len(out) == 1 else torch.cat(out)).T
+
+    return run, D * n / S.nnz
+
+
+def k2_table(gs, name, S, k=1, transposed=False):
+    """K2's sliced form on the product S @ X that a path launches, X float64
+    random: a vector (k = 1) or an (n_src, k) block, row-major or the
+    transposed view of a row-major (k, n_src) block. Checks: the kernel
+    against its plain version within the per-row bound width eps sum|a x|;
+    bitwise stable; each block column equal to the vector launch on that
+    column; equal to today's route (one thread per row either way). Times,
+    by CUDA events, two alternating runs after a warm-up: the kernel,
+    today's route (the (D, n) ELL or the I_c (x) S copies, built here), a
+    torch.sparse CSR product (cuSPARSE SpMV or SpMM, timed, never used) and
+    the plain version; the bound counts each stored entry once (12 B), X
+    and Y once. Returns the measurements."""
+    A = S.sliced(torch.float64)
+    n, n_src = S.shape
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
-    x = torch.rand(c * S.shape[1], generator=gen, dtype=torch.float64, device=DEVICE) - 0.5
-    got, ref = gs.ell_spmv(vals, cols, x), gs.ell_spmv_reference(vals, cols, x)
-    bound = K * torch.finfo(torch.float64).eps * gs.ell_spmv_reference(vals.abs(), cols, x.abs())
+    rand = lambda *shape: torch.rand(shape, generator=gen, dtype=torch.float64, device=DEVICE) - 0.5  # noqa: E731
+    X = rand(n_src) if k == 1 else rand(k, n_src).T if transposed else rand(n_src, k)
+    got = S @ X
+    ref = gs.sliced_ell_spmm_reference(A, X)
+    bound = A.width * torch.finfo(torch.float64).eps * gs.sliced_ell_spmm_reference(
+        A.with_vals(S.vals.double().abs()), X.abs())
     err = (got - ref).abs()
     check(bool((err <= bound).all()), f"K2 on {name} disagrees with its plain version")
     check(bool(torch.isfinite(got).all()), f"K2 on {name} produced non-finite values")
-    ms = time_ms(lambda: gs.ell_spmv(vals, cols, x), 30)
-    plain_ms = time_ms(lambda: gs.ell_spmv_reference(vals, cols, x), 3)
-    nnz = c * S.nnz
-    nbytes = nnz * (8 + 4) + (x.numel() + n) * 8
-    b = least_time(nbytes, 2 * nnz, torch.float64)
-    block = f", {c} columns per launch (k = {k})" if k > 1 else ""
-    log(f"K2 on {name} {tuple(S.shape)}{block}: ELL ({K}, {n}), {nnz} entries, padding ratio "
-        f"{K * n / max(nnz, 1):.3f}; max|kernel-plain| {err.max().item():.3e}; kernel {ms:.4f} ms "
-        f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of the entries' {nbytes / 1e9:.4f} GB), plain "
+    stable = torch.equal(got, S @ X)
+    check(stable, f"K2 on {name} is not bitwise stable")
+    columns = "vector"
+    if k > 1:
+        per_column = torch.stack([gs.sliced_ell_spmm(A, X[:, j]) for j in range(k)], 1)
+        columns = f"all {k} block columns == their vector launches: {torch.equal(got, per_column)}"
+        check(torch.equal(got, per_column), f"K2 on {name}: a block column differs from its vector launch")
+        del per_column
+    old, old_padding = today_route(gs, S, X)
+    same = torch.equal(got, old())
+    check(same, f"K2 on {name} differs from today's route")
+
+    csr = csr_of(S.with_vals(S.vals.double()))
+    lib_err = (csr @ X - ref).abs().max().item()
+    kernel, library = (lambda: S @ X), (lambda: csr @ X)
+    n1, o1, l1 = time_ms(kernel, 30), time_ms(old, 30), time_ms(library, 30)
+    n2, o2, l2 = time_ms(kernel, 30), time_ms(old, 30), time_ms(library, 30)
+    plain_ms = time_ms(lambda: gs.sliced_ell_spmm_reference(A, X), 3)
+    ms, old_ms, library_ms = (n1 + n2) / 2, (o1 + o2) / 2, (l1 + l2) / 2
+    del csr
+    check(ms <= old_ms, f"K2 sliced on {name} ({ms:.4f} ms) is slower than today's route "
+                        f"({old_ms:.4f} ms)")
+    nbytes = S.nnz * (8 + 4) + (X.numel() + n * k) * 8
+    b = least_time(nbytes, 2 * S.nnz * k, torch.float64)
+    layout = "" if k == 1 else f" on X {tuple(X.shape)} {'transposed view' if transposed else 'row-major'}"
+    log(f"K2 sliced on {name} {tuple(S.shape)}{layout}: {S.nnz} entries, padding ratio "
+        f"{A.padding_ratio():.3f} (width {A.width}; today's {old_padding:.3f}); max|kernel-plain| "
+        f"{err.max().item():.3e} within the bound; bitwise stable {stable}; {columns}; == today's "
+        f"route {same}; kernel {n1:.4f} / {n2:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of "
+        f"{nbytes / 1e9:.4f} GB), today's route {o1:.4f} / {o2:.4f} ms ({old_ms / ms:.2f}x), "
+        f"torch.sparse CSR {l1:.4f} / {l2:.4f} ms (max|csr-plain| {lib_err:.3e}), plain "
         f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
         f"{100 * b['bound_ms'] / ms:.0f} %)")
+    return dict(table=f"{name} {tuple(S.shape)}", max_abs_err=err.max().item(), ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, today_ms=old_ms,
+                padding=A.padding_ratio(), **b)
+
+
+def sigma_sweep(gs, name, S):
+    """K2's sliced form on S @ x at several sort windows: the padding
+    ratio and the time of each, the results equal bitwise."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    x = torch.rand(S.shape[1], generator=gen, dtype=torch.float64, device=DEVICE) - 0.5
+    out, first = [], None
+    for sigma in SIGMAS:
+        A = gs.SlicedELL.from_coo(S.rows, S.cols, S.vals.double(), S.shape, sigma=sigma)
+        y = A @ x
+        first = y if first is None else first
+        check(torch.equal(y, first), f"K2 on {name}: the sort window {sigma} changed a sum")
+        t1, t2 = time_ms(lambda: A @ x, 30), time_ms(lambda: A @ x, 30)
+        out.append(f"sigma {sigma}: padding {A.padding_ratio():.3f}, {t1:.4f} / {t2:.4f} ms")
+    log(f"K2 sliced on {name} {tuple(S.shape)} by sort window (results equal): " + "; ".join(out))
 
 
 def phase_regression(ak, gs, ls, mesh, obs):
@@ -1010,10 +1135,12 @@ def phase_regression(ak, gs, ls, mesh, obs):
     check(rmse < SIGMA / 3, f"RMSE {rmse:.4e} >= sigma / 3")
     check(k2 > 0 and k6 >= 1, "the regression path never launched K2 / K6")
 
+    tables = {name: k2_table(gs, name, S) for name, S in (("P", model.P), ("Psi", Psi),
+                                                           ("Psi^T", Psi.T))}
     for name, S in (("P", model.P), ("Psi", Psi), ("Psi^T", Psi.T)):
-        ell_spmv_vs_bound(gs, name, S)
+        sigma_sweep(gs, name, S)
     profiled("fit", lambda: model.fit(obs, y, best, rtol=1e-10))
-    return k2, k6
+    return k2, k6, tables["Psi^T"]
 
 
 def phase_space_time(ak, gs, ls):
@@ -1065,16 +1192,16 @@ def phase_space_time(ak, gs, ls):
     n_t, n_s = model.tspace.n_dofs, model.space.n_dofs
     for (T, S), name in zip(model._op.terms, ("Phi^T Phi (x) Psi^T Psi", "lam_t Pt (x) Ms",
                                               "lam_s Mt (x) As")):
-        ell_spmv_vs_bound(gs, f"{name}, space factor", S, n_t)
-        ell_spmv_vs_bound(gs, f"{name}, time factor", T, n_s)
+        k2_table(gs, f"{name}, space factor", S, n_t, transposed=True)
+        k2_table(gs, f"{name}, time factor", T, n_s)
 
     # fast diagonalization against the Kronecker CG on one two-term pencil;
     # the CG takes the mode-diagonal preconditioner (solve_space_time's
     # escalation), as Jacobi stalls on the time factor's spectrum
     Psi, _ = eval_basis_pointwise(model.space, locs, device_locate=True, device=DEVICE)
     Phi, _ = model.tspace.eval(times, device=DEVICE)
-    ell_spmv_vs_bound(gs, "Phi^T (right-hand side)", Phi.T, N_SITES)
-    ell_spmv_vs_bound(gs, "Psi^T (right-hand side)", Psi.T, n_t)
+    k2_table(gs, "Phi^T (right-hand side)", Phi.T, N_SITES, transposed=True)
+    k2_table(gs, "Psi^T (right-hand side)", Psi.T, n_t)
     Yt = torch.as_tensor(Y, device=DEVICE)
     b = Psi.rmatvec(Phi.rmatvec(Yt.T).T).T.reshape(-1)
     S1, T1 = model.As * LAM_S + model.Ms, model.Pt * LAM_T
@@ -1149,7 +1276,7 @@ def main():
     torch.cuda.empty_cache()
     obs = phase_point_location(mesh)
     torch.cuda.empty_cache()
-    k2_reg, k6_reg = phase_regression(ak, gs, ls, mesh, obs)
+    k2_reg, k6_reg, k2_sliced = phase_regression(ak, gs, ls, mesh, obs)
     del mesh, obs
     torch.cuda.empty_cache()
     k2_st, k6_st = phase_space_time(ak, gs, ls)
@@ -1183,6 +1310,7 @@ def main():
         replaces="fdapde_core_tpu/ops/pallas_gather_spmv.py:563",
         launches=k2_launches,
         **k2,
+        sliced=k2_sliced,
     ), dict(
         name="p1_stiffness_2d",
         route="cuda",

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "ell_spmv_f32": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
     "ell_spmv_f64": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
     "ell_spmv_bf16": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
+    "sell_spmm_f32": (_VP, _VP, _VP, _VP, _VP, _I64, _VP, _I64, _I64, _VP, _I64, _I64, _I64, _VP),
+    "sell_spmm_f64": (_VP, _VP, _VP, _VP, _VP, _I64, _VP, _I64, _I64, _VP, _I64, _I64, _I64, _VP),
     "p1_stiffness_2d_f32": (_VP, _VP, _I64, _VP),
     "p1_stiffness_2d_f64": (_VP, _VP, _I64, _VP),
     "p1_stiffness_edges_f32": (_VP, _VP, _I64, _F64, _VP),

@@ -15,19 +15,15 @@ built on it. Every sum here therefore runs in a fixed order:
   largest multiplicity, and reduces it over its first axis: slot s receives
   its positions in increasing order. It sums duplicates in ``from_coo`` and
   scatters local matrices and vectors in ``fem/assembler.py``.
-- ``A @ x`` lays each row's entries out once as a (D, n) ELL, D the
-  longest row, in column order, and applies it with the port's ELL gather
-  SpMV kernel K2 (``ops/gather_spmv.ell_spmv``: one thread per row, its
-  slots in order).
-- ``A @ X`` for an (n_src, k) block (a vector is one column) runs on K2,
-  c columns per launch: the ELL of I_c (x) A (c copies of the table, copy
-  j reading column j of X) applied to c columns of X laid end to end. Each
-  column's rows take their slots in the order a one-column launch takes
-  them, so the result equals k vector products bitwise. c is as large as
-  keeps the copied table within ``_BLOCK_ENTRIES`` (and its columns within
-  int32), at least 1; the copies are kept per (dtype, c), and c = 1 is the
-  ELL itself. ``matmul_reference`` is the plain gather-multiply-sum of
-  either form, the oracle the products are held to.
+- ``A @ x`` and ``A @ X`` for an (n_src, k) block run on K2's sliced
+  form (``ops/gather_spmv.SlicedELL``, built once per pattern on the
+  device from the sorted COO and shared by ``with_vals``): each row's
+  entries in column order, summed by one thread slot after slot, each
+  slice of 32 rows padded only to its own longest row. A block is read in
+  place through its strides, the table once per launch for all k columns,
+  and each column equals the vector product of that column bitwise.
+  ``matmul_reference`` is the plain gather-multiply-sum of either form,
+  the oracle the products are held to.
 """
 
 from __future__ import annotations
@@ -35,14 +31,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.gather_spmv import ell_spmv
+from ..ops.gather_spmv import SlicedELL
 
 __all__ = ["SegmentSum", "SparseMatrix", "coo_sum_duplicates"]
-
-# ELL entries of one multi-column launch: c copies of a (D, n) table hold
-# c * D * n <= 2**24 entries (192 MiB of float64 values and int32 columns)
-_BLOCK_ENTRIES = 1 << 24
-_INT32_MAX = 2**31 - 1
 
 
 def coo_sum_duplicates(rows, cols, n_rows, n_cols):
@@ -100,14 +91,15 @@ class SparseMatrix:
     """Sorted-COO sparse matrix: rows (nnz,) int32 sorted, cols (nnz,)
     int32 sorted within each row, vals (nnz,), all on one device."""
 
-    def __init__(self, rows, cols, vals, shape, _row_sum: SegmentSum | None = None):
+    def __init__(self, rows, cols, vals, shape, _pattern: list | None = None):
         self.rows = rows
         self.cols = cols
         self.vals = vals
         self.shape = tuple(int(s) for s in shape)
-        self._row_sum = _row_sum  # the rows' ELL layout, shared by with_vals
-        self._ell = None  # (vals, cols) ELL tables, built at the first product
-        self._ell_blocks = {}  # (dtype, c) -> ELL of I_c (x) A, see __matmul__
+        # [SlicedELL pattern or None]: the rows' sliced layout, built at the
+        # first product and shared by every with_vals of this matrix
+        self._pattern = [None] if _pattern is None else _pattern
+        self._sliced = {}  # dtype -> SlicedELL with this matrix's values
         self._T = None
 
     # -- construction -------------------------------------------------------
@@ -145,71 +137,51 @@ class SparseMatrix:
     def dtype(self):
         return self.vals.dtype
 
-    def _ell_tables(self, dtype):
-        """The (D, n_rows) ELL of this matrix: values in ``dtype`` and int32
-        columns (padding: value 0, column 0)."""
-        if self._row_sum is None:
-            self._row_sum = SegmentSum.build(_host(self.rows), self.shape[0], self.vals.device)
-        if self._ell is None:
-            t = self._row_sum.table
-            cols_ext = torch.cat([self.cols, self.cols.new_zeros(1)])
-            vals_ext = torch.cat([self.vals, self.vals.new_zeros(1)])
-            self._ell = (vals_ext[t], cols_ext[t].contiguous())
-        vals, cols = self._ell
-        return vals.to(dtype).contiguous(), cols
-
-    def _ell_block(self, dtype, c: int):
-        """The (D, c n) ELL of I_c (x) A: copy j of the table reads the
-        j-th n_src-long block of its operand (c = 1: the ELL itself)."""
-        if c == 1:
-            return self._ell_tables(dtype)
-        key = (dtype, c)
-        if key not in self._ell_blocks:
-            vals, cols = self._ell_tables(dtype)
-            step = torch.arange(c, dtype=torch.int32, device=cols.device) * self.shape[1]
-            self._ell_blocks[key] = (
-                vals.repeat(1, c).contiguous(),
-                (cols[:, None, :] + step[None, :, None]).reshape(cols.shape[0], -1).contiguous(),
-            )
-        return self._ell_blocks[key]
-
-    def _block_columns(self, dtype, k: int) -> int:
-        """Columns per launch of A @ X for an (n_src, k) X."""
-        n, n_src = self.shape
-        D = self._ell_tables(dtype)[0].shape[0]
-        return max(1, min(k, _BLOCK_ENTRIES // max(1, D * n), _INT32_MAX // max(1, n_src)))
+    def sliced(self, dtype=None) -> SlicedELL:
+        """The sliced ELL the products launch, values in ``dtype`` (this
+        matrix's by default)."""
+        dtype = self.vals.dtype if dtype is None else dtype
+        if dtype not in self._sliced:
+            vals = self.vals.to(dtype)
+            if self._pattern[0] is None:
+                A = SlicedELL.from_coo(self.rows, self.cols, vals, self.shape)
+                self._pattern[0] = A.pattern()
+            else:
+                A = self._pattern[0].with_vals(vals)
+            self._sliced[dtype] = A
+        return self._sliced[dtype]
 
     def __matmul__(self, x):
+        """A @ x for an (n_src,) vector or an (n_src, k) block, on K2."""
         x = torch.as_tensor(x, device=self.vals.device)
         dtype = torch.promote_types(self.vals.dtype, x.dtype)
-        n, n_src = self.shape
-        X = x.to(dtype).reshape(n_src, -1)  # a vector is a one-column block
-        k = X.shape[1]
-        c = self._block_columns(dtype, k)
-        xt = X.T.contiguous()  # (k, n_src): column j of X is row j
-        out = []
-        for j in range(0, k, c):
-            cj = min(c, k - j)
-            vals, cols = self._ell_block(dtype, cj)
-            out.append(ell_spmv(vals, cols, xt[j:j + cj].reshape(-1)).reshape(cj, n))
-        y = out[0] if len(out) == 1 else torch.cat(out)
-        return y.T if x.dim() == 2 else y.reshape(-1)
+        return self.sliced(dtype) @ x.to(dtype)
 
     def matmul_reference(self, x):
         """Plain PyTorch A @ x (vector or (n_src, k) block): the row's
         entries gathered, multiplied and summed; the oracle of ``@``."""
         x = torch.as_tensor(x, device=self.vals.device)
         dtype = torch.promote_types(self.vals.dtype, x.dtype)
-        vals, cols = self._ell_tables(dtype)
+        n, dev = self.shape[0], self.vals.device
+        if self.nnz == 0:
+            return torch.zeros((n,) + tuple(x.shape[1:]), dtype=dtype, device=dev)
+        ptr = torch.searchsorted(self.rows.long(), torch.arange(n + 1, device=dev))
+        lens = ptr[1:] - ptr[:-1]
+        q = torch.arange(int(lens.max()), device=dev)[:, None]
+        live = q < lens[None, :]
+        idx = torch.where(live, ptr[:-1][None, :] + q, 0)  # (D, n) ELL of entry ids
+        vals = torch.where(live, self.vals.to(dtype)[idx], 0.0)
+        X = x.to(dtype)[self.cols[idx].long()]
         if x.dim() == 2:
-            return (vals[:, :, None] * x.to(dtype)[cols.long()]).sum(0)
-        return (vals * x.to(dtype)[cols.long()]).sum(0)
+            return (vals[:, :, None] * X).sum(0)
+        return (vals * X).sum(0)
 
     def row_sums(self, vals=None):
         """Each row's sum of ``vals`` (this matrix's values by default; any
-        (nnz,) tensor on its pattern), added in column order."""
-        self._ell_tables(self.vals.dtype)  # builds the row layout once
-        return self._row_sum(self.vals if vals is None else vals)
+        (nnz,) tensor on its pattern), added in column order: the product
+        with a vector of ones, each slot adding v * 1 = v exactly."""
+        M = self if vals is None else self.with_vals(vals)
+        return M @ torch.ones(self.shape[1], dtype=M.vals.dtype, device=M.vals.device)
 
     def rmatvec(self, x):
         """x @ A, i.e. A^T applied to x."""
@@ -218,9 +190,9 @@ class SparseMatrix:
     @property
     def T(self) -> "SparseMatrix":
         if self._T is None:
-            # re-sort by (col, row); host-side ordering, values on the device
-            order = np.lexsort((_host(self.rows), _host(self.cols)))
-            idx = torch.as_tensor(order, device=self.vals.device)
+            # rows are sorted, so a stable sort by column gives (col, row)
+            # order, on the device
+            idx = torch.sort(self.cols, stable=True).indices
             self._T = SparseMatrix(self.cols[idx], self.rows[idx], self.vals[idx],
                                    (self.shape[1], self.shape[0]))
         return self._T
@@ -233,7 +205,7 @@ class SparseMatrix:
         return d
 
     def with_vals(self, vals) -> "SparseMatrix":
-        return SparseMatrix(self.rows, self.cols, vals, self.shape, _row_sum=self._row_sum)
+        return SparseMatrix(self.rows, self.cols, vals, self.shape, _pattern=self._pattern)
 
     def __add__(self, other: "SparseMatrix") -> "SparseMatrix":
         if self.shape != other.shape:

@@ -10,9 +10,11 @@ bounding box (4 weights per mesh node), G^{-1} one V-cycle of the grid
 stencil multigrid (``ops/grid_mg.GridMG``, 5-point Laplacian with an
 identity boundary ring). B is SPD, so it preconditions CG.
 
-P^T r is a scatter-add (``index_add_``); on CUDA it adds float32 with
-atomics in an order that varies from run to run, so the apply, and the
-iteration count of a solve that uses it, may differ slightly between runs.
+P^T r, which JAX forms with ``segment_sum``, is a product with P^T stored
+as an (m^2, n) sliced ELL on K2 (``ops/gather_spmv.SlicedELL``): each grid
+node's contributions are summed by one thread in increasing position of
+the flattened (4, n) table, the order ``segment_sum`` adds them in on the
+CPU, with no atomics, so the apply is bitwise the same from run to run.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from .gather_spmv import SlicedELL
 from .grid_dia import GridDIAMatrix
 from .grid_mg import GridMG
 
@@ -41,12 +44,23 @@ def _grid_stencil(free):
     return GridDIAMatrix(torch.stack(layers), _OFFS5, (m, m))
 
 
+def _restriction(idx, w, m):
+    """P^T as an (m^2, n) SlicedELL on idx's device: the entries of the
+    (4, n) table ordered by grid node, each node's in increasing flattened
+    position (a stable sort of the ids)."""
+    n = idx.shape[1]
+    order = torch.sort(idx.reshape(-1), stable=True)
+    return SlicedELL.from_coo(order.values, order.indices % n, w.reshape(-1)[order.indices],
+                              (m * m, n))
+
+
 class AuxGridPreconditioner:
     """z = omega * dinv * r + P V(P^T r).
 
     idx: (4, n) int32 grid node ids; w: (4, n) bilinear weights; dinv: (n,)
     inverse diagonal of the mesh operator; mg: GridMG over the grid
-    stencil; n_grid: grid cells per side (m = n_grid + 1 nodes).
+    stencil; n_grid: grid cells per side (m = n_grid + 1 nodes); PT: P^T
+    as a SlicedELL, built from idx and w.
     """
 
     def __init__(self, idx, w, dinv, mg, omega, n_grid):
@@ -56,6 +70,7 @@ class AuxGridPreconditioner:
         self.mg = mg
         self.omega = omega
         self.n_grid = n_grid
+        self.PT = _restriction(idx, w, n_grid + 1)
 
     @classmethod
     def build(cls, nodes, diag, grid_n: int | None = None, bbox=None,
@@ -152,11 +167,7 @@ class AuxGridPreconditioner:
         return cls(idx, w, dinv, mg, omega, grid_n)
 
     def __call__(self, r):
-        m = self.n_grid + 1
-        # P^T r: scatter the 4 bilinear weights per node onto the grid
-        src = (self.w * r[None, :]).reshape(-1)
-        rc = torch.zeros(m * m, dtype=src.dtype, device=src.device)
-        rc.index_add_(0, self.idx.reshape(-1), src)
+        rc = self.PT @ r  # P^T r: the 4 bilinear weights per node onto the grid
         z_g = self.mg.v_cycle(rc)
         # P z_g: gather back
         z = (z_g[self.idx] * self.w).sum(dim=0)

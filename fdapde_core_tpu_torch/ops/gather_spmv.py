@@ -20,16 +20,31 @@ so the port keeps what ``_spmv`` computes and drops the routing:
   the rectangular window limit applies.
 
 The same wrapper serves ``ops/matfree_soa.ELLSoA.__matmul__``.
+
+K2's second form serves every ``SparseMatrix`` product and the aux grid's
+P^T: ``SlicedELL``, a sliced ELL (SELL-C-sigma) that pads each slice of 32
+rows only to its own longest row, with ``sliced_ell_spmm(A, X)`` as its
+wrapper (a vector, or an (n_src, k) block read in place through its
+strides; the kernel is the second family of ``csrc/ell_spmv.cu``) and
+``sliced_ell_spmm_reference`` as its plain version. Both forms count their
+launches in ``ell_spmv_launches``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["LaneRoutedELL", "ell_spmv", "ell_spmv_reference"]
+__all__ = ["LaneRoutedELL", "SlicedELL", "ell_spmv", "ell_spmv_reference", "sliced_ell_spmm",
+           "sliced_ell_spmm_reference"]
 
-# kernel launches since import (or since a caller last reset it to 0)
+# kernel launches of either form since import (or since a caller last reset
+# it to 0)
 ell_spmv_launches = 0
+
+SLICE = 32  # rows per slice of a SlicedELL: the lanes of a warp (kC in the source)
+# rows are sorted by length within windows of this many positions before
+# they are cut into slices (1: no sort)
+SLICE_SORT_WINDOW = 256
 
 # value dtype -> accumulation (x and y) dtype the kernel takes
 _ACC = {
@@ -110,6 +125,187 @@ def ell_spmv(vals, cols, x):
         raise RuntimeError(f"ell_spmv kernel launch failed: cudaError {err}")
     ell_spmv_launches += 1
     return y
+
+
+class SlicedELL:
+    """An (n, n_src) sparse matrix as a sliced ELL, the layout of K2's
+    second form (see ``csrc/ell_spmv.cu``).
+
+    Position p holds row ``perm[p]`` (``perm`` None: row p). Positions are
+    cut into slices of ``SLICE``; slice s holds ``slice_w[s]`` slots, slot-
+    major from ``slice_off[s]``: slot q of the row at lane l is entry
+    ``slice_off[s] + q * SLICE + l`` of ``vals`` and ``cols``, padded with
+    value 0, column 0. ``dest`` maps each entry of the COO the matrix was
+    built from to its slot, so ``with_vals`` lays out new values on the same
+    pattern."""
+
+    def __init__(self, vals, cols, slice_off, slice_w, perm, dest, shape, width: int):
+        self.vals = vals  # (slots,) float32 or float64
+        self.cols = cols  # (slots,) int32
+        self.slice_off = slice_off  # (n_slices + 1,) int64, entries before each slice
+        self.slice_w = slice_w  # (n_slices,) int32
+        self.perm = perm  # (n,) int32 or None
+        self.dest = dest  # (nnz,) int64
+        self.shape = tuple(int(s) for s in shape)
+        self.width = width  # the longest row
+
+    @classmethod
+    def from_coo(cls, rows, cols, vals, shape, sigma: int = SLICE_SORT_WINDOW) -> "SlicedELL":
+        """The layout of a COO matrix whose rows are sorted and each row's
+        entries in the order they are to be summed (``SparseMatrix``'s
+        order), built on vals' device with no host round trip but the sizes.
+        ``sigma`` (1 or a multiple of ``SLICE``): rows are sorted by length,
+        longest first, within windows of ``sigma`` positions (stable), where
+        that cuts the slots the kernel reads by at least 1/8: the sort
+        scatters each window's writes of y, which a small cut does not
+        repay (on Psi^T, wider windows that cut the slots by another 12 %
+        ran slower, PERF.md section 6)."""
+        if sigma != 1 and sigma % SLICE:
+            raise ValueError(f"sigma must be 1 or a multiple of {SLICE}, got {sigma}")
+        n, n_src = (int(s) for s in shape)
+        dev = vals.device
+        rows = rows.to(device=dev, dtype=torch.int64)
+        ptr = torch.searchsorted(rows, torch.arange(n + 1, device=dev))
+        lens = ptr[1:] - ptr[:-1]
+        n_slices = -(-n // SLICE)
+
+        def widths(pos_lens):
+            padded = torch.zeros(n_slices * SLICE, dtype=torch.int64, device=dev)
+            padded[:n] = pos_lens
+            return padded.reshape(n_slices, SLICE).amax(1)
+
+        perm, slice_w = None, widths(lens)
+        if sigma > 1 and n > 0:
+            key = torch.arange(n, device=dev) // sigma * (n + 1) + (n - lens)
+            order = torch.sort(key, stable=True).indices
+            sorted_w = widths(lens[order])
+            if 8 * int(sorted_w.sum()) <= 7 * int(slice_w.sum()):
+                perm, slice_w = order, sorted_w
+        slice_off = torch.zeros(n_slices + 1, dtype=torch.int64, device=dev)
+        slice_off[1:] = torch.cumsum(slice_w * SLICE, 0)
+        n_slots = int(slice_off[-1])
+        pos = torch.arange(n, device=dev)
+        if perm is not None:
+            pos = torch.empty_like(pos).index_put_((perm,), pos)  # row -> position
+        p = pos[rows]
+        q = torch.arange(rows.shape[0], device=dev) - ptr[rows]
+        dest = slice_off[p // SLICE] + q * SLICE + p % SLICE
+        scols = torch.zeros(n_slots, dtype=torch.int32, device=dev).index_put_(
+            (dest,), cols.to(device=dev, dtype=torch.int32))
+        A = cls(None, scols, slice_off, slice_w.to(torch.int32),
+                None if perm is None else perm.to(torch.int32), dest, (n, n_src),
+                int(lens.max()) if n else 0)
+        return A.with_vals(vals)
+
+    def with_vals(self, vals) -> "SlicedELL":
+        """The matrix with ``vals`` (nnz,) on this pattern (float32 or float64)."""
+        if vals.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"sliced ELL values must be float32 or float64, got {vals.dtype}")
+        svals = torch.zeros(self.cols.shape[0], dtype=vals.dtype, device=self.cols.device)
+        svals.index_put_((self.dest,), vals.to(self.cols.device))
+        return SlicedELL(svals, self.cols, self.slice_off, self.slice_w, self.perm, self.dest,
+                         self.shape, self.width)
+
+    def pattern(self) -> "SlicedELL":
+        """This layout without its values (for ``with_vals``)."""
+        return SlicedELL(None, self.cols, self.slice_off, self.slice_w, self.perm, self.dest,
+                         self.shape, self.width)
+
+    def padding_ratio(self) -> float:
+        """Slots the kernel reads per entry: every row's slice width (the
+        positions past the last row of a partial slice are never read)."""
+        w = self.slice_w.long()
+        if w.numel() == 0:
+            return 1.0
+        read = SLICE * int(w.sum()) - (w.numel() * SLICE - self.shape[0]) * int(w[-1])
+        return read / max(1, self.dest.shape[0])
+
+    def __matmul__(self, X):
+        return sliced_ell_spmm(self, X)
+
+
+def _check_sliced(A, X):
+    if A.vals.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"sliced ELL values must be float32 or float64, got {A.vals.dtype}")
+    if X.dtype != A.vals.dtype:
+        raise ValueError(f"X must be {A.vals.dtype} like the values, got {X.dtype}")
+    if X.dim() not in (1, 2) or X.shape[0] != A.shape[1]:
+        raise ValueError(f"X must be ({A.shape[1]},) or ({A.shape[1]}, k), got {tuple(X.shape)}")
+    if X.device != A.vals.device:
+        raise ValueError("the matrix and X must share a device")
+    if X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {X.device}")
+
+
+def _sliced_out(X, n):
+    """Y for Y = A X, laid out as X is: a block whose rows are its
+    unit-stride axis gets rows as Y's unit-stride axis too."""
+    if X.dim() == 1:
+        return X.new_empty(n)
+    k = X.shape[1]
+    if X.stride(0) == 1 and k > 1:
+        return X.new_empty((k, n)).T
+    return X.new_empty((n, k))
+
+
+def sliced_ell_spmm_reference(A, X):
+    """Plain PyTorch version of ``sliced_ell_spmm``: slot after slot, the
+    slot's value times X's row at its column added to every position's sum
+    (a slot past a slice's width adds nothing), then each position's sum
+    put in its row."""
+    n = A.shape[0]
+    dev = A.vals.device
+    p = torch.arange(n, device=dev)
+    s = p // SLICE
+    w = A.slice_w.long()[s]
+    base = A.slice_off[s] + p % SLICE
+    acc = X.new_zeros((n,) + tuple(X.shape[1:]))
+    for q in range(A.width):
+        live = q < w
+        idx = torch.where(live, base + q * SLICE, 0)
+        a = A.vals[idx]
+        t = (a[:, None] if X.dim() == 2 else a) * X[A.cols[idx].long()]
+        acc = acc + torch.where(live[:, None] if X.dim() == 2 else live, t, 0.0)
+    if A.perm is None:
+        return acc
+    return torch.empty_like(acc).index_put_((A.perm.long(),), acc)
+
+
+def sliced_ell_spmm(A, X):
+    """Y = A X for a ``SlicedELL`` A and an (n_src,) vector or (n_src, k)
+    block X of A's dtype, read where it lies through its strides (no copy).
+    Returns a new (n,) or (n, k) tensor; a block is laid out as X is. On a
+    CUDA tensor it launches the kernel (``csrc/ell_spmv.cu``, sell_spmm) and
+    counts the launch in ``ell_spmv_launches``; on a CPU tensor it runs the
+    plain version."""
+    global ell_spmv_launches
+    _check_sliced(A, X)
+    if X.device.type == "cpu":
+        return sliced_ell_spmm_reference(A, X)
+
+    from .._build import library
+
+    n = A.shape[0]
+    Y = _sliced_out(X, n)
+    k = 1 if X.dim() == 1 else X.shape[1]
+    if n == 0 or k == 0:
+        return Y
+    sxr = X.stride(0)
+    sxc = 0 if X.dim() == 1 else X.stride(1)
+    syr = Y.stride(0)
+    syc = 0 if Y.dim() == 1 else Y.stride(1)
+    lib = library()
+    fn = lib.sell_spmm_f32 if A.vals.dtype == torch.float32 else lib.sell_spmm_f64
+    perm = None if A.perm is None else A.perm.data_ptr()
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = fn(A.vals.data_ptr(), A.cols.data_ptr(), A.slice_off.data_ptr(),
+                 A.slice_w.data_ptr(), perm, n, X.data_ptr(), sxr, sxc, Y.data_ptr(), syr, syc,
+                 k, stream)
+    if err != 0:
+        raise RuntimeError(f"sliced ELL kernel launch failed: cudaError {err}")
+    ell_spmv_launches += 1
+    return Y
 
 
 def _square_diagonal(E):

@@ -208,8 +208,10 @@ def test_kernel_matches_plain_version_on_card():
     planes, n not a multiple of 128, cell counts not a multiple of the
     block, f32 and f64 (tolerance 8 eps max|out|: nvcc contracts products
     into FMAs). K2 (float32, float64 and bfloat16 values, a rectangular
-    operator) and K7 (f32 and f64, offsets past either end, n not a
-    multiple of the block): per-row bound K eps(acc) sum_k |a x|."""
+    operator; its sliced form in f32 and f64 at sigma 1 and 256 on a
+    skewed table, vectors and strided blocks, each block column bitwise
+    its vector product) and K7 (f32 and f64, offsets past either end, n
+    not a multiple of the block): per-row bound K eps(acc) sum_k |a x|."""
     from fdapde_core_tpu_torch.ops import dia_spmv as ds
     from fdapde_core_tpu_torch.ops import gather_spmv as gs
     from fdapde_core_tpu_torch.ops import local_stiffness as ls
@@ -236,6 +238,35 @@ def test_kernel_matches_plain_version_on_card():
         bound = V.shape[0] * torch.finfo(acc).eps * gs.ell_spmv_reference(V.abs(), Cc, x.abs())
         assert bool(((got - ref).abs() <= bound).all()), f"K2 {dt} n_src={n_src}"
         assert torch.equal(got, gs.ell_spmv(V, Cc, x)), "K2 is not bitwise stable"
+    # K2's sliced form: a skewed table (row lengths 0-40, n not a multiple
+    # of the slice), vector and block products, the block as a transposed
+    # view and row-major 9 wide (rows mapping) and row-major 70 wide
+    # (columns mapping)
+    n_t, n_src_t = 3001, 5003
+    lens = np.minimum(rng.geometric(0.1, n_t) - 1, 40)
+    t_rows = torch.from_numpy(np.repeat(np.arange(n_t), lens))
+    t_cols = torch.from_numpy(np.concatenate(
+        [np.sort(rng.choice(n_src_t, L, replace=False)) for L in lens]))
+    t_vals = torch.from_numpy(rng.standard_normal(t_rows.shape[0]))
+    for dt in (torch.float32, torch.float64):
+        for sigma in (1, 256):
+            A = gs.SlicedELL.from_coo(t_rows.cuda(), t_cols.cuda(), t_vals.to("cuda", dt),
+                                      (n_t, n_src_t), sigma=sigma)
+            U = torch.from_numpy(rng.standard_normal((70, n_src_t))).to("cuda", dt)
+            for X in (U[0], U[:9].T, U[:9].T.contiguous(), U.T.contiguous()):
+                before = gs.ell_spmv_launches
+                got = A @ X
+                torch.cuda.synchronize()
+                assert gs.ell_spmv_launches == before + 1
+                ref = gs.sliced_ell_spmm_reference(A, X)
+                absA = A.with_vals(A.vals.abs()[A.dest])
+                bound = A.width * torch.finfo(dt).eps * gs.sliced_ell_spmm_reference(absA, X.abs())
+                where = f"sliced K2 {dt} sigma={sigma} X {tuple(X.shape)} {X.stride()}"
+                assert bool(((got - ref).abs() <= bound).all()), where
+                assert torch.equal(got, A @ X), f"{where}: not bitwise stable"
+                if X.dim() == 2:
+                    cols = torch.stack([A @ X[:, j].contiguous() for j in range(X.shape[1])], 1)
+                    assert torch.equal(got, cols), f"{where}: a column differs from its vector"
     for dtype in (torch.float32, torch.float64):
         for n, offsets in ((1, (0,)), (70001, (-70001, -258, -1, 0, 1, 258, 1300, 70005))):
             data = torch.from_numpy(rng.standard_normal((len(offsets), n))).to("cuda", dtype)

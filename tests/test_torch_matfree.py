@@ -196,8 +196,11 @@ def test_lane_routed_ell_matches_jax():
     scrambled n_side = 64 FEM ELL: f64 to rtol 1e-13, f32 tables to 1e-5
     of max|y|, bf16 tables within the JAX bf16 test's bound (2e-2 of
     max|y|) of a bf16-rounded reference; a rectangular n_src; diagonal,
-    astype, with_vals and its ValueError; n_remainder == 0; and the CPU
-    wrapper's argument checks (no launch counted on the CPU)."""
+    astype, with_vals and its ValueError; n_remainder == 0; K2's sliced
+    form (its plain version) on a skewed, rectangular, Psi^T-like table at
+    sigma 1 and 128 against JAX's _spmv and SparseMatrix @ to 1e-13, with
+    SparseMatrix @ on it; and the CPU wrappers' argument checks (no launch
+    counted on the CPU)."""
     vals, cols, nd = _scrambled_fem_ell()
     jE = jms.ELLSoA(jnp.asarray(vals), jnp.asarray(cols), (nd, nd))
     E = ell_from_numpy(vals, cols, (nd, nd), device="cpu")
@@ -261,6 +264,55 @@ def test_lane_routed_ell_matches_jax():
     with pytest.raises(ValueError):  # a column outside [0, n_src)
         LaneRoutedELL.from_ell(ell_from_numpy(rvals, rcols, (n, 3000), device="cpu"))
 
+    # K2's sliced form on a skewed, rectangular, Psi^T-like table (row
+    # lengths 0-40, a few long rows): its plain version at sigma = 1 and
+    # sigma > 1 against JAX's interpret-mode _spmv on the same matrix (its
+    # lane schedule takes at most 30 slots, so as two 20-slot halves) and
+    # JAX's SparseMatrix @, to 1e-13 in f64; one layout per sigma, equal
+    # results
+    from fdapde_core_tpu.linear_algebra.sparse import SparseMatrix as JSparse
+    from fdapde_core_tpu_torch.linear_algebra.sparse import SparseMatrix
+
+    n_t, n_src_t, K_t = 700, 3000, 40
+    lens = np.minimum(rng.geometric(0.1, n_t) - 1, K_t)
+    lens[rng.choice(n_t, 5, replace=False)] = K_t
+    lens[:3] = 0
+    t_rows = np.repeat(np.arange(n_t), lens)
+    t_cols = np.concatenate([np.sort(rng.choice(n_src_t, L, replace=False)) for L in lens])
+    t_vals = rng.standard_normal(t_rows.size)
+    ell_v, ell_c = np.zeros((K_t, n_t)), np.zeros((K_t, n_t), dtype=np.int32)
+    slot = np.arange(t_rows.size) - np.repeat(np.cumsum(lens) - lens, lens)
+    ell_v[slot, t_rows], ell_c[slot, t_rows] = t_vals, t_cols
+    w = rng.standard_normal(n_src_t)
+    ref = sum(np.asarray(JLane.from_ell(jms.ELLSoA(jnp.asarray(ell_v[h]), jnp.asarray(ell_c[h]),
+                                                    (n_t, n_src_t))) @ jnp.asarray(w))
+              for h in (slice(0, 20), slice(20, 40)))
+    ref_coo = np.asarray(JSparse(jnp.asarray(t_rows), jnp.asarray(t_cols), jnp.asarray(t_vals),
+                                 (n_t, n_src_t)) @ jnp.asarray(w))
+    scale = np.abs(ref_coo).max()
+    assert np.abs(ref - ref_coo).max() <= 1e-13 * scale, "JAX lane halves vs JAX SparseMatrix"
+    ys = []
+    for sigma in (1, 128):
+        A = gs.SlicedELL.from_coo(_t(t_rows), _t(t_cols), _t(t_vals), (n_t, n_src_t), sigma=sigma)
+        assert A.width == K_t and (A.perm is None) == (sigma == 1), f"sigma={sigma}: layout"
+        assert A.cols.numel() >= t_rows.size and A.dest.shape == (t_rows.size,)
+        ys.append(A @ _t(w))
+        for name, r in (("JAX _spmv", ref), ("JAX SparseMatrix @", ref_coo)):
+            assert np.abs(_np(ys[-1]) - r).max() <= 1e-13 * scale, f"sigma={sigma}: vs {name}"
+    assert torch.equal(ys[0], ys[1]), "the window sort changed a row's sum"
+    S = SparseMatrix(_t(t_rows.astype(np.int32)), _t(t_cols.astype(np.int32)), _t(t_vals),
+                     (n_t, n_src_t))
+    assert torch.equal(S @ _t(w), ys[1]), "SparseMatrix @ is the sliced product"
+    padding = [gs.SlicedELL.from_coo(_t(t_rows), _t(t_cols), _t(t_vals), (n_t, n_src_t),
+                                     sigma=s).padding_ratio() for s in (1, 128)]
+    assert K_t * n_t / t_rows.size > padding[0] > padding[1], f"padding ratios {padding}"
+    with pytest.raises(ValueError):  # a window that is not a multiple of the slice
+        gs.SlicedELL.from_coo(_t(t_rows), _t(t_cols), _t(t_vals), (n_t, n_src_t), sigma=48)
+    with pytest.raises(ValueError):  # operand of the wrong length
+        A @ _t(v)
+    with pytest.raises(ValueError):  # operand dtype differs from the values'
+        A @ _t(w).float()
+
     # the wrapper on CPU tensors: plain version, argument checks, no count
     vt = _t(v)
     assert torch.equal(gs.ell_spmv(E.vals, E.cols, vt), gs.ell_spmv_reference(E.vals, E.cols, vt))
@@ -278,7 +330,8 @@ def test_lane_routed_ell_matches_jax():
 def test_auxgrid_and_solvers_match_jax():
     """AuxGridPreconditioner (build_device and host build) against JAX: idx
     exact, weights and inverse diagonal to 1e-6 relative (float32), the
-    apply to 1e-5 relative. DirichletSystem + cg / cg_chunked /
+    apply to 1e-5 relative and equal across two calls, P^T r (K2's sliced
+    form) against JAX's segment_sum to 1e-6. DirichletSystem + cg / cg_chunked /
     cg_split_programs / bicgstab (+ chunked) against JAX in float64: equal
     iteration counts, x to 1e-10 relative."""
     n = 32
@@ -308,6 +361,12 @@ def test_auxgrid_and_solvers_match_jax():
         got = _np(t(_t(r)))
         assert got.dtype == np.float32
         assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max(), f"{name}: apply"
+        assert np.array_equal(_np(t(_t(r))), got), f"{name}: apply differs between calls"
+        # P^T alone, summed in segment_sum's order, against JAX's
+        m = t.n_grid + 1
+        rc = jax.ops.segment_sum((j.w * jnp.asarray(r)[None, :]).reshape(-1), j.idx.reshape(-1), m * m)
+        np.testing.assert_allclose(_np(t.PT @ _t(r)), np.asarray(rc), rtol=1e-6,
+                                   atol=1e-6 * np.abs(np.asarray(rc)).max(), err_msg=f"{name}: P^T r")
 
     # Krylov solvers on the Dirichlet system, float64, Jacobi and aux
     b = np.where(bnd, 0.0, rng.uniform(0.5, 1.5, nd)) / nd

@@ -11,7 +11,9 @@ Tolerances (relative unless stated):
 - exact GCV: 1e-10; Hutchinson GCV with equal seeds: 1e-6;
 - spline mass, bilaplacian and forcing: 1e-12; spline PDE solve: 1e-10;
 - SpaceTimeSmoothing coefficients 1e-7, predictions 1e-8;
-- multi-column SparseMatrix products against the plain gather-sum: 1e-14;
+- SparseMatrix block products (K2's sliced form, the block read in place)
+  against the plain gather-sum and JAX's SparseMatrix @: 1e-14, each
+  column equal to the vector product of that column bitwise;
 - ModeMGPreconditioner against JAX's: level data 1e-14, apply 1e-12;
   against per-mode V-cycles: 1e-7 (see the test).
 On the CPU every K2 launch takes its plain version (ops/gather_spmv).
@@ -75,7 +77,7 @@ def _psi_equal(Pt, Pj, where):
 def test_regression_path_matches_jax():
     """Point location, Psi, SmoothingRegression (fit, predict, exact and
     Hutchinson GCV, select_lambda_gcv), a fitted JAX model carried across,
-    SMW / dense_solve, the multi-column K2 route, and the B-spline space,
+    SMW / dense_solve, the K2 block route, and the B-spline space,
     assembly and PDE, each against the JAX package."""
     rng = np.random.default_rng(0)
     n_obs = 600
@@ -111,19 +113,13 @@ def test_regression_path_matches_jax():
     _psi_equal(At, Aj, "areal")
     np.testing.assert_allclose(Dt, Dj, rtol=1e-14)
 
-    # the multi-column route (K2 over I_c (x) A) against the plain
-    # gather-sum, in one launch and in several
+    # the block route (K2's sliced form, the block read in place) against
+    # the plain gather-sum, on a row-major block and on a transposed view
     X = torch.from_numpy(rng.standard_normal((Pt.shape[1], 5)))
-    for entries in (1 << 24, 2 * 3 * n_obs):
-        import fdapde_core_tpu_torch.linear_algebra.sparse as tsp
-
-        saved, tsp._BLOCK_ENTRIES = tsp._BLOCK_ENTRIES, entries
-        try:
-            got = Pt @ X
-        finally:
-            tsp._BLOCK_ENTRIES = saved
-        assert np.abs(_np(got) - _np(Pt.matmul_reference(X))).max() <= 1e-14
-        assert torch.equal(got[:, 2], Pt @ X[:, 2].contiguous())  # column == vector product
+    for blk in (X, X.T.contiguous().T):
+        got = Pt @ blk
+        assert np.abs(_np(got) - _np(Pt.matmul_reference(blk))).max() <= 1e-14
+        assert torch.equal(got[:, 2], Pt @ blk[:, 2].contiguous())  # column == vector product
 
     # SmoothingRegression: fit, predict, GCV
     y = _truth(locs) + 0.1 * rng.normal(size=n_obs)
@@ -182,7 +178,8 @@ def test_space_time_matches_jax():
     carried across), the solve_space_time escalation of
     tests/test_recovery.py on both packages, solve_space_time_fdm against
     the Kronecker CG, ModeMGPreconditioner against JAX's and against
-    per-mode V-cycles, and kron."""
+    per-mode V-cycles, kron, and K2's block product on the factors with
+    the block as a row-major tensor and as a transposed view."""
     rng = np.random.default_rng(1)
     n_sites, n_times = 60, 8
     locs = rng.uniform(0.05, 0.95, size=(n_sites, 2))
@@ -204,6 +201,27 @@ def test_space_time_matches_jax():
     carried = space_time_smoothing_from_numpy(unit_square_mesh(8), Interval(0.0, 1.0, 6), cj,
                                               device=CPU)
     assert _rel(carried.predict(grid, t_eval), pj) <= 1e-12
+
+    # K2's block product on the factors, each operand read where it lies: a
+    # space factor on the transposed view of the (n_t, n_s) iterate, a time
+    # factor on the row-major (n_t, n_s) block; every column equals the
+    # vector product of that column bitwise, and JAX's SparseMatrix @
+    # to 1e-14
+    from fdapde_core_tpu.linear_algebra.sparse import SparseMatrix as JSparse
+
+    n_t, n_s = tm.tspace.n_dofs, tm.space.n_dofs
+    U = rng.standard_normal((n_t, n_s))
+    for name, A, blocks in (
+        ("As", tm.As, (torch.from_numpy(U).T, torch.from_numpy(U.T.copy()))),
+        ("lam_t Pt", tm.Pt * 0.1, (torch.from_numpy(U), torch.from_numpy(U.T.copy()).T)),
+    ):
+        jA = JSparse(*(jnp.asarray(_np(a)) for a in (A.rows, A.cols, A.vals)), A.shape)
+        for X in blocks:
+            Y = A @ X
+            assert Y.shape == (A.shape[0], X.shape[1])
+            cols = torch.stack([A @ X[:, j].contiguous() for j in range(X.shape[1])], 1)
+            assert torch.equal(Y, cols), f"{name}: a block column differs from its vector product"
+            assert _rel(Y, jA @ jnp.asarray(_np(X))) <= 1e-14, f"{name}: vs JAX SparseMatrix @"
 
     # escalation parity (tests/test_recovery.py): Jacobi CG stalls on a
     # time pencil spanning 8 decades, the mode-diagonal retry converges
