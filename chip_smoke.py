@@ -36,6 +36,8 @@ Phases (each raises on failure; nothing is caught):
    within 150 inner iterations; the solve run again must take as many
    iterations and give the same solution bitwise (every sum of the path,
    the aux grid's P^T on K2's sliced form included, runs in a fixed order);
+   P^T timed beside the index_add_ it replaced, a torch.sparse CSR SpMV
+   and its bound;
 9. MatrixFreePoisson on the unscrambled n = 3200 mesh (aux grid, f64 ELL
    on K2) converges to 1e-9;
 10. harmonic check on the scrambled n = 256 mesh through the lane path:
@@ -116,7 +118,38 @@ Phases (each raises on failure; nothing is caught):
     view of the (27, 66,049) iterate and its time factor on the row-major
     block (today's route: the I_c (x) A copies), Phi^T on the transposed
     view of Y and Psi^T on the row-major (2,000, 27) block; every block
-    column equal to its vector launch bitwise; torch.sparse CSR as SpMM.
+    column equal to its vector launch bitwise; torch.sparse CSR as SpMM;
+20. (after 13, on phase 12's mesh) the heat equation through
+    PDE(mesh, dt() - laplacian(), times=linspace(0, 0.1, 11)) with
+    u = sin(pi x) sin(pi y) e^-t (Dirichlet data and forcing per instant),
+    rtol 1e-12, consistent and lumped mass: every implicit-Euler step
+    converges without the GMRES rerun, the max-over-time L2 error stays
+    under dt / (4 (2 pi^2 - 1)) + 1e-5 (the first-order time error bound);
+21. (a) PDE(mesh, -laplacian(), solver_preconditioner="amg") on phase 12's
+    problem: converged without recovery, true residual <= 1e-10 as in phase
+    12, equal to phase 12's aux-grid solution to 1e-8 max|x|, its host
+    set-up, levels and operator complexity printed; K2 on every level's A,
+    P and R = P^T against its plain version; the same solve on the host CPU
+    (the hierarchy copied, K2's plain version) within 1 iteration of the
+    card's and equal to 1e-10 max|x|; (b) the default ladder
+    on a Delaunay surface lifted to z = 0.25 sin(pi x) sin(pi y) (22,801
+    dofs, 3D dof coordinates) takes the AMG rung and converges;
+22. (after 15) bench.py's gen10m banded path through the model API:
+    MatrixFreePoisson on irregular_mesh_device(3200) (lattice numbering,
+    10,246,401 dofs) with "auto" reads "banded_mg", converges to 1e-9
+    (true residual recomputed in f64 through the plain ELL product), twice
+    bitwise equal; Jacobi CG rates of banded_cg on the float32 folded split
+    and of CG on the float32 ELL (K2); MatrixFreeElliptic advection-
+    diffusion at n = 1024 (split_plan (1025, 1)) through BiCGStab to 1e-9;
+    that mesh's split at W + 1, whose remainder (on K2) is not empty, equal
+    to the ELL's plain product within its per-row bound;
+23. MatrixFreeParabolic: the banded route on phase 22's mesh at dt = 1e-7
+    (~h^2), 5 steps at rtol 1e-9, chunked == unchunked bitwise; the
+    aux-grid route on the scrambled relabelling of that mesh at dt = 1e-3,
+    equal to the banded route's trajectory at that dt, relabelled, and one
+    aux-grid step at dt = 1e-7 from u0, converged within 1500 iterations; at
+    n = 64 the banded trajectory equals solve_parabolic(lumped=True) to
+    1e-10. Phases 20-23 print their seconds and K2 / K6 launches by path.
 
 Prints one JSON line of per-kernel results (each with its bound on the
 card from this run's shapes: bytes over 3.35 TB/s or operations over the
@@ -159,6 +192,15 @@ LAM_S, LAM_T = 1.0, 0.1
 SLEEP_CYCLES = 20_000_000  # time_ms's head start for the host: ~10 ms at the H100's clock
 SIGMAS = (1, 256, 1024, 4096)  # the sort windows phase 18 times K2's sliced form at
 N_DIA = 1024  # the DIA path's unit_square_mesh: 1,050,625 dofs, 2,097,152 cells
+T_HEAT = np.linspace(0.0, 0.1, 11)  # phase 20's instants
+NX_SURFACE = 150  # phase 21b's lifted surface: 22,801 dofs
+N_GEN1M = 1024  # phase 22's advection-diffusion mesh (bench.py:1417-1447): 1,050,625 dofs
+CG_RATE_ITERS = 40  # phase 22's Jacobi CG rate runs (bench.py's ITERS)
+DT_MF, N_STEPS_MF = 1e-7, 5  # phase 23: dt ~ h^2 at n = 3200
+DT_AUX = 1e-3  # phase 23's aux-grid route, where A dominates M / dt
+# phase 23's one aux-grid step at DT_MF: its iterations grow with n at
+# dt ~ h^2 (the grid stencil is the unshifted Laplacian, as in JAX)
+AUX_H2_MAXITER = 1500
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the vector (non-tensor
 # core) peaks of the types these kernels compute in
 HBM_BYTES_PER_S = 3.35e12
@@ -371,13 +413,19 @@ def scrambled_mesh(n, S, G):
     from fdapde_core_tpu_torch.geometry import irregular_mesh_device_soa
 
     x, y, c0, c1, c2, bnd = irregular_mesh_device_soa(n, 0.2, dtype=torch.float64, device=DEVICE)
-    nd = x.shape[0]
+    p, pinv = scramble_perm(x.shape[0], S, G)
+    cells = p[torch.stack([c0, c1, c2], dim=1).long()].to(torch.int32)
+    return x[pinv], y[pinv], cells, bnd[pinv]
+
+
+def scramble_perm(nd, S, G):
+    """(p, pinv) of scrambled_mesh's relabelling: lattice node i becomes
+    node p[i]; scrambled node k is lattice node pinv[k]."""
     nfull = (nd // S) * S
     i = torch.arange(nd, device=DEVICE)
     p = torch.where(i < nfull, (i // S) * S + (G * (i % S)) % S, i)
     pinv = torch.where(i < nfull, (i // S) * S + (pow(G, -1, S) * (i % S)) % S, i)
-    cells = p[torch.stack([c0, c1, c2], dim=1).long()].to(torch.int32)
-    return x[pinv], y[pinv], cells, bnd[pinv]
+    return p, pinv
 
 
 def phase_k2_vs_plain(gs):
@@ -484,13 +532,28 @@ def phase_general_main_path(ak, gs):
     bound = PT.width * torch.finfo(torch.float32).eps * gs.sliced_ell_spmm_reference(PT, r.abs())
     check(bool(((got - ref).abs() <= bound).all()), "K2 sliced on the aux grid's P^T disagrees")
     check(torch.equal(got, PT @ r), "K2 sliced on the aux grid's P^T is not bitwise stable")
-    m2 = PT.shape[0]
+    m2, nnz = PT.shape[0], aux.idx.numel()
     scatter = lambda: torch.zeros(m2, dtype=r.dtype, device=DEVICE).index_add_(  # noqa: E731
         0, aux.idx.reshape(-1), (aux.w * r[None, :]).reshape(-1))
-    t_pt, t_ia = time_ms(lambda: PT @ r, 20), time_ms(scatter, 20)
-    log(f"aux grid P^T {PT.shape} float32, {PT.dest.shape[0]} entries, padding ratio "
+    # the same product as one library call: a cuSPARSE CSR SpMV of P^T
+    # (timed, never used)
+    ids = aux.idx.reshape(-1).long()
+    order = torch.sort(ids, stable=True).indices
+    crow = torch.zeros(m2 + 1, dtype=torch.int64, device=DEVICE)
+    crow[1:] = torch.cumsum(torch.bincount(ids, minlength=m2), 0)
+    csr = torch.sparse_csr_tensor(crow, order % r.shape[0], aux.w.reshape(-1)[order],
+                                  (m2, r.shape[0]), check_invariants=False)
+    del ids, order
+    lib_err = (csr @ r - ref).abs().max().item()
+    t_pt, t_ia, t_csr = time_ms(lambda: PT @ r, 20), time_ms(scatter, 20), time_ms(lambda: csr @ r, 20)
+    del csr
+    # each of the 4 n entries once (value and column, 8 B), x and y once
+    pt_bound = least_time(nnz * 8 + (r.shape[0] + m2) * 4, 2 * nnz, torch.float32)
+    log(f"aux grid P^T {PT.shape} float32, {nnz} entries, padding ratio "
         f"{PT.padding_ratio():.3f}: K2 sliced {t_pt:.4f} ms (within the bound of its plain version, "
-        f"bitwise stable), the index_add_ it replaces {t_ia:.4f} ms")
+        f"bitwise stable), the index_add_ it replaces {t_ia:.4f} ms, torch.sparse CSR {t_csr:.4f} ms "
+        f"(max|csr-plain| {lib_err:.3e}); bound {pt_bound['bound_ms']:.4f} ms "
+        f"({pt_bound['bound_by']}, {100 * pt_bound['bound_ms'] / t_pt:.0f} %)")
 
     log(f"general main path n={N_MAIN} scrambled ({x.shape[0]} dofs, {cells.shape[0]} cells): "
         f"mesh {t_mesh:.4f} s, build (assembly + ELL + aux) {t_build:.4f} s, "
@@ -659,9 +722,25 @@ def phase_local_stiffness(ak, gs, ls, pts, cells):
     return out
 
 
+def pde_true_residual(pde, x):
+    """The true relative residual of a PDE's masked system (g = 0),
+    recomputed on the host in f64, and its rounding floor
+    eps || |A~| |x| || / ||b~||."""
+    A = pde.stiff().to_scipy()
+    free = ~pde.space.boundary_dofs
+    xh = x.cpu().numpy()
+    b_mod = pde.force().cpu().numpy() * free
+    r = b_mod - (free * (A @ (free * xh)) + ~free * xh)
+    rel = float(np.linalg.norm(r) / np.linalg.norm(b_mod))
+    floor = float(np.finfo(np.float64).eps * np.linalg.norm(
+        free * (abs(A) @ (free * abs(xh))) + ~free * abs(xh)) / np.linalg.norm(b_mod))
+    return rel, floor
+
+
 def phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh):
     """PDE(mesh, -laplacian()).init().solve() at nx = 720 on the mesh
-    delaunay_mesh built in t_mesh seconds; returns (pde, K6 launches)."""
+    delaunay_mesh built in t_mesh seconds; returns (pde, K6 launches,
+    (solution, solve seconds, iterations))."""
     import fdapde_core_tpu_torch as fdt
 
     torch.cuda.reset_peak_memory_stats()
@@ -689,17 +768,7 @@ def phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh):
     recovered = any("escalating to GMRES" in str(w.message) for w in caught)
     info = pde.solve_info
 
-    # true residual of the masked system, recomputed on the host in f64,
-    # beside its rounding floor eps || |A~| |x| || / ||b~||
-    A = pde.stiff().to_scipy()
-    free = ~pde.space.boundary_dofs
-    xh = x.cpu().numpy()
-    b_mod = pde.force().cpu().numpy() * free
-    r = b_mod - (free * (A @ (free * xh)) + ~free * xh)
-    rel = float(np.linalg.norm(r) / np.linalg.norm(b_mod))
-    absA = abs(A)
-    floor = float(np.finfo(np.float64).eps * np.linalg.norm(
-        free * (absA @ (free * abs(xh))) + ~free * abs(xh)) / np.linalg.norm(b_mod))
+    rel, floor = pde_true_residual(pde, x)
     c = pde.dof_coords()
     l2 = float(np.sqrt(pde.l2_error(np.sin(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1]))))
     log(f"PDE main path nx={NX_PDE} ({pde.n_dofs} dofs, {mesh.n_cells} cells, nnz "
@@ -720,7 +789,7 @@ def phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh):
 
     # where the time goes: one warm solve under the profiler
     profiled("warm solve", pde.solve)
-    return pde, k6_launches
+    return pde, k6_launches, (x, t_solve, info.iterations)
 
 
 def phase_pde_harmonic(pde):
@@ -1012,13 +1081,15 @@ def today_route(gs, S, X):
     return run, D * n / S.nnz
 
 
-def k2_table(gs, name, S, k=1, transposed=False):
+def k2_table(gs, name, S, k=1, transposed=False, race=True):
     """K2's sliced form on the product S @ X that a path launches, X float64
     random: a vector (k = 1) or an (n_src, k) block, row-major or the
     transposed view of a row-major (k, n_src) block. Checks: the kernel
     against its plain version within the per-row bound width eps sum|a x|;
     bitwise stable; each block column equal to the vector launch on that
-    column; equal to today's route (one thread per row either way). Times,
+    column; equal to today's route (one thread per row either way); with
+    ``race``, not slower than today's route (off for tables so small that
+    both are one launch's latency). Times,
     by CUDA events, two alternating runs after a warm-up: the kernel,
     today's route (the (D, n) ELL or the I_c (x) S copies, built here), a
     torch.sparse CSR product (cuSPARSE SpMV or SpMM, timed, never used) and
@@ -1056,8 +1127,8 @@ def k2_table(gs, name, S, k=1, transposed=False):
     plain_ms = time_ms(lambda: gs.sliced_ell_spmm_reference(A, X), 3)
     ms, old_ms, library_ms = (n1 + n2) / 2, (o1 + o2) / 2, (l1 + l2) / 2
     del csr
-    check(ms <= old_ms, f"K2 sliced on {name} ({ms:.4f} ms) is slower than today's route "
-                        f"({old_ms:.4f} ms)")
+    check(ms <= old_ms or not race, f"K2 sliced on {name} ({ms:.4f} ms) is slower than today's "
+                                    f"route ({old_ms:.4f} ms)")
     nbytes = S.nnz * (8 + 4) + (X.numel() + n * k) * 8
     b = least_time(nbytes, 2 * S.nnz * k, torch.float64)
     layout = "" if k == 1 else f" on X {tuple(X.shape)} {'transposed view' if transposed else 'row-major'}"
@@ -1223,6 +1294,405 @@ def phase_space_time(ak, gs, ls):
     return k2, k6
 
 
+def heat_exact(x, t):
+    """Phase 20's manufactured solution sin(pi x) sin(pi y) e^-t."""
+    return np.sin(np.pi * x[..., 0]) * np.sin(np.pi * x[..., 1]) * np.exp(-t)
+
+
+def phase_parabolic(ak, gs, ls, mesh):
+    """The heat equation through PDE(mesh, dt() - laplacian(), times=...) on
+    phase 12's mesh, consistent and lumped mass; returns {path: (K2, K6)}."""
+    import fdapde_core_tpu_torch as fdt
+
+    dt = T_HEAT[1] - T_HEAT[0]
+    # implicit Euler's local error (dt / 2) u_tt, damped by the slowest
+    # mode e^-(2 pi^2 - 1) t, bounds the L2 error by dt / (4 (2 pi^2 - 1))
+    # (||sin sin|| = 1/2); the P1 error at h ~ 1/720 is ~1e-6 beside it
+    bound = dt / (4 * (2 * np.pi ** 2 - 1)) + 1e-5
+    out = {}
+    for lumped in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts(ak, gs)
+        pde = fdt.PDE(mesh, fdt.dt() - fdt.laplacian(), times=T_HEAT, order=1,
+                      lumped_mass=lumped, device=DEVICE)
+        c, q = pde.dof_coords(), pde.quadrature_nodes()
+        g = heat_exact(c[:, None, :], T_HEAT[None, :])
+        pde.set_forcing((2 * np.pi ** 2 - 1) * heat_exact(q[:, None, :], T_HEAT[None, :]))
+        pde.set_dirichlet_bc(g)
+        pde.set_initial_condition(heat_exact(c, 0.0))
+        _, t_init = synced_seconds(pde.init)
+        u, t_solve = synced_seconds(pde.solve)
+        info = pde.step_info
+        k2, k6 = gs.ell_spmv_launches, ls.p1_stiffness_2d_launches
+        l2 = float(np.sqrt(pde.l2_error(g)))
+        name = "lumped" if lumped else "consistent"
+        out[f"heat {name}"] = (k2, k6)
+        log(f"20 heat equation, {name} mass, nx={NX_PDE} ({pde.n_dofs} dofs), {T_HEAT.size - 1} "
+            f"implicit-Euler steps of dt={dt:g}, rtol 1e-12: init {t_init:.4f} s, solve "
+            f"{t_solve:.4f} s; Jacobi-CG iterations per step {info['iterations'].tolist()}, all "
+            f"converged {bool(info['converged'].all())}, GMRES rerun {info['escalated']}; "
+            f"max-over-time L2 error {l2:.4e} (held to {bound:.4e}); K2 launches {k2}, K6 launches "
+            f"{k6}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        check(u.shape == (pde.n_dofs, T_HEAT.size) and bool(torch.isfinite(u).all()),
+              "heat solution shape / finite")
+        check(bool(info["converged"].all()) and not info["escalated"] and pde.success,
+              f"a {name} heat step needed the GMRES rerun")
+        check(l2 < bound, f"heat {name} L2 error {l2:.3e} >= {bound:.3e}")
+        check(k2 > 0 and k6 >= 1, "the heat path never launched K2 / K6")
+        del pde, u
+    return out
+
+
+class AMGBuilds:
+    """Times every AMG.build while active: [(hierarchy, host seconds)]."""
+
+    def __enter__(self):
+        from fdapde_core_tpu_torch.linear_algebra.amg import AMG
+
+        self.raw, self.builds = AMG.__dict__["build"], []
+        bound = AMG.build
+
+        def timed(*args, **kwargs):
+            mg, t = synced_seconds(lambda: bound(*args, **kwargs))
+            self.builds.append((mg, t))
+            return mg
+
+        AMG.build = staticmethod(timed)
+        return self.builds
+
+    def __exit__(self, *exc):
+        from fdapde_core_tpu_torch.linear_algebra.amg import AMG
+
+        AMG.build = self.raw
+
+
+def host_amg_solve(pde, mg):
+    """A PDE's AMG solve on the host CPU with the hierarchy mg copied there:
+    the same V-cycle and CG code, every product through K2's plain version.
+    Returns (x, SolveInfo)."""
+    from fdapde_core_tpu_torch.fem.solvers import solve_elliptic
+    from fdapde_core_tpu_torch.linear_algebra import AMG, SparseMatrix
+
+    def host(S):
+        return SparseMatrix(S.rows.cpu(), S.cols.cpu(), S.vals.cpu(), S.shape)
+
+    mg_h = AMG([host(A) for A in mg.As], [host(P) for P in mg.Ps], [host(R) for R in mg.Rs],
+               [d.cpu() for d in mg.dinvs], mg.coarse_inv.cpu(), mg.omega, mg.nu, mg.rhos,
+               mg.smoother, mg.cheby_lower)
+    mask = torch.as_tensor(pde.space.boundary_dofs)
+    b = pde.force().reshape(-1).cpu()
+    return solve_elliptic(host(pde.stiff()), b, mask, torch.zeros_like(b), rtol=pde.solver_rtol,
+                          maxiter=pde.solver_maxiter, recovery=False, preconditioner=mg_h.v_cycle)
+
+
+def phase_amg(ak, gs, ls, mesh, aux_run):
+    """(a) PDE(..., solver_preconditioner="amg") on phase 12's problem,
+    against phase 12's aux-grid solve; K2 on every level's tables; the
+    same solve on the host CPU; (b) the "auto" ladder's AMG rung on a
+    lifted surface. Returns {path: (K2, K6)}."""
+    import fdapde_core_tpu_torch as fdt
+
+    x_aux, t_aux, it_aux = aux_run
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(ak, gs)
+    pde = fdt.PDE(mesh, -fdt.laplacian(), order=1, solver_preconditioner="amg", device=DEVICE)
+    q = pde.quadrature_nodes()
+    pde.set_forcing(2 * np.pi ** 2 * np.sin(np.pi * q[:, 0]) * np.sin(np.pi * q[:, 1]))
+    pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
+    _, t_init = synced_seconds(pde.init)
+    with AMGBuilds() as builds, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        x, t_solve = synced_seconds(pde.solve)
+    recovered = any("escalating to GMRES" in str(w.message) for w in caught)
+    mg, t_setup = builds[0]
+    info = pde.solve_info
+    k2, k6 = gs.ell_spmv_launches, ls.p1_stiffness_2d_launches
+    out["AMG PDE"] = (k2, k6)
+    rel, floor = pde_true_residual(pde, x)
+    diff = (x - x_aux).abs().max().item() / x_aux.abs().max().item()
+    log(f"21a SA-AMG PDE nx={NX_PDE} ({pde.n_dofs} dofs): init {t_init:.4f} s; AMG host set-up "
+        f"{t_setup:.4f} s, levels {mg.level_sizes()}, operator complexity "
+        f"{mg.operator_complexity():.4f}; solve {t_solve - t_setup:.4f} s after the set-up, "
+        f"{info.iterations} iterations, converged {info.converged}, recovery taken {recovered}, "
+        f"true rel residual (host f64) {rel:.4e} (rounding floor {floor:.4e}); the aux-grid solve of "
+        f"phase 12: {it_aux} iterations in {t_aux:.4f} s; max|x_amg - x_aux| / max|x_aux| = "
+        f"{diff:.3e}; K2 launches {k2}, K6 launches {k6}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(len(builds) == 1, "the AMG PDE built more than one hierarchy")
+    check(info.converged and not recovered, "the AMG solve did not converge without recovery")
+    check(rel <= 1e-10, f"AMG true relative residual {rel:.3e} > 1e-10")
+    check(diff <= 1e-8, f"AMG and aux-grid solutions differ by {diff:.3e} max|x|")
+    check(k2 > 0 and k6 >= 1, "the AMG path never launched K2 / K6")
+
+    # K2 on every table the V-cycle launched: each level's A, P and R = P^T
+    # (the solve's own sliced tables), against the plain version
+    for lvl in range(len(mg.As)):
+        for name, S in (("A", mg.As[lvl]), ("P", mg.Ps[lvl]), ("R = P^T", mg.Rs[lvl])):
+            k2_table(gs, f"AMG level {lvl} {name}", S, race=False)
+    # the same hierarchy and system on the host CPU, every product through
+    # K2's plain version: the card's iteration count is the algorithm's
+    (x_h, info_h), t_h = synced_seconds(lambda: host_amg_solve(pde, mg))
+    diff_h = (x_h - x.cpu()).abs().max().item() / x_aux.abs().max().item()
+    log(f"21a the same AMG solve on the host CPU (K2's plain version): {info_h.iterations} "
+        f"iterations (card {info.iterations}), converged {info_h.converged}, {t_h:.4f} s; "
+        f"max|x_host - x_card| / max|x| = {diff_h:.3e}")
+    check(info_h.converged and abs(info_h.iterations - info.iterations) <= 1,
+          f"the host AMG solve took {info_h.iterations} iterations, the card {info.iterations}")
+    check(diff_h <= 1e-10, f"the host and card AMG solutions differ by {diff_h:.3e} max|x|")
+    del pde, x, mg, builds, x_h
+
+    # (b) a surface of >= 20,000 dofs: the 3D dof coordinates make the aux
+    # grid raise, so the default ladder takes the AMG rung
+    pts, cells, bnd = delaunay_mesh(NX_SURFACE)
+    pts3 = np.column_stack([pts, 0.25 * np.sin(np.pi * pts[:, 0]) * np.sin(np.pi * pts[:, 1])])
+    zero_launch_counts(ak, gs)
+    pde = fdt.PDE(fdt.Triangulation(pts3, cells, bnd), -fdt.laplacian(), order=1, device=DEVICE)
+    pde.set_forcing(np.ones(pde.quadrature_nodes().shape[0]))
+    pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
+    with AMGBuilds() as builds:
+        x, t_solve = synced_seconds(pde.solve)
+    info = pde.solve_info
+    k2, k6 = gs.ell_spmv_launches, ls.p1_stiffness_2d_launches
+    out["AMG surface rung"] = (k2, k6)
+    log(f"21b surface z = 0.25 sin(pi x) sin(pi y), nx={NX_SURFACE} ({pde.n_dofs} dofs, "
+        f"{pde.domain.n_cells} cells), default preconditioner: AMG hierarchies built {len(builds)} "
+        f"(levels {builds[0][0].level_sizes() if builds else None}), init + solve {t_solve:.4f} s, "
+        f"{info.iterations} iterations, converged {info.converged}; K2 launches {k2}, K6 launches {k6}")
+    check(pde.n_dofs >= 20_000 and len(builds) == 1, "the ladder did not take the AMG rung")
+    check(pde.success and bool(torch.isfinite(x).all()), "the surface AMG solve did not converge")
+    check(k2 > 0, "the surface AMG path never launched K2")
+    return out
+
+
+def phase_banded(ak, gs):
+    """The banded general path at gen10m size (bench.py:1251-1345) through
+    MatrixFreePoisson, the CG rates of the split and the ELL, and
+    MatrixFreeElliptic's advection-diffusion at n = 1024 (bench.py:1417-1447).
+    Returns ((nodes, cells, bnd), {path: K2 launches})."""
+    from fdapde_core_tpu_torch.fem.solvers import DirichletSystem
+    from fdapde_core_tpu_torch.geometry import irregular_mesh_device, irregular_mesh_device_soa
+    from fdapde_core_tpu_torch.linear_algebra import cg, jacobi_preconditioner
+    from fdapde_core_tpu_torch.models import MatrixFreeElliptic, MatrixFreePoisson
+    from fdapde_core_tpu_torch.ops.dia_split import banded_cg, build_banded_split
+    from fdapde_core_tpu_torch.ops.matfree_soa import MatrixFreeSoA
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    nodes, cells, bnd = irregular_mesh_device(N_MAIN, 0.2, dtype=torch.float64, device=DEVICE)
+    nd = nodes.shape[0]
+    zero_launch_counts(ak, gs)
+    model, t_build = synced_seconds(lambda: MatrixFreePoisson(nodes, cells, bnd, device=DEVICE))
+    S = model.op
+    b = model.load_vector(torch.ones(cells.shape[0], dtype=torch.float64, device=DEVICE))
+    (x, its, rel), t_solve = synced_seconds(lambda: model.solve(b, rtol=1e-9, maxiter=100))
+    out["banded Poisson"] = gs.ell_spmv_launches
+    (x2, its2, _), t_solve2 = synced_seconds(lambda: model.solve(b, rtol=1e-9, maxiter=100))
+    R, W = S.G.shape2d
+    amax = max(abs(a) for a, _ in S.G.offsets2d)
+    rem_nnz = 0 if S.rem is None else int((S.rem.vals != 0).sum())
+    # the true residual in f64 through the plain product of the assembled ELL
+    op, _ = MatrixFreeSoA.build(nodes[:, 0], nodes[:, 1], *cells.T.contiguous(), nd, 8)
+    E64, _ = op.to_ell(9)
+    del op
+    rel_check = true_rel_residual(E64, bnd, x, torch.where(bnd, 0.0, b), gs)
+    log(f"22 banded MatrixFreePoisson n={N_MAIN} lattice numbering ({nd} dofs): preconditioner "
+        f"{model.preconditioner}, plan (W, amax) = ({W}, {amax}), grid ({R}, {W}), remainder nnz "
+        f"{rem_nnz}{' (dropped)' if S.rem is None else ''}, BandedMG levels {model.aux.mg.shapes}; "
+        f"build {t_build:.4f} s, solve {t_solve:.4f} s / {t_solve2:.4f} s (again), {its} / {its2} "
+        f"iterations, true rel residual {float(rel):.4e} (recomputed in f64 through the plain ELL "
+        f"product {rel_check:.4e}), solutions bitwise equal {torch.equal(x, x2)}; K2 launches "
+        f"{out['banded Poisson']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(model.preconditioner == "banded_mg", "MatrixFreePoisson did not take the banded split")
+    check(float(rel) <= 1e-9 and rel_check <= 1e-9, "the banded solve did not reach 1e-9")
+    check(its2 == its and torch.equal(x, x2), "the repeated banded solve differs from the first")
+    del model, x, x2
+
+    # Jacobi CG rates: banded_cg on the float32 folded split against CG on
+    # the float32 ELL (K2), bytes per iteration as bench.py counts them
+    F32 = S.astype(torch.float32).fold_dirichlet(bnd)
+    del S
+    b32 = torch.where(bnd, 0.0, 1.0).to(torch.float32) / (N_MAIN * N_MAIN)
+    banded_cg(F32, b32, 5)
+    (_, rn_b, ok), t_b = synced_seconds(lambda: banded_cg(F32, b32, CG_RATE_ITERS))
+    dia_bytes = (len(F32.G.offsets2d) + 1) * R * W * 4 + 10 * nd * 4
+    del F32
+    E32 = E64.astype(torch.float32)
+    del E64
+    sys_ell = DirichletSystem(E32, bnd)
+    jacobi = jacobi_preconditioner(sys_ell.diagonal())
+    cg(sys_ell, b32, M_inv=jacobi, rtol=0.0, maxiter=5)
+    zero_launch_counts(ak, gs)
+    (_, info_e), t_e = synced_seconds(lambda: cg(sys_ell, b32, M_inv=jacobi, rtol=0.0,
+                                                 maxiter=CG_RATE_ITERS))
+    k2_rate = gs.ell_spmv_launches  # a measurement, not a path: not in the totals
+    ell_bytes = (E32.vals.shape[0] * 12 + 10 * 4) * nd
+    log(f"22 Jacobi CG rates n={N_MAIN} float32, {CG_RATE_ITERS} iterations: banded_cg "
+        f"{CG_RATE_ITERS / t_b:.2f} it/s ({dia_bytes * CG_RATE_ITERS / t_b / 1e9:.1f} GB/s of "
+        f"{dia_bytes / 1e9:.3f} GB per iteration, no host sync, breakdown-free {bool(ok)}); Jacobi CG "
+        f"on the ELL (K2, one host read per iteration) {CG_RATE_ITERS / t_e:.2f} it/s "
+        f"({ell_bytes * CG_RATE_ITERS / t_e / 1e9:.1f} GB/s of {ell_bytes / 1e9:.3f} GB); K2 "
+        f"launches {k2_rate}")
+    check(bool(ok) and bool(torch.isfinite(rn_b)), "banded_cg broke down")
+    check(info_e.iterations == CG_RATE_ITERS and k2_rate > 0, "the ELL CG rate run")
+    del E32, sys_ell, b32
+
+    # advection-diffusion-reaction through BiCGStab at n = 1024
+    x1, y1, c0, c1, c2, bnd1 = irregular_mesh_device_soa(N_GEN1M, 0.2, dtype=torch.float64,
+                                                         device=DEVICE)
+    zero_launch_counts(ak, gs)
+    adv, t_b1 = synced_seconds(lambda: MatrixFreeElliptic(
+        (x1, y1), torch.stack([c0, c1, c2], 1), bnd1, K=(1.3, 0.2, 0.9), b=(1.0, 0.5), c=0.3,
+        split_plan=(N_GEN1M + 1, 1), device=DEVICE))
+    b1 = adv.load_vector(torch.ones(c0.shape[0], dtype=torch.float64, device=DEVICE))
+    (xa, ita, rela), t_a = synced_seconds(lambda: adv.solve(b1, rtol=1e-9, maxiter=200))
+    out["banded advection"] = gs.ell_spmv_launches
+    log(f"22 banded MatrixFreeElliptic advection-diffusion n={N_GEN1M} ({adv.n_dofs} dofs), "
+        f"K=(1.3, 0.2, 0.9), b=(1.0, 0.5), c=0.3: preconditioner {adv.preconditioner}, symmetric "
+        f"{adv.is_symmetric}; build {t_b1:.4f} s, BiCGStab {ita} iterations in {t_a:.4f} s, true "
+        f"rel residual {float(rela):.4e}; K2 launches {out['banded advection']}")
+    check(adv.preconditioner == "banded_mg" and not adv.is_symmetric, "advection model route")
+    check(float(rela) <= 1e-9 and ita <= 200 and bool(torch.isfinite(xa).all()),
+          "the banded advection solve did not reach 1e-9 within 200 iterations")
+    del adv, b1, xa
+
+    # the remainder on the card: split at W + 1, the lattice's diagonal
+    # offsets fall outside the stencil window into the ELL remainder, whose
+    # product is K2; split @ x must equal the ELL's plain product
+    op1, _ = MatrixFreeSoA.build(x1, y1, c0, c1, c2, x1.shape[0], 8)
+    E1, _ = op1.to_ell(9)
+    del op1
+    S1, over = build_banded_split(E1, N_GEN1M + 2, max_rem=4)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    v = torch.rand(E1.shape[1], generator=gen, dtype=torch.float64, device=DEVICE) - 0.5
+    ref = gs.ell_spmv_reference(E1.vals, E1.cols, v)
+    bound = (E1.vals.shape[0] * torch.finfo(torch.float64).eps
+             * gs.ell_spmv_reference(E1.vals.abs(), E1.cols, v.abs()))
+    zero_launch_counts(ak, gs)
+    y = S1 @ v
+    out["banded remainder"] = gs.ell_spmv_launches
+    rem_nnz = int((S1.rem.vals != 0).sum())
+    err = (y - ref).abs()
+    log(f"22 banded split at W + 1 = {N_GEN1M + 2} of the n={N_GEN1M} ELL: remainder "
+        f"{tuple(S1.rem.vals.shape)}, {rem_nnz} entries, overflow {bool(over)}; "
+        f"max|split @ x - ELL @ x (plain)| = {err.max().item():.3e}, within the per-row bound "
+        f"{bool((err <= bound).all())}; K2 launches {out['banded remainder']}")
+    check(not bool(over) and rem_nnz > 0 and out["banded remainder"] > 0,
+          "the split at W + 1 has no remainder on K2")
+    check(bool((err <= bound).all()), "split @ x differs from the ELL's product")
+    return (nodes, cells, bnd), out
+
+
+def phase_matfree_parabolic(ak, gs, ls, lattice):
+    """MatrixFreeParabolic: (a) the banded route on the n = 3200 lattice mesh,
+    chunked == unchunked; (b) the aux-grid route on the scrambled mesh; (c)
+    at n = 64 against solve_parabolic(lumped=True). Returns {path: (K2, K6)}."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import FEMSpace, assemble_matrix, solve_parabolic
+    from fdapde_core_tpu_torch.geometry import irregular_mesh_device
+    from fdapde_core_tpu_torch.models import MatrixFreeParabolic
+
+    out = {}
+
+    def march(name, nodes, cells, bnd, dt, chunked):
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts(ak, gs)
+        model, t_build = synced_seconds(lambda: MatrixFreeParabolic(nodes, cells, bnd, dt,
+                                                                    device=DEVICE))
+        u0 = torch.sin(np.pi * nodes[:, 0]) * torch.sin(np.pi * nodes[:, 1])
+        maxiter = 200
+        (u, info), t = synced_seconds(lambda: model.solve(u0, N_STEPS_MF, rtol=1e-9,
+                                                          maxiter=maxiter))
+        name = f"{name}, dt={dt:g}"
+        out[name] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
+        same = None
+        if chunked:
+            uc, infoc = model.solve(u0, N_STEPS_MF, rtol=1e-9, maxiter=maxiter, chunk=5)
+            same = torch.equal(uc, u) and infoc["iterations"] == info["iterations"]
+        log(f"23 MatrixFreeParabolic {name} ({nodes.shape[0]} dofs), {N_STEPS_MF} "
+            f"steps at rtol 1e-9: preconditioner {model.preconditioner}; build {t_build:.4f} s, "
+            f"{N_STEPS_MF} steps in {t:.4f} s ({N_STEPS_MF / t:.3f} steps/s); iterations per step "
+            f"{info['iterations']} (maxiter {maxiter}), true rel "
+            f"residuals {[f'{v:.3e}' for v in info['rel_residuals']]}; chunked == unchunked "
+            f"bitwise: {same}; K2 launches {out[name][0]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        check(max(info["rel_residuals"]) <= 1e-9 and bool(torch.isfinite(u).all()),
+              f"MatrixFreeParabolic {name} did not reach 1e-9")
+        check(same is not False, f"MatrixFreeParabolic {name}: chunked stepping differs")
+        return model.preconditioner, u
+
+    nodes, cells, bnd = lattice
+    route, _ = march(f"banded, lattice n={N_MAIN}", nodes, cells, bnd, DT_MF, True)
+    check(route == "banded_mg", "the lattice mesh did not take the banded route")
+    # the aux-grid route on the scrambled relabelling of the same mesh, at
+    # a dt where A dominates M / dt: its grid stencil is the unshifted
+    # Laplacian (as in JAX), which at dt ~ h^2 over-corrects the smooth
+    # modes of A + M / dt. Its trajectory, relabelled, is the banded
+    # route's at the same dt
+    _, u_lat = march(f"banded, lattice n={N_MAIN}", nodes, cells, bnd, DT_AUX, False)
+    del nodes, cells, bnd, lattice
+    torch.cuda.empty_cache()
+    x, y, cells, bnd = scrambled_mesh(N_MAIN, *SCRAMBLE)
+    route, u_scr = march(f"aux grid, scrambled n={N_MAIN}", torch.stack([x, y], 1), cells, bnd,
+                         DT_AUX, False)
+    diff = (u_scr - u_lat[scramble_perm(x.shape[0], *SCRAMBLE)[1]]).abs().max().item()
+    log(f"23 aux-grid route (scrambled) against the banded route (lattice) at dt={DT_AUX:g}: "
+        f"max|u_aux - u_banded| / max|u| = {diff / u_lat.abs().max().item():.3e}")
+    check(route == "auxgrid", "the scrambled mesh did not take the aux-grid route")
+    check(out[f"aux grid, scrambled n={N_MAIN}, dt={DT_AUX:g}"][0] > 0,
+          "the aux-grid route never launched K2")
+    check(diff <= 1e-7 * u_lat.abs().max().item(), "the aux-grid and banded routes disagree")
+    # one aux-grid step at dt ~ h^2, from u0, held to converge within
+    # AUX_H2_MAXITER iterations
+    nodes_s = torch.stack([x, y], 1)
+    name = f"aux grid, scrambled n={N_MAIN}, dt={DT_MF:g}, one step"
+    zero_launch_counts(ak, gs)
+    model = MatrixFreeParabolic(nodes_s, cells, bnd, DT_MF, device=DEVICE)
+    u0 = torch.sin(np.pi * x) * torch.sin(np.pi * y)
+    (_, its, rel), t = synced_seconds(lambda: model.step(u0, rtol=1e-9, maxiter=AUX_H2_MAXITER))
+    out[name] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
+    log(f"23 MatrixFreeParabolic {name}: preconditioner {model.preconditioner}; {int(its)} "
+        f"iterations (held to {AUX_H2_MAXITER}) in {t:.4f} s ({1e3 * t / max(int(its), 1):.1f} ms "
+        f"an iteration), true rel residual {float(rel):.3e}; K2 launches {out[name][0]}")
+    check(model.preconditioner == "auxgrid" and float(rel) <= 1e-9,
+          f"the aux-grid step at dt={DT_MF:g} did not reach 1e-9 in {AUX_H2_MAXITER} iterations")
+    del x, y, nodes_s, cells, bnd, u_lat, u_scr, model, u0
+    torch.cuda.empty_cache()
+
+    # (c) the banded trajectory is the lumped implicit Euler of the
+    # assembled operator
+    n, dt, steps = 64, 1e-3, 5
+    nodes, cells, bnd = irregular_mesh_device(n, 0.2, dtype=torch.float64, device=DEVICE)
+    zero_launch_counts(ak, gs)
+    model = MatrixFreeParabolic(nodes, cells, bnd, dt, device=DEVICE)
+    u0 = torch.sin(np.pi * nodes[:, 0]) * torch.sin(np.pi * nodes[:, 1])
+    u, info = model.solve(u0, steps, rtol=1e-11, maxiter=200, keep_trajectory=True)
+    space = FEMSpace(fdt.Triangulation(nodes.cpu().numpy(), cells.cpu().numpy(), bnd.cpu().numpy()), 1)
+    A = assemble_matrix(space, -fdt.laplacian(), device=DEVICE)
+    M = assemble_matrix(space, fdt.reaction(1.0), device=DEVICE)
+    zero = torch.zeros((space.n_dofs, steps + 1), dtype=torch.float64, device=DEVICE)
+    us, sinfo = solve_parabolic(A, M, zero, bnd, zero, u0, np.arange(steps + 1) * dt, rtol=1e-11,
+                                lumped=True, return_info=True)
+    out["parabolic n=64 vs solve_parabolic"] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
+    diff = (info["trajectory"] - us[:, 1:]).abs().max().item()
+    log(f"23 MatrixFreeParabolic n={n} ({model.preconditioner}) against solve_parabolic(lumped=True) "
+        f"over {steps} steps of dt={dt:g}: max|u_mf - u_host| = {diff:.3e}; iterations "
+        f"{info['iterations']} vs {sinfo['iterations'].tolist()}; K2 launches "
+        f"{out['parabolic n=64 vs solve_parabolic'][0]}, K6 launches "
+        f"{out['parabolic n=64 vs solve_parabolic'][1]}")
+    check(model.preconditioner == "banded_mg" and diff <= 1e-10,
+          f"MatrixFreeParabolic and solve_parabolic differ by {diff:.3e}")
+    return out
+
+
+def timed_phase(number, fn):
+    """Run a phase, print its seconds, return its result."""
+    out, t = synced_seconds(fn)
+    log(f"phase {number}: {t:.2f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1269,10 +1739,15 @@ def main():
     (pts, cells, bnd), t_mesh = synced_seconds(lambda: delaunay_mesh(NX_PDE))
     k456 = phase_local_stiffness(ak, gs, ls, pts, cells)
     torch.cuda.empty_cache()
-    pde, k6_launches = phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh)
+    pde, k6_launches, aux_run = phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh)
     phase_pde_harmonic(pde)
     mesh = pde.domain
     del pde
+    torch.cuda.empty_cache()
+    new_paths = {}  # phases 20-23: {path: (K2 launches, K6 launches)}
+    new_paths.update(timed_phase(20, lambda: phase_parabolic(ak, gs, ls, mesh)))
+    new_paths.update(timed_phase(21, lambda: phase_amg(ak, gs, ls, mesh, aux_run)))
+    del aux_run
     torch.cuda.empty_cache()
     obs = phase_point_location(mesh)
     torch.cuda.empty_cache()
@@ -1295,6 +1770,17 @@ def main():
     k7 = phase_k7(ds, [("DIA path", D, None),
                        (f"flattened n={N_MAIN} stencil", flat_stencil_dia(G), G.__matmul__)])
     del D, G
+    torch.cuda.empty_cache()
+
+    lattice, k2_banded = timed_phase(22, lambda: phase_banded(ak, gs))
+    new_paths.update({path: (k2, 0) for path, k2 in k2_banded.items()})
+    torch.cuda.empty_cache()
+    new_paths.update(timed_phase(23, lambda: phase_matfree_parabolic(ak, gs, ls, lattice)))
+    del lattice
+    log("K2 / K6 launches by path of phases 20-23: " + "; ".join(
+        f"{path} {k2} / {k6}" for path, (k2, k6) in new_paths.items()))
+    k2_launches += sum(k2 for k2, _ in new_paths.values())
+    k6_launches += sum(k6 for _, k6 in new_paths.values())
 
     kernels = [dict(
         name="p1_stencil_layers",

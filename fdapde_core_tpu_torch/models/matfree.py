@@ -5,19 +5,22 @@ Port of the 2D P1 parts of ``fdapde_core_tpu/models/matfree.py``:
   mesh arrays (nodes, cells, boundary) -> per-cell closed-form local
   matrices and a slot-major incidence table (ops/matfree_soa.py) ->
   assembled (K, n) ELL -> Dirichlet masking (fem/solvers.py) -> CG or
-  BiCGStab preconditioned by the auxiliary-grid V-cycle (ops/auxgrid.py)
-  in float32 under the model's precision.
+  BiCGStab preconditioned in float32 under the model's precision.
 
-With ``gather_kernel="lane"`` the solve is mixed-precision refinement:
-inner CG on a float32 copy of the ELL, outer residuals through the
-full-precision ELL (``_lane_refined_solve``). Every ELL product is the K2
-kernel (ops/gather_spmv.py). Nothing assumes a topology: the solver sees
-index tensors.
+The preconditioner follows the operator (``preconditioner="auto"``): when
+the ELL's offset histogram is band-concentrated (``plan_split_width``), the
+operator becomes the banded split (ops/dia_split.py: a stencil over an
+(R, W) index grid plus an ELL remainder) and the preconditioner its
+gather-free multigrid ("banded_mg"); otherwise the auxiliary-grid V-cycle
+(ops/auxgrid.py, "auxgrid"). With ``gather_kernel="lane"`` on the aux-grid
+path the solve is mixed-precision refinement: inner CG on a float32 copy
+of the ELL, outer residuals through the full-precision ELL
+(``_lane_refined_solve``). Every ELL product is the K2 kernel
+(ops/gather_spmv.py). ``MatrixFreeParabolic`` steps implicit Euler with
+the lumped mass on the same operator stack.
 
 Not ported yet, and raising NotImplementedError with the ROADMAP item: 3D
-meshes, ``from_space`` (P2), ``MatrixFreeParabolic``, ``aux_kernel="lane"``
-(ops/lane_aux.py) and operators that ``plan_split_width`` accepts (the
-banded split and its multigrid).
+meshes, ``from_space`` (P2) and ``aux_kernel="lane"`` (ops/lane_aux.py).
 """
 
 from __future__ import annotations
@@ -35,32 +38,111 @@ from ..linear_algebra.solvers import (
     cg_split_programs,
 )
 from ..ops.auxgrid import AuxGridPreconditioner
-from ..ops.dia_split import plan_split_width
+from ..ops.dia_split import BandedMGPreconditioner, build_banded_split, plan_split_width
 from ..ops.gather_spmv import LaneRoutedELL
 from ..ops.matfree_soa import MatrixFreeSoA
 
 __all__ = ["MatrixFreePoisson", "MatrixFreeElliptic", "MatrixFreeParabolic"]
 
 _TODO_3D = "3D meshes are not ported yet (ROADMAP queue 1, slice 4)"
-_TODO_BANDED = (
-    "plan_split_width accepted this operator, and the banded DIA split with "
-    "BandedMGPreconditioner (ops/dia_split.py) is not ported yet (ROADMAP "
-    "queue 1, slice 3); pass preconditioner='auxgrid'"
-)
+_NO_BAND = ("banded_mg requested but the operator has no concentrated "
+            "band (plan_split_width rejected it); use 'auto' or 'auxgrid'")
 _TODO_LANE_AUX = ("aux_kernel='lane' (ops/lane_aux.py) is not ported yet "
                   "(ROADMAP queue 1, slice 3)")
 _KERNELS = ("xla", "lane")
 
 
-def _reject_banded(op, split_plan):
-    """Raise where JAX's preconditioner='auto' would take the banded split."""
-    W, _ = plan_split_width(op) if split_plan is None else split_plan
-    if W is not None:
-        raise NotImplementedError(_TODO_BANDED)
+def _banded_split(E, split_plan=None):
+    """preconditioner="auto": the banded split of the assembled ELL when
+    its offset histogram is band-concentrated (decided from the matrix
+    alone by plan_split_width's coverage guard, or given as
+    ``split_plan=(W, amax)``) and its window is the 9-point one that
+    BandedMGPreconditioner coarsens; else None, keeping the aux-grid path.
+
+    The split is unfolded (exactly A): the boundary stays with
+    DirichletSystem, whose right-hand side needs A's boundary columns. The
+    Dirichlet fold happens only inside the multigrid build (``_banded_mg``).
+    """
+    W, amax = plan_split_width(E) if split_plan is None else split_plan
+    if W is None or amax > 1:
+        return None
+    S, over = build_banded_split(E, W, amax=amax)
+    if bool(over):
+        return None
+    if not bool((S.rem.vals != 0.0).any()):
+        S = S.drop_empty_remainder()
+    return S
+
+
+def _route(op, boundary, format, preconditioner, split_plan):
+    """(operator, preconditioner name) after the "auto" structure check:
+    (the banded split, "banded_mg") or (op, "auxgrid"). An explicit
+    "banded_mg" that the band plan rejects raises ValueError."""
+    if preconditioner in ("auto", "banded_mg") and format == "ell":
+        S = _banded_split(op, split_plan)
+        if S is not None:
+            return S, "banded_mg"
+    if preconditioner == "banded_mg":
+        raise ValueError(_NO_BAND)
+    return op, "auxgrid"
+
+
+def _banded_mg(S, boundary):
+    """The split's multigrid, built on its float32 Dirichlet fold."""
+    return BandedMGPreconditioner.build(S.astype(torch.float32).fold_dirichlet(boundary))
 
 
 def _aux_diag32(op, boundary):
     return DirichletSystem(op, boundary).diagonal().to(torch.float32)
+
+
+def _p1_operator(model, nodes, cells, boundary, max_degree=None, format="ell", max_cols=None,
+                 kappa=None, preconditioner="auto", split_plan=None, device="cuda"):
+    """The operator half of MatrixFreePoisson and MatrixFreeParabolic:
+    sets model's mesh tensors, the incidence table of load_vector, the
+    assembled operator ``op`` (the banded split where ``_route`` takes it)
+    and the ``preconditioner`` name; builds no preconditioner."""
+    model.nodes = torch.as_tensor(nodes, device=device)
+    model.cells = torch.as_tensor(cells, device=device).to(torch.int32)
+    model.boundary = torch.as_tensor(boundary, device=device).to(torch.bool)
+    model.n_dofs = model.nodes.shape[0]
+    model.format = format
+    model.dim = model.nodes.shape[1]
+    if model.dim == 3:
+        raise NotImplementedError(_TODO_3D)
+    if model.dim != 2:
+        raise ValueError(f"2D/3D only, got embedding dim {model.dim}")
+    if max_degree is None:
+        max_degree = 8
+    if max_cols is None:
+        max_cols = max_degree + 1  # neighbours + self
+
+    x, y = model.nodes[:, 0], model.nodes[:, 1]
+    corners = [model.cells[:, j].contiguous() for j in range(3)]
+    if kappa is not None:
+        kappa = torch.as_tensor(kappa, dtype=model.nodes.dtype, device=device)
+    mf, over = MatrixFreeSoA.build(x, y, *corners, model.n_dofs, max_degree, kappa=kappa)
+    if bool(over):
+        raise ValueError(
+            f"a node exceeds max_degree={max_degree} cell incidences; "
+            "rebuild with a larger bound"
+        )
+    # the load_vector combine rides the adjacency regardless of format
+    model.adj, model.adj_mask = mf.adj, mf.adj_mask
+    if format == "ell":
+        E, overc = mf.to_ell(max_cols)
+        if bool(overc):
+            raise ValueError(
+                f"a row exceeds {max_cols} distinct columns; "
+                "rebuild with a larger max_cols"
+            )
+        op = E
+    elif format == "matfree":
+        op = mf
+    else:
+        raise ValueError(format)
+    model.op, model.preconditioner = _route(op, model.boundary, format, preconditioner,
+                                            split_plan)
 
 
 class MatrixFreePoisson:
@@ -71,7 +153,10 @@ class MatrixFreePoisson:
     moved to ``device``; the node dtype is the operator's. max_degree
     bounds the cell incidences per node (a violated bound raises
     ValueError); grid_n sets the auxiliary grid (default ~sqrt(N)); kappa
-    is an optional (C,) or scalar diffusivity.
+    is an optional (C,) or scalar diffusivity. preconditioner: "auto" (the
+    banded split with "banded_mg" where the band plan accepts the ELL, or
+    ``split_plan=(W, amax)`` given; else "auxgrid"), "banded_mg" (raises
+    ValueError without a band) or "auxgrid".
     """
 
     def __init__(self, nodes, cells, boundary, max_degree: int | None = None,
@@ -79,58 +164,15 @@ class MatrixFreePoisson:
                  format: str = "ell", max_cols: int | None = None,
                  kappa=None, preconditioner: str = "auto",
                  split_plan=None, device="cuda"):
-        self.nodes = torch.as_tensor(nodes, device=device)
-        self.cells = torch.as_tensor(cells, device=device).to(torch.int32)
-        self.boundary = torch.as_tensor(boundary, device=device).to(torch.bool)
-        self.n_dofs = self.nodes.shape[0]
-        self.format = format
-        self.dim = self.nodes.shape[1]
-        if self.dim == 3:
-            raise NotImplementedError(_TODO_3D)
-        if self.dim != 2:
-            raise ValueError(f"2D/3D only, got embedding dim {self.dim}")
-        if max_degree is None:
-            max_degree = 8
-        if max_cols is None:
-            max_cols = max_degree + 1  # neighbours + self
-        if bbox is None:
-            bbox = ((0.0, 0.0), (1.0, 1.0))
-
-        x, y = self.nodes[:, 0], self.nodes[:, 1]
-        corners = [self.cells[:, j].contiguous() for j in range(3)]
-        if kappa is not None:
-            kappa = torch.as_tensor(kappa, dtype=self.nodes.dtype, device=device)
-        mf, over = MatrixFreeSoA.build(x, y, *corners, self.n_dofs, max_degree, kappa=kappa)
-        if bool(over):
-            raise ValueError(
-                f"a node exceeds max_degree={max_degree} cell incidences; "
-                "rebuild with a larger bound"
-            )
-        # the load_vector combine rides the adjacency regardless of format
-        self.adj, self.adj_mask = mf.adj, mf.adj_mask
-        if format == "ell":
-            E, overc = mf.to_ell(max_cols)
-            if bool(overc):
-                raise ValueError(
-                    f"a row exceeds {max_cols} distinct columns; "
-                    "rebuild with a larger max_cols"
-                )
-            self.op = E
-        elif format == "matfree":
-            self.op = mf
-        else:
-            raise ValueError(format)
+        _p1_operator(self, nodes, cells, boundary, max_degree, format, max_cols, kappa,
+                     preconditioner, split_plan, device)
         self.system = DirichletSystem(self.op, self.boundary)
-        self.preconditioner = "auxgrid"
-        if preconditioner in ("auto", "banded_mg") and format == "ell":
-            _reject_banded(self.op, split_plan)
-        if preconditioner == "banded_mg":
-            raise ValueError(
-                "banded_mg requested but the operator has no concentrated "
-                "band (plan_split_width rejected it); use 'auto' or 'auxgrid'"
-            )
-        self.aux = AuxGridPreconditioner.build_device(
-            self.nodes, _aux_diag32(self.op, self.boundary), grid_n=grid_n, bbox=bbox)
+        if self.preconditioner == "banded_mg":
+            self.aux = _banded_mg(self.op, self.boundary)
+        else:
+            self.aux = AuxGridPreconditioner.build_device(
+                self.nodes, _aux_diag32(self.op, self.boundary), grid_n=grid_n,
+                bbox=((0.0, 0.0), (1.0, 1.0)) if bbox is None else bbox)
 
     def load_vector(self, f_cells):
         """P1 load b_i = sum_T |T|/3 f(centroid_T) over incident cells;
@@ -167,7 +209,8 @@ def _load_vector(coords, dofs, adj, adj_mask, f_cells):
 
 
 def _aux_apply(aux, r):
-    """float32 aux V-cycle inside a higher-precision Krylov loop."""
+    """float32 preconditioner (aux-grid or banded V-cycle) inside a
+    higher-precision Krylov loop."""
     return aux(r.to(torch.float32)).to(r.dtype)
 
 
@@ -177,23 +220,24 @@ def _rel_residual(sys, x, b_mod):
 
 
 def _solve_chunked(op, bnd, aux, b, g, symmetric, rtol, maxiter, chunk,
-                   on_chunk):
+                   on_chunk, u0=None):
     sys = DirichletSystem(op, bnd)
     b_mod = sys.rhs(b, g)
-    x0 = torch.where(bnd, g, 0.0)
+    x0 = torch.where(bnd, g, 0.0 if u0 is None else u0)
     solver = cg_chunked if symmetric else bicgstab_chunked
     x, info = solver(sys, b_mod, M_inv=functools.partial(_aux_apply, aux), x0=x0,
                      rtol=rtol, maxiter=maxiter, chunk=chunk, on_chunk=on_chunk)
     return x, info.iterations, _rel_residual(sys, x, b_mod)
 
 
-def _solve(op, bnd, aux, b, g, symmetric, rtol, maxiter):
+def _solve(op, bnd, aux, b, g, symmetric, rtol, maxiter, u0=None):
     """CG (symmetric) or BiCGStab on the Dirichlet system with the float32
-    aux apply (JAX's ``_solve_fn`` and ``_general_solve_fn``); returns
-    (x, iterations, true relative residual)."""
+    preconditioner apply (JAX's ``_solve_fn``, ``_general_solve_fn`` and,
+    warm-started from u0 on the free dofs, ``_parabolic_step_fn``);
+    returns (x, iterations, true relative residual)."""
     sys = DirichletSystem(op, bnd)
     b_mod = sys.rhs(b, g)
-    x0 = torch.where(bnd, g, 0.0)
+    x0 = torch.where(bnd, g, 0.0 if u0 is None else u0)
     solver = cg if symmetric else bicgstab
     x, info = solver(sys, b_mod, M_inv=functools.partial(_aux_apply, aux),
                      x0=x0, rtol=rtol, maxiter=maxiter)
@@ -255,15 +299,16 @@ def _normalize_b(b, centroids, C, dim, dtype, device):
 class MatrixFreeElliptic:
     """-div(K grad u) + b . grad u + c u = f,  u = g on the boundary, P1
     on an arbitrary 2D triangulation. CG when symmetric (b is None),
-    BiCGStab otherwise, preconditioned by the auxiliary grid.
+    BiCGStab otherwise, preconditioned as MatrixFreePoisson chooses
+    ("banded_mg" or the auxiliary grid).
 
     K: None | scalar | (2, 2) | (kxx, kxy, kyy) | (C,) | callable(centroids);
     b: None | (2,) | (bx, by) | callable; c: None | scalar | (C,) | callable.
     nodes: (N, 2) or an (x, y) tuple of (N,) coordinates; the coordinate
     dtype is the operator's. gather_kernel: "xla" (ELL SpMV in the model's
     precision) or "lane" (float32 inner solves with refinement, when the
-    operator stays on the aux-grid path). aux_kernel: "xla"; "lane" is
-    not ported yet.
+    operator stays on the aux-grid path; the banded path ignores it).
+    aux_kernel: "xla"; "lane" is not ported yet.
     """
 
     def __init__(self, nodes, cells, boundary, order: int = 1, K=None,
@@ -323,6 +368,7 @@ class MatrixFreeElliptic:
         self.dim = dim
         self.n_dofs = n_dofs
         self.boundary = torch.as_tensor(boundary, device=device).to(torch.bool)
+        self.format = format
         self.is_symmetric = all(v is None for v in badv)
         if max_cols is None and format == "ell":
             max_cols = max_degree + 1  # neighbours + self
@@ -349,16 +395,12 @@ class MatrixFreeElliptic:
             self.op = mf
         else:
             raise ValueError(format)
+        self.op, self.preconditioner = _route(self.op, self.boundary, format, preconditioner,
+                                              split_plan)
         self.system = DirichletSystem(self.op, self.boundary)
-        self.preconditioner = "auxgrid"
-        if preconditioner in ("auto", "banded_mg") and format == "ell":
-            _reject_banded(self.op, split_plan)
-        if preconditioner == "banded_mg":
-            raise ValueError(
-                "banded_mg requested but the operator has no concentrated "
-                "band (plan_split_width rejected it); use 'auto' or 'auxgrid'"
-            )
-        if gather_kernel == "lane" and format == "ell":
+        if self.preconditioner == "banded_mg":
+            self.aux = _banded_mg(self.op, self.boundary)
+        if gather_kernel == "lane" and format == "ell" and self.preconditioner == "auxgrid":
             # float32 copy of the ELL for the inner solves; the
             # full-precision ELL stays as op_ref for the outer residuals
             self.op_ref = self.op
@@ -367,12 +409,13 @@ class MatrixFreeElliptic:
             self.op = LaneRoutedELL.from_ell(lane_src)
             self.system = DirichletSystem(self.op_ref, self.boundary)
             self.preconditioner = "auxgrid+lane"
-        if bbox is None:
-            bbox = ((0.0,) * dim, (1.0,) * dim)
-        self.aux = AuxGridPreconditioner.build_device(
-            (self.dof_x, self.dof_y), _aux_diag32(self.op, self.boundary),
-            grid_n=grid_n, bbox=bbox,
-        )
+        if self.preconditioner.startswith("auxgrid"):
+            if bbox is None:
+                bbox = ((0.0,) * dim, (1.0,) * dim)
+            self.aux = AuxGridPreconditioner.build_device(
+                (self.dof_x, self.dof_y), _aux_diag32(self.op, self.boundary),
+                grid_n=grid_n, bbox=bbox,
+            )
 
     @classmethod
     def from_space(cls, space, K=None, b=None, c=None, **kw):
@@ -445,7 +488,74 @@ def _lane_refined_solve(op_ref, lane, bnd, aux, b, g, rtol, maxiter, chunk,
 
 
 class MatrixFreeParabolic:
-    """Implicit-Euler stepping on the gather pipeline: not ported yet."""
+    """Implicit-Euler heat stepping on the gather pipeline, P1, lumped mass
+    (lumping.h:30: the P1 row-sum lumped mass is the load vector of 1,
+    sum_T |T|/3 over the incident cells).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("MatrixFreeParabolic is not ported yet (ROADMAP queue 1, slice 3)")
+    Each step solves (A + M_L / dt) u_next = M_L u / dt + f with the
+    operator of MatrixFreePoisson (the other keyword arguments are its
+    own): when the band plan accepts the operator, the shifted operator is
+    the banded split (the shift changes only its centre layer) with a
+    BandedMGPreconditioner of its float32 Dirichlet fold; otherwise the ELL
+    with an aux grid built on the device from the shifted diagonal (its
+    grid stencil is the unshifted Laplacian, as in JAX, so its iterations
+    grow with n at dt ~ h^2). Only the shifted operator's preconditioner is
+    built. The steps are a host loop of CG solves, each warm-started from
+    the last instant (fem_linear_parabolic_solver.h:37-72 factorizes once;
+    here the preconditioner build is the one-time cost).
+    """
+
+    def __init__(self, nodes, cells, boundary, dt: float, kappa=None, grid_n=None, bbox=None,
+                 **kw):
+        _p1_operator(self, nodes, cells, boundary, kappa=kappa, **kw)
+        self.dt = float(dt)
+        ones = torch.ones(self.cells.shape[0], dtype=self.nodes.dtype, device=self.nodes.device)
+        self.mdiag = self.load_vector(ones)  # lumped mass
+        self.op = self.op.with_added_diagonal(self.mdiag / self.dt)
+        if self.preconditioner == "banded_mg":
+            self.aux = _banded_mg(self.op, self.boundary)
+        else:
+            self.aux = AuxGridPreconditioner.build_device(
+                self.nodes, self.op.diagonal().to(torch.float32), grid_n=grid_n,
+                bbox=((0.0, 0.0), (1.0, 1.0)) if bbox is None else bbox)
+
+    load_vector = MatrixFreePoisson.load_vector
+
+    def step(self, u, f=None, g=None, rtol: float = 1e-9, maxiter: int = 100,
+             chunk: int | None = None, on_chunk=None):
+        """One implicit-Euler step. f: the assembled load vector (n,) at the
+        next instant (load_vector) or None; g: Dirichlet data at the next
+        instant (default 0). Returns (u_next, iterations, true relative
+        residual)."""
+        if g is None:
+            g = torch.zeros_like(u)
+        b = self.mdiag * u / self.dt
+        if f is not None:
+            b = b + f
+        if chunk is not None:
+            return _solve_chunked(self.op, self.boundary, self.aux, b, g, True, rtol, maxiter,
+                                  chunk, on_chunk, u0=u)
+        return _solve(self.op, self.boundary, self.aux, b, g, True, rtol, maxiter, u0=u)
+
+    def solve(self, u0, n_steps: int, f=None, g=None, rtol: float = 1e-9,
+              maxiter: int = 100, chunk: int | None = None,
+              keep_trajectory: bool = False, on_step=None):
+        """March n_steps from u0 with constant-in-time f and g (drive
+        ``step`` for data that varies). Returns (u_final, info) with the
+        per-step "iterations" and "rel_residuals" (host numbers); with
+        keep_trajectory=True also "trajectory", (n, n_steps); on_step(k, u,
+        iterations, rel) is called after every step."""
+        u = torch.as_tensor(u0)
+        iters, rels, traj = [], [], []
+        for k in range(n_steps):
+            u, it, rel = self.step(u, f=f, g=g, rtol=rtol, maxiter=maxiter, chunk=chunk)
+            iters.append(int(it))
+            rels.append(float(rel))
+            if keep_trajectory:
+                traj.append(u)
+            if on_step is not None:
+                on_step(k, u, iters[-1], rels[-1])
+        info = {"iterations": iters, "rel_residuals": rels}
+        if keep_trajectory:
+            info["trajectory"] = torch.stack(traj, dim=1)
+        return u, info

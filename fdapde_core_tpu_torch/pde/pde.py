@@ -1,6 +1,6 @@
 """The PDE problem descriptor.
 
-Port of ``fdapde_core_tpu/pde/pde.py`` for elliptic operators, with
+Port of ``fdapde_core_tpu/pde/pde.py``, elliptic and parabolic, with
 ``discretization="fem"`` or ``"spline"`` (counterpart of fdaPDE-core's
 pde.h:40-114):
 
@@ -9,13 +9,14 @@ pde.h:40-114):
     pde.set_dirichlet_bc(g)           # g: values at dof coordinates
     pde.set_forcing(f)                # callable, or array over quadrature nodes
     pde.init()                        # assemble stiff/mass/force on the device
-    pde.solve()                       # CG / BiCGStab
+    pde.solve()                       # CG / BiCGStab / implicit Euler
     u = pde.solution()
 
-The mesh and the FEM or spline space stay on the host (NumPy); matrices,
-vectors and the solve live on ``device``. Not ported yet, each raising
-NotImplementedError with its ROADMAP item: parabolic problems (a ``dt()``
-term or ``times``) and the "amg" rung of the preconditioner ladder.
+The solver is parabolic iff the operator holds a ``dt()`` term (then
+``times`` and ``set_initial_condition`` are needed; forcing and Dirichlet
+data may carry one column per instant). The mesh and the FEM or spline
+space stay on the host (NumPy); matrices, vectors and the solve live on
+``device``.
 """
 
 from __future__ import annotations
@@ -33,16 +34,14 @@ __all__ = ["PDE"]
 # costs: switch to the "auto" preconditioner ladder
 _AUTO_PRECOND_DOFS = 20_000
 
-_TODO_PARABOLIC = "parabolic problems (solve_parabolic) are not ported yet: ROADMAP queue 1 item 3"
-
 
 class PDE:
     """An initialized boundary-value problem over a mesh.
 
-    solver_preconditioner: None (Jacobi below 20,000 dofs, "auto" above),
-    "auto" (the auxiliary grid; its fallback rung, SA-AMG, is not ported
-    and raises, chained to the auxiliary grid's error), "auxgrid", "amg"
-    (raises NotImplementedError) or a callable M_inv(r).
+    solver_preconditioner (elliptic solves): None (Jacobi below 20,000
+    dofs, "auto" above), "auto" (the auxiliary grid, and SA-AMG where the
+    auxiliary grid fails to build or solve, e.g. for 3D dof coordinates),
+    "auxgrid", "amg" or a callable M_inv(r). Parabolic solves take Jacobi.
     """
 
     def __init__(
@@ -60,8 +59,6 @@ class PDE:
         device="cuda",
         dtype=torch.float64,
     ):
-        if times is not None or operator.is_parabolic:
-            raise NotImplementedError(_TODO_PARABOLIC)
         if discretization == "fem":
             from ..fem.space import FEMSpace
 
@@ -75,7 +72,7 @@ class PDE:
 
         self.domain = domain
         self.operator = operator
-        self.times = None
+        self.times = None if times is None else np.asarray(times, dtype=np.float64).reshape(-1)
         self.order = order
         self.discretization = discretization
         self.solver_rtol = solver_rtol
@@ -87,6 +84,7 @@ class PDE:
 
         self._forcing = forcing
         self._dirichlet = None
+        self._initial_condition = None
         self._stiff = None
         self._mass = None
         self._force = None
@@ -102,11 +100,9 @@ class PDE:
         self._dirichlet = np.asarray(g, dtype=np.float64)
 
     def set_initial_condition(self, u0):
-        raise NotImplementedError(_TODO_PARABOLIC)
+        self._initial_condition = np.asarray(u0, dtype=np.float64).reshape(-1)
 
     def set_differential_operator(self, L: DifferentialOp):
-        if L.is_parabolic:
-            raise NotImplementedError(_TODO_PARABOLIC)
         self.operator = L
 
     # -- queries (pde.h:86-100) ----------------------------------------------
@@ -171,27 +167,38 @@ class PDE:
         self.is_init = True
         return self
 
-    # -- solve (fem_linear_elliptic_solver.h) ---------------------------------
+    # -- solve (fem_linear_{elliptic,parabolic}_solver.h) ---------------------
     def solve(self):
-        from ..fem.solvers import solve_elliptic
-
         t0 = time.time()
         if not self.is_init:
             self.init()
-        kw = dict(dtype=self.dtype, device=self.device)
+        if self.is_parabolic:
+            self._solve_parabolic()
+        else:
+            self._solve_elliptic()
+        self.solve_seconds = time.time() - t0
+        return self._solution
+
+    def _boundary(self):
+        """(mask, g as a float64 host array or None) of the Dirichlet data."""
         if self._dirichlet is None:
             # no boundary data set: solve the raw system (the reference
             # imposes conditions only when supplied; splines upstream have no
             # BC handling at all, spline_solver_base.h:79)
-            mask = torch.zeros(self.space.n_dofs, dtype=torch.bool, device=self.device)
-            g = torch.zeros(self.space.n_dofs, **kw)
-        else:
-            mask = torch.as_tensor(self.space.boundary_dofs, device=self.device)
-            g = torch.as_tensor(self._dirichlet.reshape(-1), device=self.device).to(self.dtype)
+            return torch.zeros(self.space.n_dofs, dtype=torch.bool, device=self.device), None
+        return torch.as_tensor(self.space.boundary_dofs, device=self.device), self._dirichlet
+
+    def _solve_elliptic(self):
+        from ..fem.solvers import solve_elliptic
+
+        mask, g = self._boundary()
+        g = np.zeros(self.space.n_dofs) if g is None else g.reshape(-1)
+        g = torch.as_tensor(g, device=self.device).to(self.dtype)
 
         # preconditioner selection. "auto" (also the default beyond
         # _AUTO_PRECOND_DOFS): the auxiliary grid first, then SA-AMG for
-        # domains no covering grid preconditions (not ported: it raises)
+        # domains no covering grid preconditions (an aux-grid build or
+        # solve failure, e.g. 3D dof coordinates)
         precond = self.solver_preconditioner
         auto = precond == "auto" or (precond is None and self.space.n_dofs >= _AUTO_PRECOND_DOFS)
         if precond == "auxgrid" or auto:
@@ -207,18 +214,38 @@ class PDE:
         if auto:
             try:
                 x, info = run(precond)
-            except Exception as aux_error:  # the next rung of the ladder
-                try:
-                    x, info = run("amg")
-                except NotImplementedError as amg_error:
-                    raise amg_error from aux_error
+            except Exception:  # the next rung of the ladder
+                x, info = run("amg")
         else:
             x, info = run(precond)
         self._solution = x
         self.solve_info = info
         self.success = bool(info.converged)
-        self.solve_seconds = time.time() - t0
-        return self._solution
+
+    def _solve_parabolic(self):
+        from ..fem.solvers import solve_parabolic
+
+        if self.times is None:
+            raise ValueError("parabolic problems need a time grid (times=)")
+        if self._initial_condition is None:
+            raise ValueError("parabolic problems need an initial condition (pde.h:83)")
+        T = self.times.size
+        mask, g = self._boundary()
+        if g is None:
+            g = np.zeros((self.space.n_dofs, T))
+        elif g.ndim == 1:
+            g = np.tile(g[:, None], (1, T))
+        F = self._force
+        if F.dim() == 1:
+            F = F[:, None].expand(-1, T)
+        self._solution, self.step_info = solve_parabolic(
+            self._stiff, self._mass, F, mask,
+            torch.as_tensor(g, device=self.device).to(self.dtype),
+            torch.as_tensor(self._initial_condition, device=self.device).to(self.dtype),
+            self.times, rtol=self.solver_rtol, maxiter=self.solver_maxiter,
+            lumped=self.lumped_mass, symmetric=self.operator.is_symmetric, return_info=True,
+        )
+        self.success = bool(self.step_info["converged"].all())
 
     def report(self) -> dict:
         """Per-solve record: problem size, operator sparsity, solver
@@ -237,6 +264,9 @@ class PDE:
             rec["solver_iterations"] = int(self.solve_info.iterations)
             rec["solver_residual"] = float(self.solve_info.residual)
             rec["solver_converged"] = bool(self.solve_info.converged)
+        if hasattr(self, "step_info"):
+            rec["step_iterations"] = self.step_info["iterations"].tolist()
+            rec["escalated"] = self.step_info["escalated"]
         if hasattr(self, "solve_seconds"):
             rec["solve_seconds"] = round(self.solve_seconds, 4)
         return rec
@@ -244,9 +274,12 @@ class PDE:
     # -- error functional (fem_pde_test.cpp:72-74) ----------------------------
     def l2_error(self, exact_at_dofs) -> float:
         """Mass-weighted squared L2 error functional of the reference
-        tests: (mass @ (e * e)).sum()."""
+        tests: (mass @ (e * e)).sum(); for an (n, m) parabolic solution,
+        the largest such sum over the time columns."""
         exact = exact_at_dofs
         if not isinstance(exact, torch.Tensor):
             exact = torch.as_tensor(np.asarray(exact, dtype=np.float64))
         e = exact.to(self.device, self.dtype).reshape(self._solution.shape) - self._solution
-        return float((self._mass @ (e * e)).sum())
+        if e.dim() == 1:
+            return float((self._mass @ (e * e)).sum())
+        return float((self._mass @ (e * e)).sum(dim=0).max())

@@ -26,7 +26,9 @@ from fdapde_core_tpu.geometry.structured import irregular_mesh_device as j_mesh
 from fdapde_core_tpu.geometry.structured import irregular_mesh_device_soa as j_mesh_soa
 from fdapde_core_tpu.linear_algebra import solvers as jsol
 from fdapde_core_tpu.models.matfree import MatrixFreeElliptic as JElliptic
+from fdapde_core_tpu.models.matfree import MatrixFreeParabolic as JParabolic
 from fdapde_core_tpu.models.matfree import MatrixFreePoisson as JPoisson
+from fdapde_core_tpu.ops import dia_split as jds
 from fdapde_core_tpu.ops import matfree_soa as jms
 from fdapde_core_tpu.ops.auxgrid import AuxGridPreconditioner as JAux
 from fdapde_core_tpu.ops.dia_split import plan_split_width as j_plan
@@ -40,6 +42,8 @@ from fdapde_core_tpu_torch.models import (
     MatrixFreeParabolic,
     MatrixFreePoisson,
 )
+from fdapde_core_tpu_torch.fem.solvers import solve_parabolic
+from fdapde_core_tpu_torch.ops import dia_split as tds
 from fdapde_core_tpu_torch.ops import gather_spmv as gs
 from fdapde_core_tpu_torch.ops import matfree_soa as tms
 from fdapde_core_tpu_torch.ops.auxgrid import AuxGridPreconditioner
@@ -103,7 +107,14 @@ def test_soa_pipeline_matches_jax():
     primitives (1e-12 relative), the incidence table (exact), the
     matrix-free operator's @ and diagonal (1e-12 of scale), its ELL (cols
     exact, vals to 1e-13 of scale), the ELL's @ / diagonal /
-    with_added_diagonal (1e-13 of scale) and the band plan (equal)."""
+    with_added_diagonal (1e-13 of scale) and the band plan (equal). The
+    banded split of the Poisson ELL against JAX's, at the plan's W (every
+    entry in the band: drop_empty_remainder) and at W + 1 (a remainder,
+    and an overflow at max_rem=1): stencil layers to 1e-14 of scale, the
+    remainder slot for slot (cols exact), split @ x == ELL @ x to 1e-14 of
+    scale, diagonal, astype, with_added_diagonal and fold_dirichlet; a
+    float64 BandedMG V-cycle to 1e-12 and banded_cg (x to 1e-12, |r|,
+    and the breakdown flag, also on a negative definite shift)."""
     n = 24
     for name, ref, got in (
         ("soa", j_mesh_soa(n, 0.2, dtype=jnp.float64), irregular_mesh_device_soa(n, 0.2, device="cpu")),
@@ -189,6 +200,57 @@ def test_soa_pipeline_matches_jax():
     assert plan_split_width(E_s) == j_plan(jms.ELLSoA(jnp.asarray(vals), jnp.asarray(cols),
                                                       (nd_s, nd_s))) == (None, 0), \
         "plan_split_width must reject the scrambled numbering"
+
+    # the banded split of the Poisson ELL
+    jE, _ = jax.jit(lambda o: o.to_ell(9))(jms.MatrixFreeSoA.build(*J, nd, 8)[0])
+    tE, _ = tms.MatrixFreeSoA.build(*T, nd, 8)[0].to_ell(9)
+    W, amax = plan_split_width(tE)
+    assert (W, amax) == (n + 1, 1)
+    ve, mask = rng.standard_normal(nd), _t(bnd)
+
+    def close(got, ref, what, rel=1e-14):
+        ref = np.asarray(ref)
+        assert np.abs(_np(got) - ref).max() <= rel * np.abs(ref).max(), what
+
+    for w, max_rem in ((W, 2), (W + 1, 4)):
+        jS, jover = jds.build_banded_split(jE, w, amax=amax, max_rem=max_rem)
+        tS, tover = tds.build_banded_split(tE, w, amax=amax, max_rem=max_rem)
+        what = f"banded split W={w}"
+        assert not bool(tover) and not bool(jover), what
+        assert tS.G.offsets2d == jS.G.offsets2d and tS.G.shape2d == jS.G.shape2d, what
+        close(tS.G.data, jS.G.data, f"{what}: layers")
+        np.testing.assert_array_equal(_np(tS.rem.cols), np.asarray(jS.rem.cols), err_msg=what)
+        np.testing.assert_array_equal(_np(tS.rem.vals), np.asarray(jS.rem.vals), err_msg=what)
+        rem_nnz = int((tS.rem.vals != 0).sum())
+        assert (rem_nnz == 0) == (w == W), f"{what}: {rem_nnz} remainder entries"
+        y_ell = _np(tE @ _t(ve))
+        ops = [("", tS)] + ([("drop_empty_remainder", tS.drop_empty_remainder())] if w == W else [])
+        for name, op in ops:
+            assert np.abs(_np(op @ _t(ve)) - y_ell).max() <= 1e-14 * np.abs(y_ell).max(), \
+                f"{what} {name}: split @ x != ELL @ x"
+            close(op.diagonal(), jE.diagonal(), f"{what} {name}: diagonal")
+        assert tS.astype(torch.float32).G.data.dtype == torch.float32
+        dd = rng.uniform(0.5, 2.0, nd)
+        close(tS.with_added_diagonal(_t(dd)).G.data,
+              jS.with_added_diagonal(jnp.asarray(dd)).G.data, f"{what}: with_added_diagonal")
+        jF, tF = jS.fold_dirichlet(jnp.asarray(bnd)), tS.fold_dirichlet(mask)
+        close(tF.G.data, jF.G.data, f"{what}: fold_dirichlet layers")
+        np.testing.assert_array_equal(_np(tF.rem.vals), np.asarray(jF.rem.vals), err_msg=what)
+        jbmg = jds.BandedMGPreconditioner.build(jF, dtype=jnp.float64, coarse_n=4)
+        tbmg = tds.BandedMGPreconditioner.build(tF, dtype=torch.float64, coarse_n=4)
+        assert tbmg.mg.shapes == tuple(jbmg.mg.shapes) and len(tbmg.mg.shapes) >= 3, what
+        close(tbmg(_t(ve)), jbmg(jnp.asarray(ve)), f"{what}: BandedMG V-cycle", 1e-12)
+        bb = np.where(bnd, 0.0, rng.uniform(0.5, 1.5, nd))
+        for name, F, FJ in (("SPD", tF, jF),
+                            ("negative shift", tF.with_added_diagonal(_t(np.full(nd, -50.0))),
+                             jF.with_added_diagonal(jnp.full(nd, -50.0)))):
+            jx, jr, jok = jds.banded_cg(FJ, jnp.asarray(bb), 30)
+            tx, tr, tok = tds.banded_cg(F, _t(bb), 30)
+            assert bool(tok) == bool(jok) == (name == "SPD"), f"{what} {name}: breakdown flag"
+            close(tx, jx, f"{what} {name}: banded_cg x", 1e-12)
+            assert float(tr) == pytest.approx(float(jr), rel=1e-6, abs=1e-300), f"{what} {name}"
+    assert bool(tds.build_banded_split(tE, W + 1, max_rem=1)[1])
+    assert bool(jds.build_banded_split(jE, W + 1, max_rem=1)[1])
 
 
 def test_lane_routed_ell_matches_jax():
@@ -414,8 +476,18 @@ def test_models_match_jax():
     case through BiCGStab) against JAX at n_side = 48: iteration counts
     equal (within 1 on the lane path, whose float32 sums reassociate),
     true residuals <= rtol, solutions within 1e-7 relative, load vectors
-    to 1e-14. The port validates gather_kernel / aux_kernel up front and
-    raises NotImplementedError for what is not ported."""
+    to 1e-14. On the lattice numbering the band plan accepts, "auto" takes
+    "banded_mg" in both packages (MatrixFreePoisson; MatrixFreeElliptic
+    with advection, through BiCGStab): iterations equal, solutions to 1e-7.
+    MatrixFreeParabolic at n_side = 24 over 4 steps against JAX's, on the
+    banded route (iterations equal) and the aux-grid route (iterations
+    within 1: float32 aux sums reassociate), trajectories to 1e-10; the
+    aux-grid route at dt = h^2 for n_side = 24 and 48, whose step
+    iterations grow with n in both packages (within 1 of each other); the
+    banded route against the port's solve_parabolic(lumped=True) on the
+    same mesh to 1e-10, and chunked stepping bitwise equal. The port
+    validates gather_kernel / aux_kernel up front and raises
+    NotImplementedError for what is not ported."""
     n = 48
     C = 2 * n * n
     rng = np.random.default_rng(21)
@@ -457,8 +529,77 @@ def test_models_match_jax():
     assert tm.op.vals.dtype == torch.float32 and tm.op_ref.vals.dtype == torch.float64
     assert plan_split_width(tm.op_ref) == (None, 0), "scrambled numbering must be rejected"
     compare("MatrixFreeElliptic lane", jm, tm, 1e-10, it_slack=1)
-    with pytest.raises(NotImplementedError):  # the plan accepts the lattice numbering
-        MatrixFreeElliptic((_t(x), _t(y)), _t(cells), _t(bnd), K=1.0, device="cpu")
+
+    # the lattice numbering: "auto" takes the banded split and its multigrid
+    banded = (
+        ("MatrixFreePoisson banded",
+         JPoisson(jnp.asarray(nodes), jnp.asarray(cells), jnp.asarray(bnd)),
+         MatrixFreePoisson(_t(nodes), _t(cells), _t(bnd), device="cpu")),
+        ("MatrixFreeElliptic banded advection (bicgstab)",
+         JElliptic((jnp.asarray(x), jnp.asarray(y)), jnp.asarray(cells), jnp.asarray(bnd),
+                   K=1.0, b=(1.0, 0.5), c=0.5, split_plan=(n + 1, 1)),
+         MatrixFreeElliptic((_t(x), _t(y)), _t(cells), _t(bnd), K=1.0, b=(1.0, 0.5), c=0.5,
+                            split_plan=(n + 1, 1), gather_kernel="lane", device="cpu")),
+    )
+    for name, jm, tm in banded:
+        assert tm.preconditioner == jm.preconditioner == "banded_mg", name
+        assert tm.aux.mg.shapes == tuple(jm.aux.mg.shapes), name
+        compare(name, jm, tm, 1e-10)
+    with pytest.raises(ValueError):  # the scrambled numbering has no band
+        MatrixFreePoisson(_t(np.stack([xs, ys], 1)), _t(cells_s), _t(bnd_s),
+                          preconditioner="banded_mg", device="cpu")
+
+    # MatrixFreeParabolic on both routes, and against solve_parabolic
+    n_p, dt, steps = 24, 0.01, 4
+    xp, yp, q0, q1, q2, bp = (np.asarray(a) for a in j_mesh_soa(n_p, 0.2, dtype=jnp.float64))
+    nodes_p, cells_p = np.stack([xp, yp], 1), np.stack([q0, q1, q2], 1)
+    u0 = np.sin(np.pi * xp) * np.sin(np.pi * yp)
+    for route, kw, slack in (("banded_mg", {}, 0),
+                             ("auxgrid", dict(preconditioner="auxgrid", bbox=((0.0, 0.0), (1.0, 1.0))), 1)):
+        jp = JParabolic(jnp.asarray(nodes_p), jnp.asarray(cells_p), jnp.asarray(bp), dt, **kw)
+        tp = MatrixFreeParabolic(_t(nodes_p), _t(cells_p), _t(bp), dt, device="cpu", **kw)
+        assert tp.preconditioner == jp.preconditioner == route
+        ju, jinfo = jp.solve(jnp.asarray(u0), n_steps=steps, rtol=1e-11, maxiter=200)
+        tu, tinfo = tp.solve(_t(u0), n_steps=steps, rtol=1e-11, maxiter=200, keep_trajectory=True)
+        assert all(abs(a - b) <= slack for a, b in zip(tinfo["iterations"], jinfo["iterations"])), \
+            (route, tinfo["iterations"], jinfo["iterations"])
+        assert max(tinfo["rel_residuals"]) < 1e-10, route
+        assert np.abs(_np(tu) - np.asarray(ju)).max() <= 1e-10, route
+        assert torch.equal(tinfo["trajectory"][:, -1], tu)
+    # the aux-grid route at dt = h^2: its grid stencil is the unshifted
+    # Laplacian in both packages, so its step iterations grow with n (at
+    # dt = 0.01 they stay near 12); the port's counts are JAX's within 1
+    first = {}
+    for n_h in (24, 48):
+        xh, yh, h0, h1, h2, bh = (np.asarray(a) for a in j_mesh_soa(n_h, 0.2, dtype=jnp.float64))
+        mesh_h = (np.stack([xh, yh], 1), np.stack([h0, h1, h2], 1), bh)
+        uh = np.sin(np.pi * xh) * np.sin(np.pi * yh)
+        kw = dict(preconditioner="auxgrid", bbox=((0.0, 0.0), (1.0, 1.0)))
+        jp = JParabolic(*(jnp.asarray(a) for a in mesh_h), 1.0 / n_h ** 2, **kw)
+        tp = MatrixFreeParabolic(*(_t(a) for a in mesh_h), 1.0 / n_h ** 2, device="cpu", **kw)
+        ju, jinfo = jp.solve(jnp.asarray(uh), n_steps=3, rtol=1e-9, maxiter=400)
+        tu, tinfo = tp.solve(_t(uh), n_steps=3, rtol=1e-9, maxiter=400)
+        assert all(abs(a - b) <= 1 for a, b in zip(tinfo["iterations"], jinfo["iterations"])), \
+            (n_h, tinfo["iterations"], jinfo["iterations"])
+        assert max(tinfo["rel_residuals"]) <= 1e-9 and max(jinfo["rel_residuals"]) <= 1e-9
+        assert np.abs(_np(tu) - np.asarray(ju)).max() <= 1e-8 * np.abs(uh).max(), n_h
+        first[n_h] = (tinfo["iterations"][0], jinfo["iterations"][0])
+    assert all(first[48][k] >= 1.4 * first[24][k] >= 1.4 * 12 for k in (0, 1)), first
+    # the banded route is the lumped implicit Euler of the assembled operator
+    from fdapde_core_tpu_torch.fem import FEMSpace, assemble_matrix
+    from fdapde_core_tpu_torch.geometry import Triangulation
+    from fdapde_core_tpu_torch.pde import laplacian, reaction
+
+    tp = MatrixFreeParabolic(_t(nodes_p), _t(cells_p), _t(bp), dt, device="cpu")
+    tu, _ = tp.solve(_t(u0), n_steps=steps, rtol=1e-11, maxiter=200)
+    space = FEMSpace(Triangulation(nodes_p, cells_p, bp), 1)
+    zero = torch.zeros((space.n_dofs, steps + 1), dtype=torch.float64)
+    us = solve_parabolic(assemble_matrix(space, -laplacian(), device="cpu"),
+                         assemble_matrix(space, reaction(1.0), device="cpu"), zero, _t(bp), zero,
+                         _t(u0), np.arange(steps + 1) * dt, rtol=1e-11, lumped=True)
+    assert np.abs(_np(tu) - _np(us[:, -1])).max() <= 1e-10
+    uc, _ = tp.solve(_t(u0), n_steps=steps, rtol=1e-11, maxiter=200, chunk=5)
+    assert torch.equal(uc, tu), "chunked stepping differs"
 
     # gather_kernel / aux_kernel validation (JAX accepts these silently)
     mesh = ((_t(xs), _t(ys)), _t(cells_s), _t(bnd_s))
@@ -471,6 +612,4 @@ def test_models_match_jax():
                            device="cpu")
     with pytest.raises(NotImplementedError):
         MatrixFreeElliptic.from_space(None)
-    with pytest.raises(NotImplementedError):
-        MatrixFreeParabolic(_t(nodes), _t(cells), _t(bnd), dt=1e-3, device="cpu")
 

@@ -26,9 +26,11 @@ from fdapde_core_tpu.fem import solvers as jsolvers
 from fdapde_core_tpu.fem.space import FEMSpace as JSpace
 from fdapde_core_tpu.geometry.affine import affine_maps as j_affine
 from fdapde_core_tpu.geometry.structured import unit_square_mesh as j_unit_square
+from fdapde_core_tpu.linear_algebra import amg as jamg
 from fdapde_core_tpu.linear_algebra.solvers import gmres as j_gmres
 from fdapde_core_tpu.linear_algebra.sparse import SparseMatrix as JSparse
 from fdapde_core_tpu.ops import pallas_assembly as jpa
+from fdapde_core_tpu.ops.auxgrid import AuxGridPreconditioner as JAux
 from fdapde_core_tpu.utils import DOUBLE_TOLERANCE
 from fdapde_core_tpu_torch.fem import assembler as ta
 from fdapde_core_tpu_torch.fem import solvers as tsolvers
@@ -36,6 +38,7 @@ from fdapde_core_tpu_torch.fem.space import FEMSpace as TSpace
 from fdapde_core_tpu_torch.geometry import unit_square_mesh
 from fdapde_core_tpu_torch.geometry.affine import affine_maps, affine_maps_np
 from fdapde_core_tpu_torch.interop import sparse_from_numpy
+from fdapde_core_tpu_torch.linear_algebra import amg as tamg
 from fdapde_core_tpu_torch.linear_algebra.solvers import gmres
 from fdapde_core_tpu_torch.linear_algebra.sparse import SparseMatrix
 from fdapde_core_tpu_torch.ops import local_stiffness as ls
@@ -267,14 +270,20 @@ def test_entry_step_matches_jax():
 
 def test_pde_solve_matches_jax(monkeypatch):
     """PDE(...).solve() on a jittered Delaunay mesh below 20,000 dofs with
-    Jacobi and with solver_preconditioner="auxgrid": iteration counts equal,
-    solutions to 1e-10 max|x|. masked_matrix and gmres against JAX; the
-    recovery step (BiCGStab stalled at maxiter=3 -> GMRES(50)) against
-    JAX's; the "auto" ladder chains the aux grid's error to the unported
-    AMG rung; what is not ported raises NotImplementedError; the default
-    device is the card, and without one it raises."""
+    Jacobi, solver_preconditioner="auxgrid" and "amg": iteration counts
+    equal, solutions to 1e-10 max|x|. SA-AMG's hierarchy against JAX's
+    (aggregates and level sizes equal, one V-cycle to 1e-12 max|z|).
+    masked_matrix and gmres against JAX; the recovery step (BiCGStab
+    stalled at maxiter=3 -> GMRES(50)) against JAX's; with the aux grid's
+    build failing, the "auto" ladder takes the AMG rung in both packages
+    (solutions to 1e-10). Parabolic PDEs on unit_square_mesh(16) over 11
+    instants (consistent and lumped mass, and advection through BiCGStab)
+    against JAX's solve_parabolic: trajectories to 1e-10 max|u|, the step
+    iterations equal, the L2 functional to 1e-10 relative; the stalled-step
+    rerun with GMRES(50) gives JAX's warning and trajectory (1e-10). The
+    default device is the card, and without one it raises."""
     pts, cells, bnd = _delaunay(40)
-    for pre in (None, "auxgrid"):
+    for pre in (None, "auxgrid", "amg"):
         out = []
         for mod, kw in ((fdm, {}), (fdt, {"device": CPU})):
             pde = mod.PDE(mod.Triangulation(pts, cells, bnd), -mod.laplacian(), order=1,
@@ -314,21 +323,103 @@ def test_pde_solve_matches_jax(monkeypatch):
     assert it.iterations == int(ij.iterations) == 50
     assert np.abs(_np(xt) - np.asarray(xj)).max() <= 1e-10 * np.abs(np.asarray(xj)).max()
 
+    # SA-AMG of the masked Laplacian: the hierarchy against JAX's
+    Lj = jsolvers.masked_matrix(ja.assemble_matrix(JSpace(mj, 1), -fdm.laplacian()), jnp.asarray(bnd))
+    Lt = tsolvers.masked_matrix(ta.assemble_matrix(TSpace(mt, 1), -fdt.laplacian(), device=CPU), _t(bnd))
+    rj, cj = jamg.strength_graph(Lj.to_scipy(), 0.08)
+    rt, ct = tamg.strength_graph(Lt.to_scipy(), 0.08)
+    np.testing.assert_array_equal(rt, rj)
+    np.testing.assert_array_equal(tamg.aggregate(Lt.shape[0], rt, ct, seed=3),
+                                  jamg.aggregate(Lj.shape[0], rj, cj, seed=3))
+    mgj, mgt = jamg.AMG.build(Lj, coarse_max=60), tamg.AMG.build(Lt, coarse_max=60)
+    assert mgt.level_sizes() == mgj.level_sizes() and len(mgt.level_sizes()) == 3
+    assert mgt.operator_complexity() == pytest.approx(mgj.operator_complexity(), rel=1e-14)
+    r = np.random.default_rng(9).standard_normal(Lt.shape[0])
+    zj = np.asarray(mgj.v_cycle(jnp.asarray(r)))
+    assert np.abs(_np(mgt.v_cycle(_t(r))) - zj).max() <= 1e-12 * np.abs(zj).max()
+    xj, ij = jamg.amg_preconditioned_cg(Lj, jnp.asarray(b), mg=mgj, rtol=1e-10)
+    xt, it = tamg.amg_preconditioned_cg(Lt, _t(b), mg=mgt, rtol=1e-10)
+    assert it.iterations == int(ij.iterations) and it.converged
+    assert np.abs(_np(xt) - np.asarray(xj)).max() <= 1e-10 * np.abs(np.asarray(xj)).max()
+
+    # the "auto" ladder's AMG rung, where the aux grid fails to build
     def failing_build(*args, **kwargs):
         raise ValueError("no covering grid")
 
-    pde = fdt.PDE(mt, -fdt.laplacian(), solver_preconditioner="auto", device=CPU)
-    monkeypatch.setattr(AuxGridPreconditioner, "build", failing_build)
-    with pytest.raises(NotImplementedError, match="amg") as excinfo:
+    out = []
+    for mod, cls, kw in ((fdm, JAux, {}), (fdt, AuxGridPreconditioner, {"device": CPU})):
+        monkeypatch.setattr(cls, "build", failing_build)
+        pde = mod.PDE(mod.Triangulation(pts, cells, bnd), -mod.laplacian(),
+                      solver_preconditioner="auto", **kw)
+        pde.set_forcing(np.ones(pde.quadrature_nodes().shape[0]))
+        pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
         pde.solve()
-    assert isinstance(excinfo.value.__cause__, ValueError)
+        out.append((np.asarray(pde.solution()), pde.report()))
     monkeypatch.undo()
-    for call in (lambda: fdt.PDE(mt, fdt.pde.dt() - fdt.laplacian(), device=CPU),
-                 lambda: fdt.PDE(mt, -fdt.laplacian(), times=[0.0, 0.1], device=CPU),
-                 lambda: tsolvers.solve_elliptic(At, _t(b), _t(bnd), _t(g), preconditioner="amg"),
-                 lambda: tsolvers.solve_parabolic()):
-        with pytest.raises(NotImplementedError):
-            call()
+    (xj, rj), (xt, rt) = out
+    assert rt["success"] and rt["solver_iterations"] == rj["solver_iterations"]
+    assert np.abs(xt - xj).max() <= 1e-10 * np.abs(xj).max()
+
+    # parabolic problems against JAX's solve_parabolic on the same inputs
+    def exact(x, t):
+        return np.sin(np.pi * x[..., 0]) * np.sin(np.pi * x[..., 1]) * np.exp(-t)
+
+    times = np.linspace(0.0, 0.1, 11)
+    for lumped, L in ((False, lambda m: m.dt() - m.laplacian()),
+                      (True, lambda m: m.dt() - m.laplacian()),
+                      (False, lambda m: m.dt() - m.laplacian() + m.advection(B_VECTOR))):
+        pdes = []
+        for mod, mesh, kw in ((fdm, j_unit_square(16), {}), (fdt, unit_square_mesh(16), {"device": CPU})):
+            pde = mod.PDE(mesh, L(mod), times=times, order=1, lumped_mass=lumped, **kw)
+            c = pde.dof_coords()
+            g = exact(c[:, None, :], times[None, :])
+            q = pde.quadrature_nodes()
+            pde.set_forcing((2 * np.pi ** 2 - 1) * exact(q[:, None, :], times[None, :]))
+            pde.set_dirichlet_bc(g)
+            pde.set_initial_condition(exact(c, 0.0))
+            pde.init()
+            pdes.append(pde)
+        jp, tp = pdes
+        what = f"lumped={lumped} symmetric={jp.operator.is_symmetric}"
+        uj, info = jsolvers.solve_parabolic(
+            jp.stiff(), jp.mass(), jp.force(), jnp.asarray(jp.space.boundary_dofs), jnp.asarray(g),
+            jnp.asarray(exact(c, 0.0)), jnp.asarray(times), lumped=lumped,
+            symmetric=jp.operator.is_symmetric, return_info=True)
+        ut = tp.solve()
+        uj = np.asarray(uj)
+        assert tp.success and ut.shape == (tp.n_dofs, times.size), what
+        assert np.abs(_np(ut) - uj).max() <= 1e-10 * np.abs(uj).max(), what
+        assert tp.report()["step_iterations"] == np.asarray(info["iterations"]).tolist(), what
+        jp._solution = jnp.asarray(uj)
+        assert tp.l2_error(g) == pytest.approx(jp.l2_error(g), rel=1e-10), what
+
+    # a stalled step poisons the trajectory: both rerun it with GMRES(50)
+    n1 = 40
+    h = 1.0 / (n1 - 1)
+    main = np.full(n1, 2.0 / h)
+    main[0] = main[-1] = 1.0
+    Ad = np.diag(main) + np.diag(np.full(n1 - 1, -1.0 / h), 1) + np.diag(np.full(n1 - 1, -1.0 / h), -1)
+    Ad[0, 1] = Ad[-1, -2] = 0.0
+    Md = np.diag(np.full(n1, h))
+    mask1 = np.zeros(n1, bool)
+    mask1[[0, -1]] = True
+    t1 = np.linspace(0.0, 0.1, 5)
+    u0 = np.sin(np.pi * np.linspace(0, 1, n1))
+    zeros = np.zeros((n1, 5))
+    runs = []
+    for S, kw, xp in ((JSparse, {}, jnp.asarray), (SparseMatrix, {"device": CPU}, _t)):
+        solve = jsolvers.solve_parabolic if S is JSparse else tsolvers.solve_parabolic
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out, info = solve(S.from_dense(Ad, **kw), S.from_dense(Md, **kw), xp(zeros), xp(mask1),
+                              xp(zeros), xp(u0), t1, rtol=1e-12, maxiter=3, return_info=True)
+        runs.append((np.asarray(out), info, [str(w.message) for w in caught]))
+    (oj, ij, wj), (ot, it, wt) = runs
+    assert it["escalated"] and ij["escalated"]
+    assert [m for m in wt if "parabolic step" in m] == [m for m in wj if "parabolic step" in m] != []
+    np.testing.assert_array_equal(_np(it["iterations"]), np.asarray(ij["iterations"]))
+    assert np.abs(ot - oj).max() <= 1e-10 * np.abs(oj).max()
+
     if not torch.cuda.is_available():  # the default device is the card: no fallback
         with pytest.raises((AssertionError, RuntimeError)):
             fdt.PDE(mt, -fdt.laplacian()).init()
@@ -338,7 +429,10 @@ def test_pde_harmonic_and_l2_slope():
     """On the port's unit_square_mesh: harmonic data u = x + y is
     reproduced to an L2 error functional below 50 eps (P1 and P2), and the
     P1 error of u = sin(pi x) sin(pi y) falls with slope ~2 over three
-    refinements (h = 1/8 ... 1/64)."""
+    refinements (h = 1/8 ... 1/64); so does the max-over-time error of
+    the P1 heat equation u = sin(pi x) sin(pi y) e^-t over [0, 0.1] with
+    dt = h^2 (h = 1/8 ... 1/32; implicit Euler is first order in dt), the
+    reference's parabolic anchor (fem_pde_test.cpp:364-367)."""
     for order in (1, 2):
         pde = fdt.PDE(unit_square_mesh(16), -fdt.laplacian(), order=order, device=CPU)
         c = pde.dof_coords()
@@ -356,5 +450,23 @@ def test_pde_harmonic_and_l2_slope():
         pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
         pde.solve()
         errors.append(np.sqrt(pde.l2_error(np.sin(np.pi * c[:, 0]) * np.sin(np.pi * c[:, 1]))))
+    slopes = np.log2(np.array(errors[:-1]) / np.array(errors[1:]))
+    assert np.all((slopes > 1.9) & (slopes < 2.1)), slopes
+
+    def exact(x, t):
+        return np.sin(np.pi * x[..., 0]) * np.sin(np.pi * x[..., 1]) * np.exp(-t)
+
+    errors = []
+    for n in (8, 16, 32):
+        times = np.linspace(0.0, 0.1, round(0.1 * n * n) + 1)
+        pde = fdt.PDE(unit_square_mesh(n), fdt.dt() - fdt.laplacian(), times=times, device=CPU)
+        c, q = pde.dof_coords(), pde.quadrature_nodes()
+        g = exact(c[:, None, :], times[None, :])
+        pde.set_forcing((2 * np.pi ** 2 - 1) * exact(q[:, None, :], times[None, :]))
+        pde.set_dirichlet_bc(g)
+        pde.set_initial_condition(exact(c, 0.0))
+        pde.solve()
+        assert pde.success and not pde.report()["escalated"], n
+        errors.append(np.sqrt(pde.l2_error(g)))
     slopes = np.log2(np.array(errors[:-1]) / np.array(errors[1:]))
     assert np.all((slopes > 1.9) & (slopes < 2.1)), slopes
