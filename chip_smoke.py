@@ -149,7 +149,35 @@ Phases (each raises on failure; nothing is caught):
     equal to the banded route's trajectory at that dt, relabelled, and one
     aux-grid step at dt = 1e-7 from u0, converged within 1500 iterations; at
     n = 64 the banded trajectory equals solve_parabolic(lumped=True) to
-    1e-10. Phases 20-23 print their seconds and K2 / K6 launches by path.
+    1e-10;
+24. (after 23) bench.py's genp2 through the model API: FEMSpace(order=2)
+    on phase 12's mesh (2,076,481 dofs; host seconds printed),
+    MatrixFreeElliptic.from_space(K=1, c=1, max_degree=16) reads "auxgrid"
+    (the band plan rejects P2's numbering), its ELL's shape and padding;
+    load_vector(1) solved at rtol 1e-8 (chunk 6) converges, the true
+    residual recomputed in f64 through the plain ELL product within 1e-8
+    plus its rounding floor, twice bitwise equal; ELL @ v equals the port's
+    assembled P2 matrix of -Laplace + 1 (assemble_matrix on the card) to
+    1e-12 relative with the same entry count; K2 on the (49, n) P2 ELL
+    against its plain version within the per-row bound, timed against its
+    bound, and k2_table on the assembled matrix (sliced form, the compact
+    table padded to the longest row, CSR, plain); P2 reproduces
+    u = x^2 + y^2 on delaunay_mesh(256) to 1e-8 max|u| at rtol 1e-10;
+25. bench.py's gendel: a jittered 284^2 Delaunay base (seed 11) refined
+    three times on the card (uniform_refine_device, Euler witness) to
+    5,130,225 nodes and 10,251,392 cells, cell areas summing to 1 to 1e-12,
+    base degrees kept and new nodes at 6 cells (3 on the boundary),
+    renumbered by strip_order_binned(x, y, 5000);
+    MatrixFreeElliptic(max_degree=12, gather_kernel="lane",
+    aux_kernel="lane", preconditioner="auxgrid") reads "auxgrid+lane"
+    with a LaneAuxGrid over lane_friendly_grid_n(n) cells (bandwidth and
+    plan_split_width(bcap=16384) printed); its apply equals the plain
+    aux-grid apply within 8 eps P|z| + 2 eps |z| (float32), K2 on its P
+    within the per-row bound, the P stage timed against the plain gather
+    it replaces, a torch.sparse CSR SpMV and its plain version;
+    the right-hand side where(bnd, 0, 1) / n solved at rtol 1e-8 (chunk 16)
+    converges with the true residual recomputed in f64, twice bitwise
+    equal. Phases 20-25 print their seconds and K2 / K6 launches by path.
 
 Prints one JSON line of per-kernel results (each with its bound on the
 card from this run's shapes: bytes over 3.35 TB/s or operations over the
@@ -201,6 +229,13 @@ DT_AUX = 1e-3  # phase 23's aux-grid route, where A dominates M / dt
 # phase 23's one aux-grid step at DT_MF: its iterations grow with n at
 # dt ~ h^2 (the grid stencil is the unshifted Laplacian, as in JAX)
 AUX_H2_MAXITER = 1500
+P2_DOFS = 2_076_481  # phase 24: FEMSpace(order=2) on phase 12's mesh (bench.py's genp2)
+P2_MAX_DEGREE = 16
+N_P2_QUADRATIC = 256  # phase 24's quadratic reproduction mesh
+# phase 25 (bench.py's gendel, :1561-1611): a 284^2 jittered Delaunay base
+# (seed 11) red-refined three times on the card, then strip-renumbered
+NX_GENDEL, GENDEL_SEED, GENDEL_LEVELS, GENDEL_POP = 283, 11, 3, 5000
+GENDEL_SIZES = (5_130_225, 10_251_392, 9_056)  # nodes, cells, boundary nodes
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the vector (non-tensor
 # core) peaks of the types these kernels compute in
 HBM_BYTES_PER_S = 3.35e12
@@ -428,6 +463,28 @@ def scramble_perm(nd, S, G):
     return p, pinv
 
 
+def ell_nnz(E):
+    """Stored entries of an ELLSoA: its padding carries col = row after the
+    row's entries, and every row holds its diagonal."""
+    K, n = E.vals.shape
+    rows = torch.arange(n, dtype=E.cols.dtype, device=E.cols.device)
+    return K * n - (int((E.cols == rows[None, :]).sum()) - n)
+
+
+def k2_compact_check(gs, name, V, C, x):
+    """K2's compact form on the (K, n) table (V, C) at x against its plain
+    version within the per-row bound K eps(acc) sum_k |v x|, bitwise stable.
+    Returns (max|kernel - plain|, max err / bound)."""
+    acc = gs.accumulation_dtype(V.dtype)
+    got, ref = gs.ell_spmv(V, C, x), gs.ell_spmv_reference(V, C, x)
+    bound = V.shape[0] * torch.finfo(acc).eps * gs.ell_spmv_reference(V.abs(), C, x.abs())
+    err = (got - ref).abs()
+    check(bool((err <= bound).all()), f"K2 on {name} disagrees with its plain version")
+    check(bool(torch.isfinite(got).all()), f"K2 on {name} produced non-finite values")
+    check(torch.equal(got, gs.ell_spmv(V, C, x)), f"K2 on {name} is not bitwise stable")
+    return err.max().item(), (err / bound.clamp_min(torch.finfo(acc).tiny)).max().item()
+
+
 def phase_k2_vs_plain(gs):
     """K2 against its plain version on the scrambled n = 3200 ELL; returns
     the float32 measurements."""
@@ -457,18 +514,11 @@ def phase_k2_vs_plain(gs):
     for name, (V, C, src) in cases.items():
         acc = gs.accumulation_dtype(V.dtype)
         xv = torch.rand(src, generator=gen, dtype=torch.float64, device=DEVICE).to(acc) - 0.5
-        got = gs.ell_spmv(V, C, xv)
-        ref = gs.ell_spmv_reference(V, C, xv)
-        bound = V.shape[0] * torch.finfo(acc).eps * gs.ell_spmv_reference(V.abs(), C, xv.abs())
-        torch.cuda.synchronize()
-        err = (got - ref).abs()
+        err, ratio = k2_compact_check(gs, name, V, C, xv)
         log(f"K2 {name} ({V.shape[0]}, {V.shape[1]}) n_src={src}: max|kernel-plain| = "
-            f"{err.max().item():.3e}, max err/bound = "
-            f"{(err / bound.clamp_min(torch.finfo(acc).tiny)).max().item():.3e}")
-        check(bool((err <= bound).all()), f"K2 {name} disagrees with its plain version")
-        check(bool(torch.isfinite(got).all()), f"K2 {name} produced non-finite values")
-        check(torch.equal(got, gs.ell_spmv(V, C, xv)), f"K2 {name} is not bitwise stable")
+            f"{err:.3e}, max err/bound = {ratio:.3e}")
         if name in ("float32", "float64"):
+            ref = gs.ell_spmv_reference(V, C, xv)
             # the same product as one library call: a CSR SpMV through
             # torch.sparse on the same K entries per row (timed, never used)
             csr = torch.sparse_csr_tensor(
@@ -489,8 +539,7 @@ def phase_k2_vs_plain(gs):
                 f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes / 1e9:.3f} GB computed), "
                 f"plain {p1:.4f} / {p2:.4f} ms, torch.sparse CSR {l1:.4f} / {l2:.4f} ms "
                 f"(max|csr-plain| {lib_err:.3e}); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-            out[name] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
-                             library_ms=library_ms, **b)
+            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
     return out["float32"]
 
 
@@ -1686,6 +1735,223 @@ def phase_matfree_parabolic(ak, gs, ls, lattice):
     return out
 
 
+def phase_p2(ak, gs, pts, cells, bnd):
+    """bench.py's genp2 (bench.py:1452-1524) through the model API: the
+    order-2 space of phase 12's mesh, MatrixFreeElliptic.from_space(K=1,
+    c=1, max_degree=16) on the aux grid, the solve to 1e-8 twice, the ELL
+    against the assembled -Laplace + 1, K2 on the P2 ELL in both forms, and
+    the quadratic reproduction at nx = 256. Returns {path: K2 launches}."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import FEMSpace, assemble_matrix
+    from fdapde_core_tpu_torch.models import MatrixFreeElliptic
+    from fdapde_core_tpu_torch.ops.dia_split import plan_split_width
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(ak, gs)
+    t0 = time.perf_counter()
+    space = FEMSpace(fdt.Triangulation(pts, cells, bnd), order=2)
+    space.dof_coords
+    t_space = time.perf_counter() - t0
+    model, t_setup = synced_seconds(lambda: MatrixFreeElliptic.from_space(
+        space, K=1.0, c=1.0, max_degree=P2_MAX_DEGREE, device=DEVICE))
+    peak_setup = torch.cuda.max_memory_allocated() / 2**30
+    E = model.op
+    K, n = E.vals.shape
+    nnz = ell_nnz(E)
+    plan = plan_split_width(E)
+    b = model.load_vector(torch.ones(cells.shape[0], dtype=torch.float64, device=DEVICE))
+    (x, its, rel), t_solve = synced_seconds(lambda: model.solve(b, rtol=1e-8, maxiter=400, chunk=6))
+    out["P2 from_space solve"] = gs.ell_spmv_launches
+    (x2, its2, _), t_solve2 = synced_seconds(lambda: model.solve(b, rtol=1e-8, maxiter=400, chunk=6))
+    b_mod = torch.where(model.boundary, 0.0, b)
+    rel_check = true_rel_residual(E, model.boundary, x, b_mod, gs)
+    free = (~model.boundary).to(torch.float64)
+    floor = its * torch.finfo(torch.float64).eps * (torch.linalg.norm(
+        gs.ell_spmv_reference(E.vals.abs(), E.cols, x.abs() * free) * free
+        + x.abs() * (1 - free)) / torch.linalg.norm(b_mod)).item()
+    log(f"24 P2 MatrixFreeElliptic.from_space nx={NX_PDE} ({n} dofs, {cells.shape[0]} cells), K=1, "
+        f"c=1, max_degree={P2_MAX_DEGREE}: FEMSpace {t_space:.4f} s (host), set-up {t_setup:.4f} s, "
+        f"peak device memory {peak_setup:.3f} GiB; ELL ({K}, {n}), {nnz} entries, padding "
+        f"{K * n / nnz:.3f} slots read per entry; band plan {plan} -> preconditioner "
+        f"{model.preconditioner} over the dof coordinates, aux grid {model.aux.n_grid}; solve "
+        f"{t_solve:.4f} s / {t_solve2:.4f} s (again), {its} / {its2} iterations, true rel residual "
+        f"{float(rel):.4e} (recomputed in f64 through the plain ELL product {rel_check:.4e}, rounding "
+        f"floor iterations x eps || |A| |x| || / ||b|| = {floor:.3e}), solutions bitwise equal "
+        f"{torch.equal(x, x2)}; K2 launches {out['P2 from_space solve']}")
+    check(n == P2_DOFS and model.order == 2, f"P2 space has {n} dofs, not {P2_DOFS}")
+    check(model.preconditioner == "auxgrid", "the P2 model did not take the aux grid")
+    check(float(rel) <= 1e-8 and rel_check <= 1e-8 + floor and bool(torch.isfinite(x).all()),
+          "the P2 solve did not reach 1e-8")
+    check(its2 == its and torch.equal(x, x2), "the repeated P2 solve differs from the first")
+    check(out["P2 from_space solve"] > 0, "the P2 path never launched K2")
+    del x, x2
+
+    # the independent witness: the port's assembled P2 matrix of -Laplace + 1
+    t0 = time.perf_counter()
+    space.scatter
+    _ = space.segment_sum("matrix", DEVICE)
+    t_tables = time.perf_counter() - t0
+    A, t_asm = synced_seconds(lambda: assemble_matrix(space, -fdt.laplacian() + fdt.reaction(1.0),
+                                                      device=DEVICE))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    v = torch.rand(n, generator=gen, dtype=torch.float64, device=DEVICE) - 0.5
+    ya, ye = A @ v, E @ v
+    wit = ((ye - ya).abs().max() / ya.abs().max()).item()
+    log(f"24 P2 ELL @ v against the assembled P2 matrix of -Laplace + 1 (assemble_matrix on the card: "
+        f"host scatter tables {t_tables:.4f} s, assembly {t_asm:.4f} s, nnz {A.nnz}): max|ELL v - A v| "
+        f"/ max|A v| = {wit:.3e}")
+    check(A.nnz == nnz, f"the P2 ELL holds {nnz} entries, the assembled matrix {A.nnz}")
+    check(wit <= 1e-12, "the P2 ELL differs from the assembled matrix")
+
+    # K2 on the P2 ELL: the compact (49, n) table against its plain version,
+    # timed beside the same matrix in the sliced form (k2_table, whose
+    # "today's route" is the compact table padded to the longest row)
+    err, ratio = k2_compact_check(gs, "the P2 ELL", E.vals, E.cols, v)
+    kernel = lambda: gs.ell_spmv(E.vals, E.cols, v)  # noqa: E731
+    plain = lambda: gs.ell_spmv_reference(E.vals, E.cols, v)  # noqa: E731
+    c1, p1 = time_ms(kernel, 20), time_ms(plain, 3)
+    c2, p2 = time_ms(kernel, 20), time_ms(plain, 3)
+    ms = (c1 + c2) / 2
+    b_nnz = least_time(nnz * 12 + 2 * n * 8, 2 * nnz, torch.float64)
+    b_read = least_time(K * n * 12 + 2 * n * 8, 2 * K * n, torch.float64)
+    log(f"24 K2 compact on the P2 ELL ({K}, {n}) f64: max|kernel-plain| {err:.3e} (max err/bound "
+        f"{ratio:.3e}), bitwise stable; kernel {c1:.4f} / {c2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
+        f"bound on its {nnz} entries {b_nnz['bound_ms']:.4f} ms ({b_nnz['bound_by']}, "
+        f"{100 * b_nnz['bound_ms'] / ms:.0f} %), on the {K * n} slots it reads "
+        f"{b_read['bound_ms']:.4f} ms ({100 * b_read['bound_ms'] / ms:.0f} %)")
+    k2_table(gs, "the assembled P2 matrix", A, race=False)
+    del A, E, model, v, ya, ye
+    torch.cuda.empty_cache()
+
+    # P2 reproduces u = x^2 + y^2: f = -4 per cell, g = u at the dofs
+    pq, cq, bq = delaunay_mesh(N_P2_QUADRATIC)
+    sq = FEMSpace(fdt.Triangulation(pq, cq, bq), order=2)
+    zero_launch_counts(ak, gs)
+    mq = MatrixFreeElliptic.from_space(sq, K=1.0, max_degree=P2_MAX_DEGREE, device=DEVICE)
+    u = torch.as_tensor((sq.dof_coords ** 2).sum(1), device=DEVICE)
+    f = torch.full((cq.shape[0],), -4.0, dtype=torch.float64, device=DEVICE)
+    xq, itq, relq = mq.solve(mq.load_vector(f), g=u, rtol=1e-10, maxiter=400)
+    out["P2 quadratic"] = gs.ell_spmv_launches
+    errq = ((xq - u).abs().max() / u.abs().max()).item()
+    log(f"24 P2 quadratic u = x^2 + y^2 on delaunay_mesh({N_P2_QUADRATIC}) ({sq.n_dofs} dofs): "
+        f"max|x - u| / max|u| = {errq:.3e} ({itq} iterations, rel {float(relq):.3e}, "
+        f"{mq.preconditioner}); K2 launches {out['P2 quadratic']}")
+    check(errq <= 1e-8, "P2 does not reproduce x^2 + y^2 to 1e-8")
+    return out
+
+
+def phase_lane_aux(ak, gs):
+    """bench.py's gendel (bench.py:1528-1742) through the model API: a
+    Delaunay base red-refined on the card, strip-renumbered, then
+    MatrixFreeElliptic(gather_kernel="lane", aux_kernel="lane") with its
+    LaneAuxGrid: the apply against the plain one, K2 on P, the refined solve
+    to 1e-8 twice. Returns {path: K2 launches}."""
+    from fdapde_core_tpu_torch.geometry import strip_order_binned, uniform_refine_device
+    from fdapde_core_tpu_torch.models import MatrixFreeElliptic
+    from fdapde_core_tpu_torch.ops.auxgrid import AuxGridPreconditioner
+    from fdapde_core_tpu_torch.ops.dia_split import plan_split_width
+    from fdapde_core_tpu_torch.ops.lane_aux import LaneAuxGrid, lane_friendly_grid_n
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    (pts, cells0, bnd0), t_base = synced_seconds(lambda: delaunay_mesh(NX_GENDEL, seed=GENDEL_SEED))
+    base = [torch.as_tensor(np.ascontiguousarray(a), device=DEVICE)
+            for a in (pts[:, 0], pts[:, 1], *cells0.T, bnd0)]
+    zero_launch_counts(ak, gs)
+    (x, y, c0, c1, c2, bnd), t_refine = synced_seconds(
+        lambda: uniform_refine_device(*base, GENDEL_LEVELS))  # raises on a failed Euler witness
+    n, C, n0 = x.shape[0], c0.shape[0], pts.shape[0]
+    area = 0.5 * ((x[c1] - x[c0]) * (y[c2] - y[c0]) - (y[c1] - y[c0]) * (x[c2] - x[c0])).abs()
+    area_err = abs(area.sum().item() - 1.0)
+    deg = torch.bincount(torch.cat([c0, c1, c2]).long(), minlength=n)
+    deg0 = torch.as_tensor(np.bincount(cells0.ravel(), minlength=n0), device=DEVICE)
+    new_deg = torch.where(bnd[n0:], 3, 6)  # an edge midpoint: 6 cells, 3 on the boundary
+    hist0, hist = torch.bincount(deg0).tolist(), torch.bincount(deg).tolist()
+    degrees_kept = torch.equal(deg[:n0], deg0) and torch.equal(deg[n0:], new_deg)
+    (order, rank), t_order = synced_seconds(lambda: strip_order_binned(x, y, GENDEL_POP))
+    x, y, bnd = x[order], y[order], bnd[order]
+    cells = torch.stack([rank[c0], rank[c1], rank[c2]], 1)
+    del c0, c1, c2, area, deg, order, rank
+    log(f"25 gendel base: {n0} nodes, {cells0.shape[0]} cells (host Delaunay {t_base:.4f} s), degree "
+        f"histogram {dict((d, c) for d, c in enumerate(hist0) if c)}; refined {GENDEL_LEVELS} times on "
+        f"the card in {t_refine:.4f} s: {n} nodes, {C} cells, {int(bnd.sum())} boundary nodes, "
+        f"sum of cell areas - 1 = {area_err:.3e}, degree histogram "
+        f"{dict((d, c) for d, c in enumerate(hist) if c)} (the base's plus 6 for the new interior nodes, "
+        f"3 on the boundary: {degrees_kept}); strip_order_binned(pop={GENDEL_POP}) {t_order:.4f} s")
+    check((n, C, int(bnd.sum())) == GENDEL_SIZES, f"refined sizes {(n, C, int(bnd.sum()))}")
+    check(area_err <= 1e-12, "the refined cells do not tile the unit square")
+    check(degrees_kept, "refinement changed a base degree or gave a new node other than 6 (3) cells")
+    model, t_build = synced_seconds(lambda: MatrixFreeElliptic(
+        (x, y), cells, bnd, max_degree=12, gather_kernel="lane", aux_kernel="lane",
+        preconditioner="auxgrid", device=DEVICE))
+    peak_build = torch.cuda.max_memory_allocated() / 2**30
+    la = model.aux
+    E = model.op_ref
+    bw = int((E.cols.long() - torch.arange(n, device=DEVICE)[None, :]).abs().max())
+    plan = plan_split_width(E.astype(torch.float32), bcap=16384)
+    check(model.preconditioner == "auxgrid+lane" and isinstance(la, LaneAuxGrid),
+          "the gendel model is not on the lane aux grid")
+    check(la.n_grid == lane_friendly_grid_n(n), f"aux grid {la.n_grid} != lane_friendly_grid_n")
+
+    # the LaneAuxGrid apply against the plain one on the same r: they share
+    # P^T and the V-cycle; P z differs by the kernel's fused multiply-adds
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    r = torch.rand(n, generator=gen, dtype=torch.float32, device=DEVICE) - 0.5
+    plain_aux = AuxGridPreconditioner(la.P.cols, la.P.vals, la.dinv, la.mg, la.omega, la.n_grid)
+    z_lane, z_plain = la(r), plain_aux(r)
+    zg = la.mg.v_cycle(la.PT @ r)
+    eps32 = torch.finfo(torch.float32).eps
+    bound = (8 * eps32 * gs.ell_spmv_reference(la.P.vals.abs(), la.P.cols, zg.abs())
+             + 2 * eps32 * z_plain.abs())
+    apply_err = (z_lane - z_plain).abs()
+    err_p, ratio_p = k2_compact_check(gs, "LaneAuxGrid's P", la.P.vals, la.P.cols, zg)
+    idx, w = la.P.cols, la.P.vals
+    gather = lambda: (zg[idx] * w).sum(dim=0)  # noqa: E731  (the plain apply's P)
+    plain = lambda: gs.ell_spmv_reference(w, idx, zg)  # noqa: E731
+    # the same product as one library call: a cuSPARSE CSR SpMV of P (timed,
+    # never used)
+    csr = torch.sparse_csr_tensor(torch.arange(0, idx.numel() + 1, 4, device=DEVICE),
+                                  idx.T.reshape(-1).long(), w.T.reshape(-1), (n, zg.shape[0]),
+                                  check_invariants=False)
+    k1, g1, l1 = time_ms(lambda: la.P @ zg, 20), time_ms(gather, 20), time_ms(lambda: csr @ zg, 20)
+    k2, g2, l2 = time_ms(lambda: la.P @ zg, 20), time_ms(gather, 20), time_ms(lambda: csr @ zg, 20)
+    plain_ms = time_ms(plain, 5)
+    p_ms = (k1 + k2) / 2
+    m2 = zg.shape[0]
+    p_bound = least_time(idx.numel() * 8 + (m2 + n) * 4, 2 * idx.numel(), torch.float32)
+    lib_err = (csr @ zg - gs.ell_spmv_reference(w, idx, zg)).abs().max().item()
+    del csr
+    log(f"25 LaneAuxGrid (grid {la.n_grid}, m^2 = {m2}): apply - plain apply max {apply_err.max().item():.3e}, "
+        f"max err/bound (8 eps P|z| + 2 eps |z|) "
+        f"{(apply_err / bound.clamp_min(torch.finfo(torch.float32).tiny)).max().item():.3e}; K2 compact "
+        f"on P {tuple(w.shape)} f32: max|kernel-plain| {err_p:.3e} (max err/bound {ratio_p:.3e}), bitwise "
+        f"stable; the P stage {k1:.4f} / {k2:.4f} ms against the plain gather it replaced "
+        f"{g1:.4f} / {g2:.4f} ms, torch.sparse CSR {l1:.4f} / {l2:.4f} ms (max|csr-plain| "
+        f"{lib_err:.3e}), plain {plain_ms:.4f} ms; bound {p_bound['bound_ms']:.4f} ms "
+        f"({p_bound['bound_by']}, {100 * p_bound['bound_ms'] / p_ms:.0f} %)")
+    check(bool((apply_err <= bound).all()), "the LaneAuxGrid apply differs from the plain apply")
+    del plain_aux, z_lane, z_plain, zg, bound, apply_err
+
+    rhs = torch.where(bnd, 0.0, 1.0).to(torch.float64) / n
+    zero_launch_counts(ak, gs)
+    (xs, its, rel), t_solve = synced_seconds(lambda: model.solve(rhs, rtol=1e-8, maxiter=400, chunk=16))
+    out["lane aux solve"] = gs.ell_spmv_launches
+    (xs2, its2, _), t_solve2 = synced_seconds(lambda: model.solve(rhs, rtol=1e-8, maxiter=400, chunk=16))
+    rel_check = true_rel_residual(E, bnd, xs, torch.where(bnd, 0.0, rhs), gs)
+    log(f"25 gendel MatrixFreeElliptic lane + lane aux ({n} dofs): build {t_build:.4f} s (peak device "
+        f"memory {peak_build:.3f} GiB), ELL {tuple(E.vals.shape)}, bandwidth {bw}, "
+        f"plan_split_width(bcap=16384) {plan}; solve {t_solve:.4f} s / {t_solve2:.4f} s (again), "
+        f"{its} / {its2} inner iterations, true rel residual {rel:.4e} (recomputed in f64 through "
+        f"the plain ELL product {rel_check:.4e}), solutions bitwise equal {torch.equal(xs, xs2)}; "
+        f"K2 launches {out['lane aux solve']}")
+    check(rel <= 1e-8 and rel_check <= 1e-8 and bool(torch.isfinite(xs).all()),
+          "the gendel lane solve did not reach 1e-8")
+    check(its2 == its and torch.equal(xs, xs2), "the repeated gendel solve differs from the first")
+    check(out["lane aux solve"] > 0, "the gendel path never launched K2")
+    return out
+
+
 def timed_phase(number, fn):
     """Run a phase, print its seconds, return its result."""
     out, t = synced_seconds(fn)
@@ -1777,7 +2043,13 @@ def main():
     torch.cuda.empty_cache()
     new_paths.update(timed_phase(23, lambda: phase_matfree_parabolic(ak, gs, ls, lattice)))
     del lattice
-    log("K2 / K6 launches by path of phases 20-23: " + "; ".join(
+    torch.cuda.empty_cache()
+    new_paths.update({path: (k2, 0) for path, k2 in
+                      timed_phase(24, lambda: phase_p2(ak, gs, pts, cells, bnd)).items()})
+    torch.cuda.empty_cache()
+    new_paths.update({path: (k2, 0) for path, k2 in
+                      timed_phase(25, lambda: phase_lane_aux(ak, gs)).items()})
+    log("K2 / K6 launches by path of phases 20-25: " + "; ".join(
         f"{path} {k2} / {k6}" for path, (k2, k6) in new_paths.items()))
     k2_launches += sum(k2 for k2, _ in new_paths.values())
     k6_launches += sum(k6 for _, k6 in new_paths.values())
@@ -1830,6 +2102,7 @@ def main():
         launches=k7_launches,
         **k7["DIA path"],
     )]
+    log(smi)  # again beside the results, which a log cut to its end keeps
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,11 +1,12 @@
-"""General-mesh P1 at device scale: the matrix-free gather pipeline (2D).
+"""General meshes at device scale: the matrix-free gather pipeline (2D).
 
-Port of the 2D P1 parts of ``fdapde_core_tpu/models/matfree.py``:
+Port of the 2D parts of ``fdapde_core_tpu/models/matfree.py``:
 
-  mesh arrays (nodes, cells, boundary) -> per-cell closed-form local
-  matrices and a slot-major incidence table (ops/matfree_soa.py) ->
-  assembled (K, n) ELL -> Dirichlet masking (fem/solvers.py) -> CG or
-  BiCGStab preconditioned in float32 under the model's precision.
+  mesh arrays (nodes, cells, boundary), or a P1/P2 FEMSpace through
+  ``MatrixFreeElliptic.from_space`` -> per-cell closed-form local matrices
+  and a slot-major incidence table (ops/matfree_soa.py) -> assembled
+  (K, n) ELL -> Dirichlet masking (fem/solvers.py) -> CG or BiCGStab
+  preconditioned in float32 under the model's precision.
 
 The preconditioner follows the operator (``preconditioner="auto"``): when
 the ELL's offset histogram is band-concentrated (``plan_split_width``), the
@@ -15,12 +16,13 @@ gather-free multigrid ("banded_mg"); otherwise the auxiliary-grid V-cycle
 (ops/auxgrid.py, "auxgrid"). With ``gather_kernel="lane"`` on the aux-grid
 path the solve is mixed-precision refinement: inner CG on a float32 copy
 of the ELL, outer residuals through the full-precision ELL
-(``_lane_refined_solve``). Every ELL product is the K2 kernel
-(ops/gather_spmv.py). ``MatrixFreeParabolic`` steps implicit Euler with
-the lumped mass on the same operator stack.
+(``_lane_refined_solve``); ``aux_kernel="lane"`` there also puts the aux
+grid's interpolation P on K2 (ops/lane_aux.py). Every ELL product is the
+K2 kernel (ops/gather_spmv.py). ``MatrixFreeParabolic`` steps implicit
+Euler with the lumped mass on the same operator stack.
 
 Not ported yet, and raising NotImplementedError with the ROADMAP item: 3D
-meshes, ``from_space`` (P2) and ``aux_kernel="lane"`` (ops/lane_aux.py).
+meshes.
 """
 
 from __future__ import annotations
@@ -40,15 +42,14 @@ from ..linear_algebra.solvers import (
 from ..ops.auxgrid import AuxGridPreconditioner
 from ..ops.dia_split import BandedMGPreconditioner, build_banded_split, plan_split_width
 from ..ops.gather_spmv import LaneRoutedELL
-from ..ops.matfree_soa import MatrixFreeSoA
+from ..ops.lane_aux import LaneAuxGrid, lane_friendly_grid_n
+from ..ops.matfree_soa import MatrixFreeP2SoA, MatrixFreeSoA
 
 __all__ = ["MatrixFreePoisson", "MatrixFreeElliptic", "MatrixFreeParabolic"]
 
 _TODO_3D = "3D meshes are not ported yet (ROADMAP queue 1, slice 4)"
 _NO_BAND = ("banded_mg requested but the operator has no concentrated "
             "band (plan_split_width rejected it); use 'auto' or 'auxgrid'")
-_TODO_LANE_AUX = ("aux_kernel='lane' (ops/lane_aux.py) is not ported yet "
-                  "(ROADMAP queue 1, slice 3)")
 _KERNELS = ("xla", "lane")
 
 
@@ -196,15 +197,21 @@ class MatrixFreePoisson:
         return _solve(self.op, self.boundary, self.aux, b, g, True, rtol, maxiter)
 
 
-def _load_vector(coords, dofs, adj, adj_mask, f_cells):
-    """P1 load vector from per-cell forcing at the centroids: |T|/3 f per
-    incident cell, combined over the slot-major incidence table (JAX's
-    ``_p1_load_fn`` and ``_load_vector_fn(order=1)``)."""
+def _load_vector(coords, dofs, adj, adj_mask, f_cells, order: int = 1):
+    """Load vector from per-cell forcing at the centroids, combined over the
+    slot-major incidence table (JAX's ``_p1_load_fn`` and
+    ``_load_vector_fn``): P1 takes |T|/3 f per incident cell; P2's vertex
+    basis functions integrate to zero on an affine triangle and its edge
+    ones to |T|/3."""
     e = [[coords[d][dofs[j + 1]] - coords[d][dofs[0]] for d in range(2)]
          for j in range(2)]
     meas = 0.5 * torch.abs(e[0][0] * e[1][1] - e[0][1] * e[1][0])
     fa = meas * f_cells / 3.0
-    floc = torch.cat([fa] * 3)  # slot-major (3C,)
+    if order == 1:
+        floc = torch.cat([fa] * 3)  # slot-major (3C,)
+    else:
+        zero = torch.zeros_like(fa)
+        floc = torch.cat([zero, zero, zero] + [fa] * 3)  # slot-major (6C,)
     return (floc[adj] * adj_mask.to(floc.dtype)).sum(dim=0)
 
 
@@ -298,9 +305,10 @@ def _normalize_b(b, centroids, C, dim, dtype, device):
 
 class MatrixFreeElliptic:
     """-div(K grad u) + b . grad u + c u = f,  u = g on the boundary, P1
-    on an arbitrary 2D triangulation. CG when symmetric (b is None),
-    BiCGStab otherwise, preconditioned as MatrixFreePoisson chooses
-    ("banded_mg" or the auxiliary grid).
+    on an arbitrary 2D triangulation (P2 through ``from_space``). CG when
+    symmetric (b is None), BiCGStab otherwise, preconditioned as
+    MatrixFreePoisson chooses ("banded_mg" or the auxiliary grid over the
+    dof coordinates; the band plan rejects P2's nodes-then-edges numbering).
 
     K: None | scalar | (2, 2) | (kxx, kxy, kyy) | (C,) | callable(centroids);
     b: None | (2,) | (bx, by) | callable; c: None | scalar | (C,) | callable.
@@ -308,7 +316,9 @@ class MatrixFreeElliptic:
     dtype is the operator's. gather_kernel: "xla" (ELL SpMV in the model's
     precision) or "lane" (float32 inner solves with refinement, when the
     operator stays on the aux-grid path; the banded path ignores it).
-    aux_kernel: "xla"; "lane" is not ported yet.
+    aux_kernel: "xla" or "lane" (with gather_kernel="lane" on the aux-grid
+    path: the aux grid's interpolation P on K2, ``LaneAuxGrid``, over a grid
+    of ``lane_friendly_grid_n`` cells a side unless grid_n is given).
     """
 
     def __init__(self, nodes, cells, boundary, order: int = 1, K=None,
@@ -317,15 +327,13 @@ class MatrixFreeElliptic:
                  format: str = "ell", max_cols: int | None = None,
                  preconditioner: str = "auto", split_plan=None,
                  gather_kernel: str = "xla", aux_kernel: str = "xla",
-                 device="cuda"):
+                 device="cuda", _space=None):
         if gather_kernel not in _KERNELS:
             raise ValueError(f"gather_kernel must be one of {_KERNELS}, got {gather_kernel!r}")
         if aux_kernel not in _KERNELS:
             raise ValueError(f"aux_kernel must be one of {_KERNELS}, got {aux_kernel!r}")
         if aux_kernel == "lane" and gather_kernel != "lane":
             raise ValueError("aux_kernel='lane' needs gather_kernel='lane'")
-        if aux_kernel == "lane":
-            raise NotImplementedError(_TODO_LANE_AUX)
 
         if isinstance(nodes, tuple):
             coords = [torch.as_tensor(v, device=device) for v in nodes]
@@ -337,14 +345,20 @@ class MatrixFreeElliptic:
             raise NotImplementedError(_TODO_3D)
         if dim != 2:
             raise ValueError(f"2D/3D only, got embedding dim {dim}")
-        if order != 1:
-            raise ValueError("order=2 needs a dof table: use from_space(space, ...)")
         if max_degree is None:
             max_degree = 8
-        dofs = torch.as_tensor(cells, device=device).to(torch.int32).T.contiguous()  # (3, C)
-        n_dofs = coords[0].shape[0]
         dtype = coords[0].dtype
-        self.dof_x, self.dof_y = coords[0], coords[1]
+        if _space is None:
+            if order != 1:
+                raise ValueError("order=2 needs a dof table: use from_space(space, ...)")
+            dofs = torch.as_tensor(cells, device=device).to(torch.int32).T.contiguous()  # (3, C)
+            n_dofs = coords[0].shape[0]
+            self.dof_x, self.dof_y = coords[0], coords[1]
+        else:  # the space's (nb, C) dof table, nodes then edges for P2
+            dofs = torch.as_tensor(_space.dofs.T, device=device).to(torch.int32).contiguous()
+            n_dofs = _space.n_dofs
+            dc = torch.as_tensor(_space.dof_coords, device=device).to(dtype)
+            self.dof_x, self.dof_y = dc[:, 0], dc[:, 1]
         C = dofs.shape[1]
 
         # centroids are made only for callable coefficients
@@ -371,9 +385,13 @@ class MatrixFreeElliptic:
         self.format = format
         self.is_symmetric = all(v is None for v in badv)
         if max_cols is None and format == "ell":
-            max_cols = max_degree + 1  # neighbours + self
+            # P1: neighbours + self; P2 vertex rows: 1 + deg + 2 deg
+            max_cols = max_degree + 1 if order == 1 else 3 * max_degree + 1
 
-        mf, over = MatrixFreeSoA.build_general(*coords, *dofs, n_dofs, max_degree, **coef)
+        if order == 1:
+            mf, over = MatrixFreeSoA.build_general(*coords, *dofs, n_dofs, max_degree, **coef)
+        else:
+            mf, over = MatrixFreeP2SoA.build(*coords, dofs, n_dofs, max_degree, **coef)
         if bool(over):
             raise ValueError(
                 f"a dof exceeds max_degree={max_degree} cell incidences; "
@@ -412,23 +430,33 @@ class MatrixFreeElliptic:
         if self.preconditioner.startswith("auxgrid"):
             if bbox is None:
                 bbox = ((0.0,) * dim, (1.0,) * dim)
+            lane_aux = aux_kernel == "lane" and self.preconditioner == "auxgrid+lane"
+            if lane_aux and grid_n is None:
+                grid_n = lane_friendly_grid_n(n_dofs)
             self.aux = AuxGridPreconditioner.build_device(
                 (self.dof_x, self.dof_y), _aux_diag32(self.op, self.boundary),
                 grid_n=grid_n, bbox=bbox,
             )
+            if lane_aux:
+                self.aux = LaneAuxGrid.from_aux(self.aux)
 
     @classmethod
     def from_space(cls, space, K=None, b=None, c=None, **kw):
-        """Build from a host FEMSpace (order 1 or 2): not ported yet."""
-        raise NotImplementedError(
-            "from_space (P2 via MatrixFreeP2SoA) is not ported yet (ROADMAP queue 1, slice 3)")
+        """Build from a host FEMSpace of order 1 or 2: the dof table, the
+        boundary dofs and the dof coordinates come from the space."""
+        if space.order not in (1, 2):
+            raise ValueError(f"from_space takes order 1 or 2, got {space.order}")
+        mesh = space.mesh
+        return cls(mesh.nodes, mesh.cells, space.boundary_dofs, order=space.order,
+                   K=K, b=b, c=c, _space=space, **kw)
 
     def load_vector(self, f_cells):
-        """Load vector from per-cell forcing values (centroid rule):
-        b_a = sum_T |T|/3 f over the cells incident to a."""
+        """Load vector from per-cell forcing values (centroid rule): P1
+        b_a = sum_T |T|/3 f over the cells incident to a; P2 the same on
+        the edge dofs, 0 on the vertex dofs."""
         return _load_vector(
             self._coords, self.dofs, self.adj, self.adj_mask,
-            torch.as_tensor(f_cells, device=self.dof_x.device),
+            torch.as_tensor(f_cells, device=self.dof_x.device), self.order,
         )
 
     def solve(self, b, g=None, rtol: float = 1e-9, maxiter: int = 200,

@@ -15,6 +15,8 @@ as an (m^2, n) sliced ELL on K2 (``ops/gather_spmv.SlicedELL``): each grid
 node's contributions are summed by one thread in increasing position of
 the flattened (4, n) table, the order ``segment_sum`` adds them in on the
 CPU, with no atomics, so the apply is bitwise the same from run to run.
+P itself is a plain gather here; ``ops/lane_aux.LaneAuxGrid`` runs it on
+K2's compact form.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from .gather_spmv import SlicedELL
 from .grid_dia import GridDIAMatrix
 from .grid_mg import GridMG
 
-__all__ = ["AuxGridPreconditioner"]
+__all__ = ["AuxGridPreconditioner", "interp_transpose_ell"]
 
 _OFFS5 = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
 
@@ -44,14 +46,16 @@ def _grid_stencil(free):
     return GridDIAMatrix(torch.stack(layers), _OFFS5, (m, m))
 
 
-def _restriction(idx, w, m):
-    """P^T as an (m^2, n) SlicedELL on idx's device: the entries of the
-    (4, n) table ordered by grid node, each node's in increasing flattened
-    position (a stable sort of the ids)."""
-    n = idx.shape[1]
+def interp_transpose_ell(idx, w, n: int, m2: int):
+    """P^T as an (m2, n) SlicedELL on idx's device, every entry of the
+    (K, n) interpolation table (idx, w) in it: grid node g's row holds the
+    entries with idx == g in increasing flattened position (a stable sort of
+    the ids). JAX's version caps the rows at k_cap entries, sends the rest
+    to a COO remainder and drops zero weights; here no row is capped, and a
+    zero weight adds 0."""
     order = torch.sort(idx.reshape(-1), stable=True)
     return SlicedELL.from_coo(order.values, order.indices % n, w.reshape(-1)[order.indices],
-                              (m * m, n))
+                              (m2, n))
 
 
 class AuxGridPreconditioner:
@@ -70,7 +74,7 @@ class AuxGridPreconditioner:
         self.mg = mg
         self.omega = omega
         self.n_grid = n_grid
-        self.PT = _restriction(idx, w, n_grid + 1)
+        self.PT = interp_transpose_ell(idx, w, idx.shape[1], (n_grid + 1) ** 2)
 
     @classmethod
     def build(cls, nodes, diag, grid_n: int | None = None, bbox=None,

@@ -1,10 +1,12 @@
-"""SoA (cell axis last) general gather pipeline, 2D P1.
+"""SoA (cell axis last) general gather pipeline, 2D P1 and P2.
 
-Port of the 2D P1 part of ``fdapde_core_tpu/ops/matfree_soa.py``: per-cell
+Port of the 2D parts of ``fdapde_core_tpu/ops/matfree_soa.py``: per-cell
 closed-form local stiffness from per-corner (C,) gathers, a (D, n)
 slot-major incidence table, the matrix-free operator over it, and its
 conversion to an assembled (K, n) row-ELL whose SpMV is the K2 kernel
-(``ops/gather_spmv.ell_spmv``).
+(``ops/gather_spmv.ell_spmv``). The P2 operator (``MatrixFreeP2SoA``)
+stores the same three per-cell scalars as P1 and rebuilds its 6 x 6 local
+matrix from universal tables (``_p2_tables``) in every product.
 
 Index types follow the JAX package: corner ids, incidence positions and ELL
 columns are int32 (the largest intermediate, ``(slot*nb + j)*C + cell``,
@@ -14,6 +16,9 @@ int64 indices, which are cast to int32 or freed at once.
 
 from __future__ import annotations
 
+from math import factorial
+
+import numpy as np
 import torch
 
 from .gather_spmv import accumulation_dtype, ell_spmv
@@ -21,8 +26,10 @@ from .gather_spmv import accumulation_dtype, ell_spmv
 __all__ = [
     "p1_offdiag_soa",
     "p1_general_soa",
+    "p2_primitives_soa",
     "build_adjacency_soa",
     "MatrixFreeSoA",
+    "MatrixFreeP2SoA",
     "ELLSoA",
     "ell_from_op_blocked",
 ]
@@ -132,6 +139,13 @@ def build_adjacency_soa(flat, n_dofs: int, max_degree: int):
     return adj, mask, torch.any(counts > max_degree)
 
 
+def _combine(per_slot, adj, adj_mask):
+    """Sum slot-major per-cell values, one (C,) tensor a slot, over each
+    dof's incidences."""
+    flat = torch.cat(per_slot)
+    return (flat[adj] * adj_mask.to(flat.dtype)).sum(dim=0)
+
+
 class MatrixFreeSoA:
     """Matrix-free P1 operator in SoA layout.
 
@@ -194,11 +208,6 @@ class MatrixFreeSoA:
                     A[i][j] = A[i][j] + (2.0 if i == j else 1.0) * self.r
         return A
 
-    def _combine(self, per_slot):
-        """Sum the slot-major (3C,) local values over each dof's incidences."""
-        flat = torch.cat(per_slot)
-        return (flat[self.adj] * self.adj_mask.to(flat.dtype)).sum(dim=0)
-
     def __matmul__(self, v):
         xe = [v[self.c[j]] for j in range(3)]  # three (C,) gathers
         s01, s02, s12 = self.s[0], self.s[1], self.s[2]
@@ -213,7 +222,7 @@ class MatrixFreeSoA:
         if self.r is not None:
             sx = xe[0] + xe[1] + xe[2]
             ye = [y + self.r * (sx + xe[i]) for i, y in enumerate(ye)]
-        return self._combine(ye)
+        return _combine(ye, self.adj, self.adj_mask)
 
     def diagonal(self):
         s01, s02, s12 = self.s[0], self.s[1], self.s[2]
@@ -222,7 +231,7 @@ class MatrixFreeSoA:
             d = [d[i] + self.w[i] for i in range(3)]
         if self.r is not None:
             d = [di + 2.0 * self.r for di in d]
-        return self._combine(d)
+        return _combine(d, self.adj, self.adj_mask)
 
     def astype(self, dtype):
         return MatrixFreeSoA(
@@ -332,9 +341,204 @@ class ELLSoA:
         return ELLSoA(vals, self.cols, self.shape)
 
 
+# P2: on an affine triangle every P2 weak-form integral is a per-cell scalar
+# times a universal rational table. With S_pq = area (g_p . K g_q) (zero row
+# sums, since sum_p g_p = 0), the 6 x 6 diffusion matrix is sum_e S_e T_e
+# over the three off-diagonal directions e; advection is sum_q w_q E_q with
+# w_q = area (b . g_q); mass is c area M. The tables come from the exact
+# integral of barycentric monomials, int_T l0^a l1^b l2^c =
+# 2 |T| a! b! c! / (a + b + c + 2)!. Local dof order: vertices 0, 1, 2, then
+# the edges (0, 1), (0, 2), (1, 2), FEMSpace's order-2 cell dofs.
+
+
+def _p2_tables():
+    """(T (3, 6, 6), E (3, 6, 6), M (6, 6)) in float64 (host NumPy)."""
+    basis = []
+    for a in range(3):  # vertex a: l_a (2 l_a - 1)
+        e1 = [0, 0, 0]
+        e1[a] = 1
+        e2 = [0, 0, 0]
+        e2[a] = 2
+        basis.append({tuple(e2): 2.0, tuple(e1): -1.0})
+    for a, b in ((0, 1), (0, 2), (1, 2)):  # edge {a, b}: 4 l_a l_b
+        e = [0, 0, 0]
+        e[a] += 1
+        e[b] += 1
+        basis.append({tuple(e): 4.0})
+
+    def dpoly(p, k):
+        out = {}
+        for m, c in p.items():
+            if m[k]:
+                m2 = list(m)
+                m2[k] -= 1
+                key = tuple(m2)
+                out[key] = out.get(key, 0.0) + c * m[k]
+        return out
+
+    def pmul(p, q):
+        out = {}
+        for m1, c1 in p.items():
+            for m2, c2 in q.items():
+                m = (m1[0] + m2[0], m1[1] + m2[1], m1[2] + m2[2])
+                out[m] = out.get(m, 0.0) + c1 * c2
+        return out
+
+    def pint(p):  # integral over the cell / area
+        return sum(
+            c * 2.0 * factorial(m[0]) * factorial(m[1]) * factorial(m[2])
+            / factorial(m[0] + m[1] + m[2] + 2)
+            for m, c in p.items()
+        )
+
+    D = np.zeros((3, 3, 6, 6))
+    grads = [[dpoly(basis[a], p) for p in range(3)] for a in range(6)]
+    for p in range(3):
+        for q in range(3):
+            for a in range(6):
+                for b in range(6):
+                    D[p, q, a, b] = pint(pmul(grads[a][p], grads[b][q]))
+    T = np.stack([D[p, q] + D[q, p] - D[p, p] - D[q, q] for p, q in ((0, 1), (0, 2), (1, 2))])
+    E = np.zeros((3, 6, 6))
+    for q in range(3):
+        for a in range(6):
+            for b in range(6):
+                E[q, a, b] = pint(pmul(basis[a], grads[b][q]))
+    M = np.zeros((6, 6))
+    for a in range(6):
+        for b in range(6):
+            M[a, b] = pint(pmul(basis[a], basis[b]))
+    return T, E, M
+
+
+_P2_T, _P2_E, _P2_M = _p2_tables()
+
+
+def p2_primitives_soa(x, y, c0, c1, c2, kxx=None, kxy=None, kyy=None,
+                      bx=None, by=None, react=None):
+    """Per-cell P2 primitives (s (3, C), wq (3, C) or None, r (C,) or None):
+    s_e = area (g_p . K g_q) for e = (0, 1), (0, 2), (1, 2), the P1
+    off-diagonals; wq_q = area (b . g_q); r = c area."""
+    sd, _, _ = p1_general_soa(x, y, c0, c1, c2, kxx, kxy, kyy)
+    x0, x1, x2 = x[c0], x[c1], x[c2]
+    y0, y1, y2 = y[c0], y[c1], y[c2]
+    e0x, e0y = x1 - x0, y1 - y0
+    e1x, e1y = x2 - x0, y2 - y0
+    det = e0x * e1y - e0y * e1x
+    sgn = torch.sign(det)
+    wq = None
+    if bx is not None or by is not None:
+        bx = 0.0 if bx is None else bx
+        by = 0.0 if by is None else by
+        g1x, g1y = e1y, -e1x
+        g2x, g2y = -e0y, e0x
+        g0x, g0y = -(g1x + g2x), -(g1y + g2y)
+        # area (b . g_q) = sgn / 2 (b . G_q)
+        wq = torch.stack([
+            (sgn / 2.0) * (bx * g0x + by * g0y),
+            (sgn / 2.0) * (bx * g1x + by * g1y),
+            (sgn / 2.0) * (bx * g2x + by * g2y),
+        ])
+    r = None
+    if react is not None:
+        r = react * (0.5 * sgn * det)
+    return sd, wq, r
+
+
+class MatrixFreeP2SoA:
+    """Matrix-free P2 advection-diffusion-reaction operator in SoA layout.
+
+    s: (3, C) diffusion primitives; dofs: (6, C) int32 dof ids (vertices,
+    then the lex edges: FEMSpace's order-2 ``dofs`` transposed); adj/adj_mask:
+    (D, n) slot-major incidence over the (6C,) positions; wq: (3, C)
+    advection primitives or None; r: (C,) reaction primitive or None. The
+    6 x 6 local matrix is rebuilt from ``_p2_tables`` in each product.
+    Operator protocol (@, diagonal, astype, to_ell) of MatrixFreeSoA.
+    """
+
+    def __init__(self, s, dofs, adj, adj_mask, n_dofs: int, wq=None, r=None):
+        self.s = s
+        self.dofs = dofs
+        self.adj = adj
+        self.adj_mask = adj_mask
+        self.n_dofs = n_dofs
+        self.wq = wq
+        self.r = r
+
+    @classmethod
+    def build(cls, x, y, dofs, n_dofs: int, max_degree: int,
+              kxx=None, kxy=None, kyy=None, bx=None, by=None, react=None):
+        """dofs: (6, C) int32; the coordinates are read at rows 0-2 (a vertex
+        dof id is its node id). Returns (op, overflowed)."""
+        sd, wq, r = p2_primitives_soa(x, y, dofs[0], dofs[1], dofs[2],
+                                      kxx, kxy, kyy, bx, by, react)
+        adj, mask, over = build_adjacency_soa(dofs.reshape(-1), n_dofs, max_degree)
+        return cls(sd, dofs, adj, mask, n_dofs, wq=wq, r=r), over
+
+    @property
+    def shape(self):
+        return (self.n_dofs, self.n_dofs)
+
+    @property
+    def is_symmetric(self):
+        return self.wq is None
+
+    def _entry(self, a, b):
+        """Local entry (a, b) as a (C,) tensor: the diffusion terms, then
+        advection, then reaction, skipping zero table coefficients (JAX's
+        order, so the entries agree to rounding)."""
+        ent = None
+        for e in range(3):
+            cf = float(_P2_T[e, a, b])
+            if abs(cf) > 1e-14:
+                t = cf * self.s[e]
+                ent = t if ent is None else ent + t
+        if self.wq is not None:
+            for q in range(3):
+                cf = float(_P2_E[q, a, b])
+                if abs(cf) > 1e-14:
+                    ent = (ent if ent is not None else 0.0) + cf * self.wq[q]
+        if self.r is not None:
+            cf = float(_P2_M[a, b])
+            if abs(cf) > 1e-14:
+                ent = (ent if ent is not None else 0.0) + cf * self.r
+        if ent is None:
+            ent = torch.zeros_like(self.s[0])
+        return ent
+
+    def _entries(self):
+        return [[self._entry(a, b) for b in range(6)] for a in range(6)]
+
+    def __matmul__(self, v):
+        xe = [v[self.dofs[b]] for b in range(6)]  # six (C,) gathers
+        A = self._entries()
+        ye = []
+        for a in range(6):
+            acc = A[a][0] * xe[0]
+            for b in range(1, 6):
+                acc = acc + A[a][b] * xe[b]
+            ye.append(acc)
+        return _combine(ye, self.adj, self.adj_mask)
+
+    def diagonal(self):
+        return _combine([self._entry(a, a) for a in range(6)], self.adj, self.adj_mask)
+
+    def astype(self, dtype):
+        return MatrixFreeP2SoA(
+            self.s.to(dtype), self.dofs, self.adj, self.adj_mask, self.n_dofs,
+            wq=None if self.wq is None else self.wq.to(dtype),
+            r=None if self.r is None else self.r.to(dtype),
+        )
+
+    def to_ell(self, max_cols: int):
+        """Assembled (K, n) row-ELL; returns (ELLSoA, overflowed)."""
+        return _ell_from_entries(self._entries(), self.dofs, self.adj,
+                                 self.adj_mask, self.n_dofs, max_cols)
+
+
 def ell_from_op_blocked(op, max_cols: int, blocks: int = 8):
-    """``op.to_ell(max_cols)``. The JAX package splits the conversion into
-    ``blocks`` row blocks to bound each TPU program's run time; one pass
-    gives the identical result here, so ``blocks`` is ignored. Returns
-    (ELLSoA, overflowed)."""
+    """``op.to_ell(max_cols)`` for a MatrixFreeSoA or MatrixFreeP2SoA. The
+    JAX package splits the conversion into ``blocks`` row blocks to bound
+    each TPU program's run time; one pass gives the identical result here,
+    so ``blocks`` is ignored. Returns (ELLSoA, overflowed)."""
     return op.to_ell(max_cols)

@@ -183,11 +183,14 @@ def test_closed_form_matches_jax():
 
 
 def test_port_never_imports_jax():
-    """No module of the port imports jax (an AST scan of every .py file)."""
-    offenders = []
+    """No module of the port imports jax (an AST scan of every .py file,
+    the modules of the device-scale P2, lane aux grid and refinement paths
+    among them)."""
+    offenders, scanned = [], set()
     for path in sorted(PORT.rglob("*.py")):
         if "_build" in path.relative_to(PORT).parts:  # build outputs, not source
             continue
+        scanned.add(path.relative_to(PORT).as_posix())
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -199,6 +202,8 @@ def test_port_never_imports_jax():
                    or nm == "fdapde_core_tpu" for nm in names):
                 offenders.append(f"{path.relative_to(PORT)}:{node.lineno}")
     assert not offenders, offenders
+    assert {"ops/matfree_soa.py", "ops/lane_aux.py", "geometry/refine_device.py",
+            "models/matfree.py"} <= scanned
 
 
 @pytest.mark.cuda

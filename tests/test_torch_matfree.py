@@ -1,7 +1,8 @@
 """Port parity: the general-mesh gather path of fdapde_core_tpu_torch
-(SoA pipeline, assembled ELL on the K2 gather SpMV, aux-grid
-preconditioner, Krylov solvers, MatrixFreePoisson / MatrixFreeElliptic)
-against the JAX package, on the same numpy inputs.
+(SoA pipeline in P1 and P2, assembled ELL on the K2 gather SpMV, aux-grid
+preconditioner and its LaneAuxGrid, Krylov solvers, on-device refinement
+and strip ordering, MatrixFreePoisson / MatrixFreeElliptic) against the JAX
+package, on the same numpy inputs.
 
 On the CPU the port's K2 wrapper runs its plain torch version and the JAX
 LaneRoutedELL its Pallas kernel in interpret mode. The CUDA kernel itself
@@ -94,6 +95,34 @@ def _scrambled_fem_ell(n_side=64, S=256, G=89):
     return vals, cols, nd
 
 
+def _delaunay(nx, seed=7, amp=0.35):
+    """A jittered (nx+1)^2 lattice of the unit square, scipy Delaunay:
+    (nodes (N, 2), cells (C, 3) int32, boundary (N,) bool)."""
+    from scipy.spatial import Delaunay
+
+    rng = np.random.default_rng(seed)
+    ii, jj = np.meshgrid(np.arange(nx + 1), np.arange(nx + 1), indexing="ij")
+    pts = np.stack([ii, jj], axis=-1).reshape(-1, 2).astype(np.float64)
+    interior = (pts[:, 0] > 0) & (pts[:, 0] < nx) & (pts[:, 1] > 0) & (pts[:, 1] < nx)
+    pts[interior] += rng.uniform(-amp, amp, size=(interior.sum(), 2))
+    pts /= nx
+    return pts, Delaunay(pts).simplices.astype(np.int32), ~interior
+
+
+def _p2_spaces(nx):
+    """The JAX package's and the port's order-2 FEMSpace on _delaunay(nx)."""
+    from fdapde_core_tpu.fem.space import FEMSpace as JSpace
+    from fdapde_core_tpu.geometry.triangulation import Triangulation as JTri
+    from fdapde_core_tpu_torch.fem import FEMSpace
+    from fdapde_core_tpu_torch.geometry import Triangulation
+
+    pts, cells, bnd = _delaunay(nx)
+    jspace, tspace = JSpace(JTri(pts, cells, bnd), 2), FEMSpace(Triangulation(pts, cells, bnd), 2)
+    np.testing.assert_array_equal(tspace.dofs, jspace.dofs, err_msg="P2 dof table")
+    np.testing.assert_array_equal(tspace.boundary_dofs, jspace.boundary_dofs)
+    return jspace, tspace
+
+
 def _assert_ell_close(got, ref, name):
     """cols exact, vals to 1e-13 of the largest |val|."""
     np.testing.assert_array_equal(_np(got.cols), np.asarray(ref.cols), err_msg=f"{name}: cols")
@@ -114,7 +143,9 @@ def test_soa_pipeline_matches_jax():
     remainder slot for slot (cols exact), split @ x == ELL @ x to 1e-14 of
     scale, diagonal, astype, with_added_diagonal and fold_dirichlet; a
     float64 BandedMG V-cycle to 1e-12 and banded_cg (x to 1e-12, |r|,
-    and the breakdown flag, also on a negative definite shift)."""
+    and the breakdown flag, also on a negative definite shift).
+    MatrixFreeP2SoA against JAX's and the assembled P2 matrix (tolerances
+    at the check)."""
     n = 24
     for name, ref, got in (
         ("soa", j_mesh_soa(n, 0.2, dtype=jnp.float64), irregular_mesh_device_soa(n, 0.2, device="cpu")),
@@ -252,6 +283,53 @@ def test_soa_pipeline_matches_jax():
     assert bool(tds.build_banded_split(tE, W + 1, max_rem=1)[1])
     assert bool(jds.build_banded_split(jE, W + 1, max_rem=1)[1])
 
+    # P2: MatrixFreeP2SoA against JAX's on the P2 space of a Delaunay mesh,
+    # and against the port's assembled P2 matrix (JAX
+    # tests/test_matfree_general.py:103-160): @ and diagonal to 1e-12 of
+    # scale against JAX and rtol 1e-11 / atol 1e-12 against the assembly
+    # (JAX's own tolerance there), the float32 copy's @ to 1e-6 of scale,
+    # to_ell slot for slot (cols exact, vals to 1e-13 of scale)
+    from fdapde_core_tpu_torch.fem import assemble_matrix
+    from fdapde_core_tpu_torch.pde import advection, diffusion, laplacian, reaction
+
+    jspace, space = _p2_spaces(8)
+    C2, nd2 = space.mesh.n_cells, space.n_dofs
+    Kt, bv, cr = np.array([[2.0, 0.3], [0.3, 1.5]]), np.array([1.0, 0.5]), 0.7
+    p2_cases = (
+        ("diffusion", dict(kxx=Kt[0, 0], kxy=Kt[0, 1], kyy=Kt[1, 1]), -diffusion(Kt)),
+        ("advection", dict(kxx=1.0, bx=bv[0], by=bv[1]), -laplacian() + advection(bv)),
+        ("reaction", dict(kxx=1.0, react=cr), -laplacian() + reaction(cr)),
+    )
+    p2_args = (space.mesh.nodes[:, 0], space.mesh.nodes[:, 1], space.dofs.T.astype(np.int32))
+    v2 = rng.standard_normal(nd2)
+    for kind, coef2, L in p2_cases:
+        what = f"P2 {kind}"
+        jop, jover = jms.MatrixFreeP2SoA.build(*(jnp.asarray(a) for a in p2_args), nd2, 8,
+                                               **{k: jnp.full(C2, a) for k, a in coef2.items()})
+        top, tover = tms.MatrixFreeP2SoA.build(*(_t(a) for a in p2_args), nd2, 8,
+                                               **{k: _t(np.full(C2, a)) for k, a in coef2.items()})
+        assert not bool(tover) and not bool(jover), what
+        assert top.is_symmetric == jop.is_symmetric == (kind != "advection"), what
+        A = assemble_matrix(space, L, device="cpu")
+        ref = _np(A @ _t(v2))
+        y = _np(top @ _t(v2))
+        close(y, jop @ jnp.asarray(v2), f"{what}: @ vs JAX", 1e-12)
+        np.testing.assert_allclose(y, ref, rtol=1e-11, atol=1e-12, err_msg=f"{what}: @ vs assembled")
+        close(top.diagonal(), jop.diagonal(), f"{what}: diagonal vs JAX", 1e-12)
+        np.testing.assert_allclose(_np(top.diagonal()), _np(A.diagonal()), rtol=1e-11, atol=1e-12,
+                                   err_msg=f"{what}: diagonal vs assembled")
+        t32 = top.astype(torch.float32)
+        assert t32.s.dtype == torch.float32 and (t32.wq is None) == (top.wq is None), what
+        close(t32 @ _t(v2).float(), jop.astype(jnp.float32) @ jnp.asarray(v2, jnp.float32),
+              f"{what}: float32 @", 1e-6)
+        jE2, jover2 = jax.jit(lambda o: o.to_ell(25))(jop)
+        tE2, tover2 = tms.ell_from_op_blocked(top, 25)
+        assert not bool(tover2) and not bool(jover2), what
+        _assert_ell_close(tE2, jE2, f"{what}: to_ell")
+        np.testing.assert_allclose(_np(tE2 @ _t(v2)), ref, rtol=1e-11, atol=1e-12,
+                                   err_msg=f"{what}: ELL @ vs assembled")
+    assert bool(top.to_ell(12)[1]), "P2 to_ell(12) must overflow"
+
 
 def test_lane_routed_ell_matches_jax():
     """LaneRoutedELL on K2 against JAX's lane-routed Pallas kernel on the
@@ -261,8 +339,9 @@ def test_lane_routed_ell_matches_jax():
     astype, with_vals and its ValueError; n_remainder == 0; K2's sliced
     form (its plain version) on a skewed, rectangular, Psi^T-like table at
     sigma 1 and 128 against JAX's _spmv and SparseMatrix @ to 1e-13, with
-    SparseMatrix @ on it; and the CPU wrappers' argument checks (no launch
-    counted on the CPU)."""
+    SparseMatrix @ on it; the CPU wrappers' argument checks (no launch
+    counted on the CPU); and the refined, strip-ordered meshes of
+    geometry/refine_device.py against JAX's (see the comment there)."""
     vals, cols, nd = _scrambled_fem_ell()
     jE = jms.ELLSoA(jnp.asarray(vals), jnp.asarray(cols), (nd, nd))
     E = ell_from_numpy(vals, cols, (nd, nd), device="cpu")
@@ -388,6 +467,63 @@ def test_lane_routed_ell_matches_jax():
         gs.ell_spmv(E.vals.half(), E.cols, vt.float())
     assert gs.ell_spmv_launches == launches, "a CPU product counted a kernel launch"
 
+    # the strip-ordered, red-refined meshes LaneRoutedELL serves at scale
+    # (bench.py's gendel): uniform_refine_device over 2 levels of a
+    # Delaunay base equals JAX's exactly (coordinates, cells, boundary), the
+    # base degrees are kept and new nodes have 6 cells (3 on the boundary);
+    # strip_order and strip_order_binned give JAX's permutations; a mesh
+    # with a hole raises in both packages. The two faults of JAX's
+    # strip_order_binned are repaired: 2^17 strips raise ValueError, and
+    # constant float32 coordinates give finite keys where JAX's normalised
+    # coordinate is NaN (its 1e-300 guard is 0 in float32)
+    from fdapde_core_tpu.geometry import refine_device as jrd
+    from fdapde_core_tpu_torch.geometry import refine_device as trd
+
+    pts, cells_b, bnd_b = _delaunay(12, seed=11)
+    base = (pts[:, 0], pts[:, 1], *cells_b.T, bnd_b)
+    ref = jrd.uniform_refine_device(*(jnp.asarray(a) for a in base), 2)
+    got = trd.uniform_refine_device(*(_t(a) for a in base), 2)
+    for k, (r_, g_) in enumerate(zip(ref, got)):
+        assert _np(g_).dtype == np.asarray(r_).dtype, f"refined mesh [{k}] dtype"
+        np.testing.assert_array_equal(_np(g_), np.asarray(r_), err_msg=f"refined mesh [{k}]")
+    n0, n2 = pts.shape[0], got[0].shape[0]
+    n_lvl, c_lvl = n0, cells_b.shape[0]
+    for _ in range(2):  # each level adds one node an edge, n + C - 1 edges
+        n_lvl, c_lvl = 2 * n_lvl + c_lvl - 1, 4 * c_lvl
+    assert (n2, got[2].shape[0]) == (n_lvl, c_lvl), "refined sizes"
+    deg = torch.bincount(torch.cat(got[2:5]).long(), minlength=n2)
+    np.testing.assert_array_equal(_np(deg[:n0]), np.bincount(cells_b.ravel(), minlength=n0))
+    assert set(_np(deg[n0:][~got[5][n0:]]).tolist()) == {6}
+    assert set(_np(deg[n0:][got[5][n0:]]).tolist()) == {3}
+    x2, y2 = np.asarray(ref[0]), np.asarray(ref[1])
+    for fn, pop in (("strip_order", 100), ("strip_order_binned", 100), ("strip_order_binned", 1)):
+        jo, jr = getattr(jrd, fn)(jnp.asarray(x2), jnp.asarray(y2), pop)
+        to, tr = getattr(trd, fn)(_t(x2), _t(y2), pop)
+        assert to.dtype == tr.dtype == torch.int32, fn
+        np.testing.assert_array_equal(_np(to), np.asarray(jo), err_msg=f"{fn}({pop}) order")
+        np.testing.assert_array_equal(_np(tr), np.asarray(jr), err_msg=f"{fn}({pop}) rank")
+    hole = np.delete(cells_b, np.flatnonzero(~bnd_b[cells_b].any(1))[0], axis=0)  # an annulus
+    with pytest.raises(ValueError):
+        jrd.uniform_refine_device(*(jnp.asarray(a) for a in (pts[:, 0], pts[:, 1], *hole.T, bnd_b)), 1)
+    with pytest.raises(ValueError):
+        trd.uniform_refine_device(*(_t(a) for a in (pts[:, 0], pts[:, 1], *hole.T, bnd_b)), 1)
+    with pytest.raises(ValueError):  # 2^17 strips overflow the int32 key
+        trd.strip_order_binned(torch.zeros(1 << 17), torch.zeros(1 << 17), 1)
+    trd.strip_order_binned(torch.zeros((1 << 17) - 1), torch.zeros((1 << 17) - 1), 1)
+    flat = np.linspace(0.0, 1.0, 64, dtype=np.float32)
+    const = np.full(64, 0.5, dtype=np.float32)
+    for xs_, ys_ in ((const, const), (flat, const), (const, flat)):
+        keys = _np(trd._strip_keys(_t(xs_), _t(ys_), 8))
+        assert keys.min() >= 0 and keys.max() < 8 * 16384, "strip keys out of range"
+        order, _ = trd.strip_order_binned(_t(xs_), _t(ys_), 8)
+        expect = np.lexsort((np.minimum((xs_ - xs_.min()) / max(np.ptp(xs_), 1e-30) * 16384, 16383)
+                             .astype(np.int64), np.minimum((ys_ - ys_.min()) / max(np.ptp(ys_), 1e-30)
+                                                           * 8, 7).astype(np.int64)))
+        np.testing.assert_array_equal(_np(order), expect, err_msg="float32 strip order")
+    jc = jnp.asarray(const)
+    assert bool(jnp.isnan((jc - jc.min()) / jnp.maximum(jc.max() - jc.min(), 1e-300)).all()), \
+        "JAX's float32 guard no longer underflows"
+
 
 def test_auxgrid_and_solvers_match_jax():
     """AuxGridPreconditioner (build_device and host build) against JAX: idx
@@ -395,7 +531,9 @@ def test_auxgrid_and_solvers_match_jax():
     apply to 1e-5 relative and equal across two calls, P^T r (K2's sliced
     form) against JAX's segment_sum to 1e-6. DirichletSystem + cg / cg_chunked /
     cg_split_programs / bicgstab (+ chunked) against JAX in float64: equal
-    iteration counts, x to 1e-10 relative."""
+    iteration counts, x to 1e-10 relative. LaneAuxGrid, interp_transpose_ell
+    and lane_friendly_grid_n against the plain apply and JAX (tolerances at
+    the check)."""
     n = 32
     x, y, c0, c1, c2, bnd = (np.asarray(a) for a in j_mesh_soa(n, 0.2, dtype=jnp.float64))
     nd = x.shape[0]
@@ -429,6 +567,43 @@ def test_auxgrid_and_solvers_match_jax():
         rc = jax.ops.segment_sum((j.w * jnp.asarray(r)[None, :]).reshape(-1), j.idx.reshape(-1), m * m)
         np.testing.assert_allclose(_np(t.PT @ _t(r)), np.asarray(rc), rtol=1e-6,
                                    atol=1e-6 * np.abs(np.asarray(rc)).max(), err_msg=f"{name}: P^T r")
+
+    # LaneAuxGrid (P on K2's compact form, P^T the aux grid's sliced ELL)
+    # against the port's plain apply (float32: to 1e-6 of max|z|) and
+    # JAX's lane-routed apply (interpret mode, JAX's own bound 2e-5 of
+    # max|z|); its three stages compose to the apply bitwise, and JAX's
+    # routing arguments change nothing. interp_transpose_ell is the adjoint
+    # of P: <P z, r> == <z, P^T r> in float64 to 1e-12 relative.
+    # lane_friendly_grid_n equals JAX's.
+    from fdapde_core_tpu.ops.lane_aux import LaneAuxGrid as JLaneAux
+    from fdapde_core_tpu.ops.lane_aux import lane_friendly_grid_n as j_grid_n
+    from fdapde_core_tpu_torch.ops.lane_aux import (
+        LaneAuxGrid,
+        interp_transpose_ell,
+        lane_friendly_grid_n,
+    )
+
+    sizes = list(range(1, 3000, 7)) + [65_537, 10 ** 6, 2_076_481, 5_130_225, 10_246_401]
+    assert [lane_friendly_grid_n(k) for k in sizes] == [j_grid_n(k) for k in sizes]
+    m2 = (aux.n_grid + 1) ** 2
+    PT64 = interp_transpose_ell(aux.idx, aux.w.double(), nd, m2)
+    assert PT64.shape == (m2, nd) and PT64.dest.shape == (aux.idx.numel(),), "every entry in the ELL"
+    z, r64 = _t(rng.standard_normal(m2)), _t(rng.standard_normal(nd))
+    lhs = float((z[aux.idx.long()] * aux.w.double()).sum(0) @ r64)
+    assert abs(lhs - float(z @ (PT64 @ r64))) <= 1e-12 * abs(lhs), "P^T is not the adjoint of P"
+    lane = LaneAuxGrid.from_aux(aux)
+    assert lane.P.shape == (nd, m2) and lane.PT is aux.PT and lane.n_grid == aux.n_grid
+    ref, got = _np(aux(_t(r))), _np(lane(_t(r)))
+    assert got.dtype == np.float32 and np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max(), \
+        "LaneAuxGrid apply vs the plain apply"
+    v = _t(r)
+    for stage in lane.split_stages:
+        v = stage(v, _t(r))
+    assert np.array_equal(_np(v), got), "split_stages do not compose to the apply"
+    assert np.array_equal(_np(LaneAuxGrid.from_aux(aux, rounds=2, max_k=1, k_cap=1)(_t(r))), got)
+    jlane = JLaneAux.from_aux(jaux)
+    jref = np.asarray(jax.jit(lambda la, r_: la(r_))(jlane, jnp.asarray(r)))
+    assert np.abs(got - jref).max() <= 2e-5 * np.abs(jref).max(), "LaneAuxGrid apply vs JAX"
 
     # Krylov solvers on the Dirichlet system, float64, Jacobi and aux
     b = np.where(bnd, 0.0, rng.uniform(0.5, 1.5, nd)) / nd
@@ -486,8 +661,10 @@ def test_models_match_jax():
     iterations grow with n in both packages (within 1 of each other); the
     banded route against the port's solve_parabolic(lumped=True) on the
     same mesh to 1e-10, and chunked stepping bitwise equal. The port
-    validates gather_kernel / aux_kernel up front and raises
-    NotImplementedError for what is not ported."""
+    validates gather_kernel / aux_kernel up front. aux_kernel="lane" and
+    from_space (order 1 and 2) against JAX: the same aux grid, equal
+    iterations, solutions to 1e-10 relative; P2 reproduces x^2 + y^2 to
+    1e-10 of max|u|."""
     n = 48
     C = 2 * n * n
     rng = np.random.default_rng(21)
@@ -495,7 +672,7 @@ def test_models_match_jax():
     x, y, c0, c1, c2, bnd = (np.asarray(a) for a in j_mesh_soa(n, 0.2, dtype=jnp.float64))
     nodes, cells = np.stack([x, y], 1), np.stack([c0, c1, c2], 1)
 
-    def compare(name, jm, tm, rtol, it_slack=0, **kw):
+    def compare(name, jm, tm, rtol, it_slack=0, sol_tol=1e-7, f=f, **kw):
         jb = jm.load_vector(jnp.asarray(f))
         tb = tm.load_vector(_t(f))
         np.testing.assert_allclose(_np(tb), np.asarray(jb), rtol=1e-14, atol=1e-14 * np.abs(jb).max(),
@@ -505,7 +682,7 @@ def test_models_match_jax():
         assert abs(int(tit) - int(jit_)) <= it_slack, f"{name}: {int(tit)} vs {int(jit_)} iterations"
         assert float(trel) <= rtol and float(jrel) <= rtol, f"{name}: residuals {trel} / {jrel}"
         jx = np.asarray(jx)
-        assert np.abs(_np(tx) - jx).max() <= 1e-7 * np.abs(jx).max(), f"{name}: solution"
+        assert np.abs(_np(tx) - jx).max() <= sol_tol * np.abs(jx).max(), f"{name}: solution"
 
     compare("MatrixFreePoisson",
             JPoisson(jnp.asarray(nodes), jnp.asarray(cells), jnp.asarray(bnd), preconditioner="auxgrid"),
@@ -607,9 +784,45 @@ def test_models_match_jax():
                 dict(gather_kernel="pallas")):
         with pytest.raises(ValueError):
             MatrixFreeElliptic(*mesh, preconditioner="auxgrid", device="cpu", **bad)
-    with pytest.raises(NotImplementedError):
-        MatrixFreeElliptic(*mesh, preconditioner="auxgrid", gather_kernel="lane", aux_kernel="lane",
-                           device="cpu")
-    with pytest.raises(NotImplementedError):
-        MatrixFreeElliptic.from_space(None)
 
+    # aux_kernel="lane" (JAX tests/test_lane_aux.py:134-159): a LaneAuxGrid
+    # over lane_friendly_grid_n(n) cells a side in both packages, equal
+    # iterations, solutions to 1e-10 relative
+    from fdapde_core_tpu.fem.space import FEMSpace as JSpace
+    from fdapde_core_tpu.geometry.triangulation import Triangulation as JTri
+    from fdapde_core_tpu_torch.ops.lane_aux import LaneAuxGrid, lane_friendly_grid_n
+
+    xl, yl, l0, l1, l2, bl = (np.asarray(a) for a in j_mesh_soa(24, 0.2, dtype=jnp.float64))
+    cells_l = np.stack([l0, l1, l2], 1)
+    lane_aux = dict(gather_kernel="lane", aux_kernel="lane", preconditioner="auxgrid")
+    jm = JElliptic((jnp.asarray(xl), jnp.asarray(yl)), jnp.asarray(cells_l), jnp.asarray(bl), **lane_aux)
+    tm = MatrixFreeElliptic((_t(xl), _t(yl)), _t(cells_l), _t(bl), device="cpu", **lane_aux)
+    assert isinstance(tm.aux, LaneAuxGrid) and type(jm.aux).__name__ == "LaneAuxGrid"
+    assert tm.aux.n_grid == jm.aux.n_grid == lane_friendly_grid_n(xl.shape[0])
+    compare("MatrixFreeElliptic aux_kernel='lane'", jm, tm, 1e-10, sol_tol=1e-10,
+            f=np.ones(cells_l.shape[0]))
+
+    # from_space, order 1 and 2, on a Delaunay mesh (K = 1, c = 1): the
+    # space's dof table, the same route ("auto" takes the aux grid on P2's
+    # nodes-then-edges numbering), equal iterations, solutions to 1e-10
+    pts, cells_d, bnd_d = _delaunay(10)
+    for order in (1, 2):
+        jspace = JSpace(JTri(pts, cells_d, bnd_d), order)
+        tspace = FEMSpace(Triangulation(pts, cells_d, bnd_d), order)
+        jm = JElliptic.from_space(jspace, K=1.0, c=1.0)
+        tm = MatrixFreeElliptic.from_space(tspace, K=1.0, c=1.0, device="cpu")
+        name = f"from_space order {order}"
+        assert tm.n_dofs == jm.n_dofs == tspace.n_dofs and tm.preconditioner == jm.preconditioner, name
+        assert order == 1 or tm.preconditioner == "auxgrid", name
+        np.testing.assert_array_equal(_np(tm.dofs), np.asarray(jm.dofs), err_msg=name)
+        if tm.preconditioner == "auxgrid":
+            assert tm.aux.n_grid == jm.aux.n_grid, name
+        compare(name, jm, tm, 1e-12, sol_tol=1e-10, f=rng.uniform(0.5, 1.5, cells_d.shape[0]))
+    # P2 reproduces u = x^2 + y^2: f = -4 per cell, g = u at the dofs
+    u = _t((tspace.dof_coords ** 2).sum(1))
+    tq = MatrixFreeElliptic.from_space(tspace, K=1.0, device="cpu")
+    xq, _, relq = tq.solve(tq.load_vector(torch.full((cells_d.shape[0],), -4.0, dtype=torch.float64)),
+                           g=u, rtol=1e-12, maxiter=300)
+    assert float(relq) <= 1e-12 and (xq - u).abs().max() <= 1e-10 * u.abs().max(), "P2 quadratic"
+    with pytest.raises(ValueError):
+        MatrixFreeElliptic.from_space(FEMSpace(Triangulation(pts, cells_d, bnd_d), 3), device="cpu")
