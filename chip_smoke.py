@@ -172,9 +172,12 @@ Phases (each raises on failure; nothing is caught):
     aux_kernel="lane", preconditioner="auxgrid") reads "auxgrid+lane"
     with a LaneAuxGrid over lane_friendly_grid_n(n) cells (bandwidth and
     plan_split_width(bcap=16384) printed); its apply equals the plain
-    aux-grid apply within 8 eps P|z| + 2 eps |z| (float32), K2 on its P
-    within the per-row bound, the P stage timed against the plain gather
-    it replaces, a torch.sparse CSR SpMV and its plain version;
+    composition with P z as a torch gather within 8 eps P|z| + 2 eps |z|
+    (float32), K2 on its P within the per-row bound, the P stage timed
+    against the plain gather it replaces, a torch.sparse CSR SpMV and its
+    plain version; K2 on the (13, n) P1 ELL, the f32 table of the inner CG
+    and the f64 one of the outer residuals, within the per-row bound,
+    timed against a CSR SpMV, its plain version and its bounds;
     the right-hand side where(bnd, 0, 1) / n solved at rtol 1e-8 (chunk 16)
     converges with the true residual recomputed in f64, twice bitwise
     equal. Phases 20-25 print their seconds and K2 / K6 launches by path.
@@ -469,6 +472,17 @@ def ell_nnz(E):
     K, n = E.vals.shape
     rows = torch.arange(n, dtype=E.cols.dtype, device=E.cols.device)
     return K * n - (int((E.cols == rows[None, :]).sum()) - n)
+
+
+def ell_csr(V, C):
+    """A torch.sparse CSR tensor of a square compact (K, n) ELL's stored
+    entries: the padding (col = row after the row's diagonal) is left out."""
+    n = V.shape[1]
+    diag = C == torch.arange(n, dtype=C.dtype, device=C.device)[None, :]
+    keep = (~diag | (torch.cumsum(diag, 0) == 1)).T
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=C.device)
+    crow[1:] = torch.cumsum(keep.sum(1), 0)
+    return torch.sparse_csr_tensor(crow, C.T[keep].long(), V.T[keep], (n, n), check_invariants=False)
 
 
 def k2_compact_check(gs, name, V, C, x):
@@ -1845,11 +1859,11 @@ def phase_lane_aux(ak, gs):
     """bench.py's gendel (bench.py:1528-1742) through the model API: a
     Delaunay base red-refined on the card, strip-renumbered, then
     MatrixFreeElliptic(gather_kernel="lane", aux_kernel="lane") with its
-    LaneAuxGrid: the apply against the plain one, K2 on P, the refined solve
-    to 1e-8 twice. Returns {path: K2 launches}."""
+    LaneAuxGrid: the apply against the plain one, K2 on P and on the P1
+    ELL (f32 and f64), the refined solve to 1e-8 twice. Returns {path: K2
+    launches}."""
     from fdapde_core_tpu_torch.geometry import strip_order_binned, uniform_refine_device
     from fdapde_core_tpu_torch.models import MatrixFreeElliptic
-    from fdapde_core_tpu_torch.ops.auxgrid import AuxGridPreconditioner
     from fdapde_core_tpu_torch.ops.dia_split import plan_split_width
     from fdapde_core_tpu_torch.ops.lane_aux import LaneAuxGrid, lane_friendly_grid_n
 
@@ -1894,28 +1908,28 @@ def phase_lane_aux(ak, gs):
           "the gendel model is not on the lane aux grid")
     check(la.n_grid == lane_friendly_grid_n(n), f"aux grid {la.n_grid} != lane_friendly_grid_n")
 
-    # the LaneAuxGrid apply against the plain one on the same r: they share
-    # P^T and the V-cycle; P z differs by the kernel's fused multiply-adds
+    # the LaneAuxGrid apply against the plain composition on the same r:
+    # the same P^T and V-cycle, then P z as the torch gather K2 replaced;
+    # the two P z differ by the kernel's fused multiply-adds
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
     r = torch.rand(n, generator=gen, dtype=torch.float32, device=DEVICE) - 0.5
-    plain_aux = AuxGridPreconditioner(la.P.cols, la.P.vals, la.dinv, la.mg, la.omega, la.n_grid)
-    z_lane, z_plain = la(r), plain_aux(r)
     zg = la.mg.v_cycle(la.PT @ r)
+    idx, w = la.idx, la.w
+    gather = lambda: (zg[idx] * w).sum(dim=0)  # noqa: E731  (P z before K2)
+    z_lane, z_plain = la(r), la.omega * la.dinv * r + gather()
     eps32 = torch.finfo(torch.float32).eps
-    bound = (8 * eps32 * gs.ell_spmv_reference(la.P.vals.abs(), la.P.cols, zg.abs())
-             + 2 * eps32 * z_plain.abs())
+    bound = 8 * eps32 * gs.ell_spmv_reference(w.abs(), idx, zg.abs()) + 2 * eps32 * z_plain.abs()
     apply_err = (z_lane - z_plain).abs()
-    err_p, ratio_p = k2_compact_check(gs, "LaneAuxGrid's P", la.P.vals, la.P.cols, zg)
-    idx, w = la.P.cols, la.P.vals
-    gather = lambda: (zg[idx] * w).sum(dim=0)  # noqa: E731  (the plain apply's P)
+    err_p, ratio_p = k2_compact_check(gs, "the aux grid's P", w, idx, zg)
     plain = lambda: gs.ell_spmv_reference(w, idx, zg)  # noqa: E731
     # the same product as one library call: a cuSPARSE CSR SpMV of P (timed,
     # never used)
     csr = torch.sparse_csr_tensor(torch.arange(0, idx.numel() + 1, 4, device=DEVICE),
                                   idx.T.reshape(-1).long(), w.T.reshape(-1), (n, zg.shape[0]),
                                   check_invariants=False)
-    k1, g1, l1 = time_ms(lambda: la.P @ zg, 20), time_ms(gather, 20), time_ms(lambda: csr @ zg, 20)
-    k2, g2, l2 = time_ms(lambda: la.P @ zg, 20), time_ms(gather, 20), time_ms(lambda: csr @ zg, 20)
+    interp = lambda: la.interpolate(zg)  # noqa: E731
+    k1, g1, l1 = time_ms(interp, 20), time_ms(gather, 20), time_ms(lambda: csr @ zg, 20)
+    k2, g2, l2 = time_ms(interp, 20), time_ms(gather, 20), time_ms(lambda: csr @ zg, 20)
     plain_ms = time_ms(plain, 5)
     p_ms = (k1 + k2) / 2
     m2 = zg.shape[0]
@@ -1931,7 +1945,35 @@ def phase_lane_aux(ak, gs):
         f"{lib_err:.3e}), plain {plain_ms:.4f} ms; bound {p_bound['bound_ms']:.4f} ms "
         f"({p_bound['bound_by']}, {100 * p_bound['bound_ms'] / p_ms:.0f} %)")
     check(bool((apply_err <= bound).all()), "the LaneAuxGrid apply differs from the plain apply")
-    del plain_aux, z_lane, z_plain, zg, bound, apply_err
+    del z_lane, z_plain, zg, bound, apply_err
+
+    # K2 on the grown mesh's P1 ELL: the f32 table of the inner CG and the
+    # f64 one of the outer residuals, each against its plain version, timed
+    # beside a cuSPARSE CSR SpMV of its stored entries (timed, never used)
+    # and its bounds on the entries stored and the slots read
+    Kp, nnz = E.vals.shape[0], ell_nnz(E)
+    for V, C in ((model.op.vals, model.op.cols), (E.vals, E.cols)):
+        dt = V.dtype
+        vb = V.element_size()
+        v = torch.rand(n, generator=gen, dtype=dt, device=DEVICE) - 0.5
+        err, ratio = k2_compact_check(gs, f"the grown mesh's P1 ELL ({dt})", V, C, v)
+        csr = ell_csr(V, C)
+        lib_err = (csr @ v - gs.ell_spmv_reference(V, C, v)).abs().max().item()
+        ka, ca = time_ms(lambda: gs.ell_spmv(V, C, v), 20), time_ms(lambda: csr @ v, 20)
+        kb, cb = time_ms(lambda: gs.ell_spmv(V, C, v), 20), time_ms(lambda: csr @ v, 20)
+        p_ms = time_ms(lambda: gs.ell_spmv_reference(V, C, v), 3)
+        del csr
+        ms = (ka + kb) / 2
+        b_nnz = least_time(nnz * (vb + 4) + 2 * n * vb, 2 * nnz, dt)
+        b_read = least_time(Kp * n * (vb + 4) + 2 * n * vb, 2 * Kp * n, dt)
+        log(f"25 K2 compact on the grown mesh's P1 ELL ({Kp}, {n}) {dt}: max|kernel-plain| {err:.3e} "
+            f"(max err/bound {ratio:.3e}), bitwise stable; kernel {ka:.4f} / {kb:.4f} ms, torch.sparse "
+            f"CSR {ca:.4f} / {cb:.4f} ms (max|csr-plain| {lib_err:.3e}), plain {p_ms:.4f} ms; padding "
+            f"{Kp * n / nnz:.3f} slots read per entry; bound on its {nnz} entries "
+            f"{b_nnz['bound_ms']:.4f} ms ({b_nnz['bound_by']}, {100 * b_nnz['bound_ms'] / ms:.0f} %), "
+            f"on the {Kp * n} slots it reads {b_read['bound_ms']:.4f} ms "
+            f"({100 * b_read['bound_ms'] / ms:.0f} %)")
+        del v
 
     rhs = torch.where(bnd, 0.0, 1.0).to(torch.float64) / n
     zero_launch_counts(ak, gs)

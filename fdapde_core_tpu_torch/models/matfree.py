@@ -16,9 +16,10 @@ gather-free multigrid ("banded_mg"); otherwise the auxiliary-grid V-cycle
 (ops/auxgrid.py, "auxgrid"). With ``gather_kernel="lane"`` on the aux-grid
 path the solve is mixed-precision refinement: inner CG on a float32 copy
 of the ELL, outer residuals through the full-precision ELL
-(``_lane_refined_solve``); ``aux_kernel="lane"`` there also puts the aux
-grid's interpolation P on K2 (ops/lane_aux.py). Every ELL product is the
-K2 kernel (ops/gather_spmv.py). ``MatrixFreeParabolic`` steps implicit
+(``_lane_refined_solve``); ``aux_kernel="lane"`` there also takes the
+lane grid size and names the aux grid ``LaneAuxGrid`` (ops/lane_aux.py).
+Every ELL product, the aux grid's P and P^T included, is the K2 kernel
+(ops/gather_spmv.py). ``MatrixFreeParabolic`` steps implicit
 Euler with the lumped mass on the same operator stack.
 
 Not ported yet, and raising NotImplementedError with the ROADMAP item: 3D
@@ -317,8 +318,8 @@ class MatrixFreeElliptic:
     precision) or "lane" (float32 inner solves with refinement, when the
     operator stays on the aux-grid path; the banded path ignores it).
     aux_kernel: "xla" or "lane" (with gather_kernel="lane" on the aux-grid
-    path: the aux grid's interpolation P on K2, ``LaneAuxGrid``, over a grid
-    of ``lane_friendly_grid_n`` cells a side unless grid_n is given).
+    path: the aux grid as ``LaneAuxGrid``, over a grid of
+    ``lane_friendly_grid_n`` cells a side unless grid_n is given).
     """
 
     def __init__(self, nodes, cells, boundary, order: int = 1, K=None,
@@ -354,7 +355,9 @@ class MatrixFreeElliptic:
             dofs = torch.as_tensor(cells, device=device).to(torch.int32).T.contiguous()  # (3, C)
             n_dofs = coords[0].shape[0]
             self.dof_x, self.dof_y = coords[0], coords[1]
-        else:  # the space's (nb, C) dof table, nodes then edges for P2
+        else:  # the space decides the dofs: its order, its (nb, C) table
+            # (nodes then edges for P2) and their coordinates; cells unused
+            order = _space.order
             dofs = torch.as_tensor(_space.dofs.T, device=device).to(torch.int32).contiguous()
             n_dofs = _space.n_dofs
             dc = torch.as_tensor(_space.dof_coords, device=device).to(dtype)
@@ -446,9 +449,7 @@ class MatrixFreeElliptic:
         boundary dofs and the dof coordinates come from the space."""
         if space.order not in (1, 2):
             raise ValueError(f"from_space takes order 1 or 2, got {space.order}")
-        mesh = space.mesh
-        return cls(mesh.nodes, mesh.cells, space.boundary_dofs, order=space.order,
-                   K=K, b=b, c=c, _space=space, **kw)
+        return cls(space.mesh.nodes, None, space.boundary_dofs, K=K, b=b, c=c, _space=space, **kw)
 
     def load_vector(self, f_cells):
         """Load vector from per-cell forcing values (centroid rule): P1

@@ -3,7 +3,8 @@ stencil operators, the fused coords->stencil assembly kernel (K1), Jacobi
 CG and geometric multigrid on grid stencils; the general-mesh SoA
 pipeline (P1 and P2), its assembled ELL and the ELL gather SpMV kernel
 (K2), the banded split with its multigrid, and the auxiliary-grid
-preconditioner, with its interpolation on K2 in ``LaneAuxGrid``."""
+preconditioner, both its interpolations on K2 (``LaneAuxGrid`` is its
+name on the lane path)."""
 
 from .auxgrid import AuxGridPreconditioner, interp_transpose_ell
 from .closed_form import SYM_TO_FULL, p1_stiffness_2d_sym

@@ -15,8 +15,8 @@ as an (m^2, n) sliced ELL on K2 (``ops/gather_spmv.SlicedELL``): each grid
 node's contributions are summed by one thread in increasing position of
 the flattened (4, n) table, the order ``segment_sum`` adds them in on the
 CPU, with no atomics, so the apply is bitwise the same from run to run.
-P itself is a plain gather here; ``ops/lane_aux.LaneAuxGrid`` runs it on
-K2's compact form.
+P z_g, which JAX gathers, is the (4, n) table read as a rectangular
+(n, m^2) ELL on K2's compact form (``ell_spmv``).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import math
 import numpy as np
 import torch
 
-from .gather_spmv import SlicedELL
+from .gather_spmv import SlicedELL, ell_spmv
 from .grid_dia import GridDIAMatrix
 from .grid_mg import GridMG
 
@@ -170,9 +170,11 @@ class AuxGridPreconditioner:
                           nu=mg_nu)
         return cls(idx, w, dinv, mg, omega, grid_n)
 
+    def interpolate(self, z_g):
+        """P z_g: the (4, n) table as a rectangular (n, m^2) ELL on K2."""
+        return ell_spmv(self.w, self.idx, z_g)
+
     def __call__(self, r):
         rc = self.PT @ r  # P^T r: the 4 bilinear weights per node onto the grid
         z_g = self.mg.v_cycle(rc)
-        # P z_g: gather back
-        z = (z_g[self.idx] * self.w).sum(dim=0)
-        return self.omega * self.dinv * r + z
+        return self.omega * self.dinv * r + self.interpolate(z_g)

@@ -1,13 +1,14 @@
-"""The aux-grid preconditioner with both interpolation stages on K2.
+"""The aux-grid preconditioner of the ``aux_kernel="lane"`` path.
 
 Port of ``fdapde_core_tpu/ops/lane_aux.py``. It computes what
 ``AuxGridPreconditioner`` computes,
 
     z = omega * D^{-1} r + P V(P^T r),
 
-with P, the (4, n) bilinear table read as a rectangular (n, m^2) ELL, on
-K2's compact form (``ell_spmv``), where the plain apply gathers in torch;
-P^T is the aux grid's own sliced ELL (K2, fixed order); V is its V-cycle.
+and with the same code: both interpolation stages are K2 products there
+already (P, the (4, n) bilinear table read as a rectangular (n, m^2) ELL,
+on K2's compact form; P^T the aux grid's sliced ELL, in a fixed order). What
+the lane path adds is its grid, ``lane_friendly_grid_n`` cells a side.
 
 On the TPU both stages had to be lane-routed: the grid's flat index was
 transposed to y-major so that its band lined up with strip-ordered mesh
@@ -22,9 +23,7 @@ numbering is rejected, and every entry of P^T is in its ELL. ``from_aux``'s
 
 from __future__ import annotations
 
-from .auxgrid import interp_transpose_ell
-from .gather_spmv import LaneRoutedELL
-from .matfree_soa import ELLSoA
+from .auxgrid import AuxGridPreconditioner, interp_transpose_ell
 
 __all__ = ["LaneAuxGrid", "interp_transpose_ell", "lane_friendly_grid_n"]
 
@@ -40,72 +39,22 @@ def lane_friendly_grid_n(n: int) -> int:
     return max(2, g)
 
 
-class _StagePT:
-    """v = P^T r."""
-
-    def __init__(self, PT):
-        self.PT = PT
-
-    def __call__(self, v, r):
-        return self.PT @ r
-
-
-class _StageV:
-    """v = V(v): one V-cycle of the grid multigrid."""
-
-    def __init__(self, mg):
-        self.mg = mg
-
-    def __call__(self, v, r):
-        return self.mg.v_cycle(v)
-
-
-class _StageP:
-    """z = omega * dinv * r + P v."""
-
-    def __init__(self, P, dinv, omega):
-        self.P = P
-        self.dinv = dinv
-        self.omega = omega
-
-    def __call__(self, v, r):
-        return self.omega * self.dinv * r + self.P @ v
-
-
-class LaneAuxGrid:
-    """Aux-grid preconditioner with P on K2's compact form. Drop-in for
-    AuxGridPreconditioner (``__call__``); ``split_stages`` are its three
-    stages, each called as stage(v, r), which JAX runs as separate
-    programs.
-
-    P: LaneRoutedELL (n, m^2); PT: SlicedELL (m^2, n); dinv: (n,); mg: the
-    grid's GridMG; n_grid: grid cells a side (m = n_grid + 1)."""
-
-    def __init__(self, P, PT, dinv, mg, omega, n_grid):
-        self.P = P
-        self.PT = PT
-        self.dinv = dinv
-        self.mg = mg
-        self.omega = omega
-        self.n_grid = n_grid
+class LaneAuxGrid(AuxGridPreconditioner):
+    """The aux grid under JAX's lane name: its apply is the parent's.
+    ``split_stages`` are the apply's three stages, each called as
+    stage(v, r), which JAX runs as separate programs."""
 
     @property
     def split_stages(self):
-        return (_StagePT(self.PT), _StageV(self.mg), _StageP(self.P, self.dinv, self.omega))
-
-    def __call__(self, r):
-        v = r
-        for stage in self.split_stages:
-            v = stage(v, r)
-        return v
+        return (lambda v, r: self.PT @ r,
+                lambda v, r: self.mg.v_cycle(v),
+                lambda v, r: self.omega * self.dinv * r + self.interpolate(v))
 
     @classmethod
     def from_aux(cls, aux, rounds: int = 16, max_k: int = 30, perm=None, k_cap: int = 8):
-        """From an AuxGridPreconditioner: P is its (idx, w) table, P^T its
-        sliced ELL. ``rounds``, ``max_k``, ``perm`` and ``k_cap`` tune or
-        reorder JAX's lane routing and are ignored. Raises ValueError when a
-        grid index lies outside [0, m^2)."""
-        n = aux.dinv.shape[0]
-        m2 = (aux.n_grid + 1) ** 2
-        P = LaneRoutedELL.from_ell(ELLSoA(aux.w, aux.idx, (n, m2)))
-        return cls(P, aux.PT, aux.dinv, aux.mg, aux.omega, aux.n_grid)
+        """The same preconditioner over aux's tables (no copy, P^T not
+        rebuilt). ``rounds``, ``max_k``, ``perm`` and ``k_cap`` tune or
+        reorder JAX's lane routing and are ignored."""
+        la = cls.__new__(cls)
+        la.__dict__.update(aux.__dict__)
+        return la

@@ -568,8 +568,9 @@ def test_auxgrid_and_solvers_match_jax():
         np.testing.assert_allclose(_np(t.PT @ _t(r)), np.asarray(rc), rtol=1e-6,
                                    atol=1e-6 * np.abs(np.asarray(rc)).max(), err_msg=f"{name}: P^T r")
 
-    # LaneAuxGrid (P on K2's compact form, P^T the aux grid's sliced ELL)
-    # against the port's plain apply (float32: to 1e-6 of max|z|) and
+    # LaneAuxGrid (the aux grid's apply: P on K2's compact form, P^T its
+    # sliced ELL) against the plain composition with P z as a torch gather
+    # (float32: to 1e-6 of max|z|) and
     # JAX's lane-routed apply (interpret mode, JAX's own bound 2e-5 of
     # max|z|); its three stages compose to the apply bitwise, and JAX's
     # routing arguments change nothing. interp_transpose_ell is the adjoint
@@ -592,8 +593,10 @@ def test_auxgrid_and_solvers_match_jax():
     lhs = float((z[aux.idx.long()] * aux.w.double()).sum(0) @ r64)
     assert abs(lhs - float(z @ (PT64 @ r64))) <= 1e-12 * abs(lhs), "P^T is not the adjoint of P"
     lane = LaneAuxGrid.from_aux(aux)
-    assert lane.P.shape == (nd, m2) and lane.PT is aux.PT and lane.n_grid == aux.n_grid
-    ref, got = _np(aux(_t(r))), _np(lane(_t(r)))
+    assert lane.PT is aux.PT and lane.idx is aux.idx and lane.n_grid == aux.n_grid
+    zg = aux.mg.v_cycle(aux.PT @ _t(r))
+    ref = _np(aux.omega * aux.dinv * _t(r) + (zg[aux.idx.long()] * aux.w).sum(0))
+    got = _np(lane(_t(r)))
     assert got.dtype == np.float32 and np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max(), \
         "LaneAuxGrid apply vs the plain apply"
     v = _t(r)
