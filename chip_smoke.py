@@ -133,7 +133,11 @@ Phases (each raises on failure; nothing is caught):
     (the hierarchy copied, K2's plain version) within 1 iteration of the
     card's and equal to 1e-10 max|x|; (b) the default ladder
     on a Delaunay surface lifted to z = 0.25 sin(pi x) sin(pi y) (22,801
-    dofs, 3D dof coordinates) takes the AMG rung and converges;
+    dofs, 3D dof coordinates) takes the rung the JAX package's ladder takes
+    there on the CPU, the 3D aux grid (one AuxGridPreconditioner3D built,
+    no AMG hierarchy, iterations within 10 % of JAX's 361), and converges;
+    then the same surface with solver_preconditioner="amg" builds one AMG
+    hierarchy and converges;
 22. (after 15) bench.py's gen10m banded path through the model API:
     MatrixFreePoisson on irregular_mesh_device(3200) (lattice numbering,
     10,246,401 dofs) with "auto" reads "banded_mg", converges to 1e-9
@@ -180,12 +184,41 @@ Phases (each raises on failure; nothing is caught):
     timed against a CSR SpMV, its plain version and its bounds;
     the right-hand side where(bnd, 0, 1) / n solved at rtol 1e-8 (chunk 16)
     converges with the true residual recomputed in f64, twice bitwise
-    equal. Phases 20-25 print their seconds and K2 / K6 launches by path.
+    equal;
+26. bench.py's gen3d through the model API: cube_mesh_device_soa(128, 0.2)
+    on the card (2,146,689 nodes, 12,582,912 tets, equal to
+    cube_mesh_device's arrays); MatrixFreePoisson "auto" reads "banded_mg"
+    with (W1, W2) = (129, 16,641), remainder nnz printed, the
+    BandedMGPreconditioner3D set-up and levels printed; where(bnd, 0, 1) / C
+    solved at rtol 1e-9 (f64 vectors, f32 V-cycle) converges with the true
+    residual recomputed in f64 through the plain product of the (16, n) ELL
+    within 1e-9 plus its rounding floor, twice bitwise equal; the split
+    equals the ELL within the per-row bound; Jacobi CG rates of the f32
+    folded split and the f32 ELL on K2; K2 on the (16, n) ELL in f64 and
+    f32 against its plain version within the per-row bound, timed against
+    its bound, CSR and plain; u = x + 2y - z reproduced to 1e-9 max|u|;
+27. a block-scrambled relabelling of phase 26's mesh through
+    MatrixFreeElliptic(K=1, gather_kernel="lane", "auto"): "auxgrid+lane"
+    with an AuxGridPreconditioner3D over 128^3 cells; its apply against the
+    plain composition (P z as a torch gather) within the float32 bound, K2
+    on its (8, n) P (compact) and its P^T (sliced) against their plain
+    versions, timed against their bounds, the gather / index_add_ they
+    replace, CSR and plain; load_vector(1) solved at rtol 1e-8 converges
+    (true f64 residual within 1e-8 plus its floor), twice bitwise equal,
+    and equal, relabelled, to the lattice numbering's banded solution to
+    1e-6 max|x|; MatrixFreeParabolic at n = 64 (274,625 dofs), dt = 1e-3,
+    5 steps on the banded route (lattice) and the aux-grid route
+    (scrambled): trajectories equal, relabelled, to 1e-8; PDE(unit_cube_
+    mesh(32)) (35,937 dofs) through the default ladder takes the 3D aux
+    grid (as the JAX package's does) and reproduces u = x + 2y - z to 1e-9.
+    Phases 20-27 print their seconds and K2 / K6 launches by path.
 
 Prints one JSON line of per-kernel results (each with its bound on the
 card from this run's shapes: bytes over 3.35 TB/s or operations over the
 type's peak, whichever is larger; K2's entry is the compact (9, 10.25M)
-ELL of phase 7, with the sliced form on phase 18's Psi^T under "sliced"),
+ELL of phase 7, with the sliced form on phase 18's Psi^T under "sliced",
+the 3D ELL of phase 26 under "ell_3d" and the 3D aux grid's P and P^T of
+phase 27 under "aux_3d"),
 then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device or
 without the package beside it.
@@ -225,6 +258,10 @@ SIGMAS = (1, 256, 1024, 4096)  # the sort windows phase 18 times K2's sliced for
 N_DIA = 1024  # the DIA path's unit_square_mesh: 1,050,625 dofs, 2,097,152 cells
 T_HEAT = np.linspace(0.0, 0.1, 11)  # phase 20's instants
 NX_SURFACE = 150  # phase 21b's lifted surface: 22,801 dofs
+# the JAX package's default ladder on that surface, run on the CPU: the 3D
+# aux grid rung (AuxGridPreconditioner3D over the 3D dof coordinates) and
+# its CG iterations at rtol 1e-12
+SURFACE_JAX_RUNG = ("auxgrid 3D", 361)
 N_GEN1M = 1024  # phase 22's advection-diffusion mesh (bench.py:1417-1447): 1,050,625 dofs
 CG_RATE_ITERS = 40  # phase 22's Jacobi CG rate runs (bench.py's ITERS)
 DT_MF, N_STEPS_MF = 1e-7, 5  # phase 23: dt ~ h^2 at n = 3200
@@ -239,6 +276,12 @@ N_P2_QUADRATIC = 256  # phase 24's quadratic reproduction mesh
 # (seed 11) red-refined three times on the card, then strip-renumbered
 NX_GENDEL, GENDEL_SEED, GENDEL_LEVELS, GENDEL_POP = 283, 11, 3, 5000
 GENDEL_SIZES = (5_130_225, 10_251_392, 9_056)  # nodes, cells, boundary nodes
+# phases 26-27 (bench.py's gen3d, :1988-2142): the jittered Freudenthal cube
+N_GEN3D = 128
+GEN3D_SIZES = (2_146_689, 12_582_912)  # nodes, tets
+GEN3D_ITERS = 10  # the Jacobi CG rate runs (bench.py's ITERS)
+N_PARA3D, DT_PARA3D, STEPS_PARA3D = 64, 1e-3, 5  # phase 27's MatrixFreeParabolic: 274,625 dofs
+N_CUBE_PDE = 32  # phase 27's PDE on unit_cube_mesh: 35,937 dofs
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the vector (non-tensor
 # core) peaks of the types these kernels compute in
 HBM_BYTES_PER_S = 3.35e12
@@ -565,6 +608,88 @@ def true_rel_residual(E, bnd, x, b_mod, gs):
     return (torch.linalg.norm(b_mod - Ax) / torch.linalg.norm(b_mod)).item()
 
 
+def aux_pt_table(gs, name, aux):
+    """The aux grid's P^T, K2's sliced form in float32: against its plain
+    version within width eps P^T|r| (the weights are >= 0), bitwise stable;
+    timed beside the index_add_ it replaces (atomics), a cuSPARSE CSR SpMV
+    of P^T (timed, never used), its plain version and its bound. Returns
+    the measurements."""
+    PT = aux.PT
+    r = torch.rand(PT.shape[1], generator=torch.Generator(device=DEVICE).manual_seed(SEED + 10),
+                   dtype=torch.float32, device=DEVICE) - 0.5
+    got, ref = PT @ r, gs.sliced_ell_spmm_reference(PT, r)
+    bound = PT.width * torch.finfo(torch.float32).eps * gs.sliced_ell_spmm_reference(PT, r.abs())
+    err = (got - ref).abs()
+    check(bool((err <= bound).all()), f"K2 sliced on the {name}'s P^T disagrees")
+    check(torch.equal(got, PT @ r), f"K2 sliced on the {name}'s P^T is not bitwise stable")
+    m2, nnz = PT.shape[0], aux.idx.numel()
+    scatter = lambda: torch.zeros(m2, dtype=r.dtype, device=DEVICE).index_add_(  # noqa: E731
+        0, aux.idx.reshape(-1), (aux.w * r[None, :]).reshape(-1))
+    ids = aux.idx.reshape(-1).long()
+    order = torch.sort(ids, stable=True).indices
+    crow = torch.zeros(m2 + 1, dtype=torch.int64, device=DEVICE)
+    crow[1:] = torch.cumsum(torch.bincount(ids, minlength=m2), 0)
+    csr = torch.sparse_csr_tensor(crow, order % r.shape[0], aux.w.reshape(-1)[order],
+                                  (m2, r.shape[0]), check_invariants=False)
+    del ids, order
+    lib_err = (csr @ r - ref).abs().max().item()
+    t_pt, t_ia, t_csr = time_ms(lambda: PT @ r, 20), time_ms(scatter, 20), time_ms(lambda: csr @ r, 20)
+    plain_ms = time_ms(lambda: gs.sliced_ell_spmm_reference(PT, r), 3)
+    del csr
+    # each of the d n entries once (value and column, 8 B), x and y once
+    b = least_time(nnz * 8 + (r.shape[0] + m2) * 4, 2 * nnz, torch.float32)
+    log(f"{name} P^T {PT.shape} float32, {nnz} entries, padding ratio {PT.padding_ratio():.3f}: "
+        f"K2 sliced {t_pt:.4f} ms (max|kernel-plain| {err.max().item():.3e} within the bound, "
+        f"bitwise stable), the index_add_ it replaces {t_ia:.4f} ms, torch.sparse CSR {t_csr:.4f} ms "
+        f"(max|csr-plain| {lib_err:.3e}), plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}, {100 * b['bound_ms'] / t_pt:.0f} %)")
+    return dict(max_abs_err=err.max().item(), ms=t_pt, plain_ms=plain_ms, library_ms=t_csr,
+                index_add_ms=t_ia, **b)
+
+
+def aux_p_table(gs, name, aux, r):
+    """The aux grid's apply against the plain composition on r (the same
+    P^T and V-cycle, then P z as the torch gather K2 replaced) within
+    8 eps P|z| + 2 eps |z| (float32: the two P z differ by the kernel's
+    fused multiply-adds); K2 on its (d+1..., n) P table against its plain
+    version within the per-row bound, the P stage timed against the plain
+    gather, a cuSPARSE CSR SpMV of P (timed, never used) and its plain
+    version. Returns the measurements."""
+    zg = aux.mg.v_cycle(aux.PT @ r)
+    idx, w = aux.idx, aux.w
+    K, n = idx.shape
+    gather = lambda: (zg[idx] * w).sum(dim=0)  # noqa: E731  (P z before K2)
+    z_k2, z_plain = aux(r), aux.omega * aux.dinv * r + gather()
+    eps32 = torch.finfo(torch.float32).eps
+    bound = 8 * eps32 * gs.ell_spmv_reference(w.abs(), idx, zg.abs()) + 2 * eps32 * z_plain.abs()
+    apply_err = (z_k2 - z_plain).abs()
+    check(bool((apply_err <= bound).all()), f"the {name} apply differs from the plain apply")
+    err_p, ratio_p = k2_compact_check(gs, f"the {name}'s P", w, idx, zg)
+    plain = lambda: gs.ell_spmv_reference(w, idx, zg)  # noqa: E731
+    csr = torch.sparse_csr_tensor(torch.arange(0, idx.numel() + 1, K, device=DEVICE),
+                                  idx.T.reshape(-1).long(), w.T.reshape(-1), (n, zg.shape[0]),
+                                  check_invariants=False)
+    interp = lambda: aux.interpolate(zg)  # noqa: E731
+    k1, g1, l1 = time_ms(interp, 20), time_ms(gather, 20), time_ms(lambda: csr @ zg, 20)
+    k2, g2, l2 = time_ms(interp, 20), time_ms(gather, 20), time_ms(lambda: csr @ zg, 20)
+    plain_ms = time_ms(plain, 5)
+    ms = (k1 + k2) / 2
+    m2 = zg.shape[0]
+    b = least_time(idx.numel() * 8 + (m2 + n) * 4, 2 * idx.numel(), torch.float32)
+    lib_err = (csr @ zg - gs.ell_spmv_reference(w, idx, zg)).abs().max().item()
+    del csr
+    log(f"{name} (grid {aux.n_grid}, m^d = {m2}): apply - plain apply max {apply_err.max().item():.3e}, "
+        f"max err/bound (8 eps P|z| + 2 eps |z|) "
+        f"{(apply_err / bound.clamp_min(torch.finfo(torch.float32).tiny)).max().item():.3e}; K2 compact "
+        f"on P {tuple(w.shape)} f32: max|kernel-plain| {err_p:.3e} (max err/bound {ratio_p:.3e}), bitwise "
+        f"stable; the P stage {k1:.4f} / {k2:.4f} ms against the plain gather it replaced "
+        f"{g1:.4f} / {g2:.4f} ms, torch.sparse CSR {l1:.4f} / {l2:.4f} ms (max|csr-plain| "
+        f"{lib_err:.3e}), plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}, {100 * b['bound_ms'] / ms:.0f} %)")
+    return dict(max_abs_err=err_p, ms=ms, plain_ms=plain_ms, library_ms=(l1 + l2) / 2,
+                gather_ms=(g1 + g2) / 2, **b)
+
+
 def phase_general_main_path(ak, gs):
     """MatrixFreeElliptic(gather_kernel="lane") on the scrambled n = 3200
     mesh; returns K2's launch count."""
@@ -585,38 +710,7 @@ def phase_general_main_path(ak, gs):
     log(f"general main path, the solve repeated: {its2} inner iterations in {t_solve2:.4f} s, "
         f"solution bitwise equal: {torch.equal(xs, xs2)}")
     check(its2 == its and torch.equal(xs, xs2), "the repeated lane solve differs from the first")
-    # the aux grid's P^T, K2's sliced form in float32, against its plain
-    # version, and timed beside the index_add_ it replaces (atomics)
-    PT, aux = model.aux.PT, model.aux
-    r = torch.rand(PT.shape[1], generator=torch.Generator(device=DEVICE).manual_seed(SEED + 10),
-                   dtype=torch.float32, device=DEVICE) - 0.5
-    got, ref = PT @ r, gs.sliced_ell_spmm_reference(PT, r)
-    # the bilinear weights are >= 0, so |P^T| = P^T
-    bound = PT.width * torch.finfo(torch.float32).eps * gs.sliced_ell_spmm_reference(PT, r.abs())
-    check(bool(((got - ref).abs() <= bound).all()), "K2 sliced on the aux grid's P^T disagrees")
-    check(torch.equal(got, PT @ r), "K2 sliced on the aux grid's P^T is not bitwise stable")
-    m2, nnz = PT.shape[0], aux.idx.numel()
-    scatter = lambda: torch.zeros(m2, dtype=r.dtype, device=DEVICE).index_add_(  # noqa: E731
-        0, aux.idx.reshape(-1), (aux.w * r[None, :]).reshape(-1))
-    # the same product as one library call: a cuSPARSE CSR SpMV of P^T
-    # (timed, never used)
-    ids = aux.idx.reshape(-1).long()
-    order = torch.sort(ids, stable=True).indices
-    crow = torch.zeros(m2 + 1, dtype=torch.int64, device=DEVICE)
-    crow[1:] = torch.cumsum(torch.bincount(ids, minlength=m2), 0)
-    csr = torch.sparse_csr_tensor(crow, order % r.shape[0], aux.w.reshape(-1)[order],
-                                  (m2, r.shape[0]), check_invariants=False)
-    del ids, order
-    lib_err = (csr @ r - ref).abs().max().item()
-    t_pt, t_ia, t_csr = time_ms(lambda: PT @ r, 20), time_ms(scatter, 20), time_ms(lambda: csr @ r, 20)
-    del csr
-    # each of the 4 n entries once (value and column, 8 B), x and y once
-    pt_bound = least_time(nnz * 8 + (r.shape[0] + m2) * 4, 2 * nnz, torch.float32)
-    log(f"aux grid P^T {PT.shape} float32, {nnz} entries, padding ratio "
-        f"{PT.padding_ratio():.3f}: K2 sliced {t_pt:.4f} ms (within the bound of its plain version, "
-        f"bitwise stable), the index_add_ it replaces {t_ia:.4f} ms, torch.sparse CSR {t_csr:.4f} ms "
-        f"(max|csr-plain| {lib_err:.3e}); bound {pt_bound['bound_ms']:.4f} ms "
-        f"({pt_bound['bound_by']}, {100 * pt_bound['bound_ms'] / t_pt:.0f} %)")
+    aux_pt_table(gs, "aux grid", model.aux)
 
     log(f"general main path n={N_MAIN} scrambled ({x.shape[0]} dofs, {cells.shape[0]} cells): "
         f"mesh {t_mesh:.4f} s, build (assembly + ELL + aux) {t_build:.4f} s, "
@@ -1406,27 +1500,27 @@ def phase_parabolic(ak, gs, ls, mesh):
     return out
 
 
-class AMGBuilds:
-    """Times every AMG.build while active: [(hierarchy, host seconds)]."""
+class Builds:
+    """Times every cls.build (AMG's, an aux grid's) while active:
+    [(built object, host seconds)]."""
+
+    def __init__(self, cls):
+        self.cls = cls
 
     def __enter__(self):
-        from fdapde_core_tpu_torch.linear_algebra.amg import AMG
-
-        self.raw, self.builds = AMG.__dict__["build"], []
-        bound = AMG.build
+        self.raw, self.builds = self.cls.__dict__["build"], []
+        bound = self.cls.build
 
         def timed(*args, **kwargs):
-            mg, t = synced_seconds(lambda: bound(*args, **kwargs))
-            self.builds.append((mg, t))
-            return mg
+            obj, t = synced_seconds(lambda: bound(*args, **kwargs))
+            self.builds.append((obj, t))
+            return obj
 
-        AMG.build = staticmethod(timed)
+        self.cls.build = staticmethod(timed)
         return self.builds
 
     def __exit__(self, *exc):
-        from fdapde_core_tpu_torch.linear_algebra.amg import AMG
-
-        AMG.build = self.raw
+        self.cls.build = self.raw
 
 
 def host_amg_solve(pde, mg):
@@ -1454,6 +1548,7 @@ def phase_amg(ak, gs, ls, mesh, aux_run):
     same solve on the host CPU; (b) the "auto" ladder's AMG rung on a
     lifted surface. Returns {path: (K2, K6)}."""
     import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.linear_algebra.amg import AMG
 
     x_aux, t_aux, it_aux = aux_run
     out = {}
@@ -1464,7 +1559,7 @@ def phase_amg(ak, gs, ls, mesh, aux_run):
     pde.set_forcing(2 * np.pi ** 2 * np.sin(np.pi * q[:, 0]) * np.sin(np.pi * q[:, 1]))
     pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
     _, t_init = synced_seconds(pde.init)
-    with AMGBuilds() as builds, warnings.catch_warnings(record=True) as caught:
+    with Builds(AMG) as builds, warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         x, t_solve = synced_seconds(pde.solve)
     recovered = any("escalating to GMRES" in str(w.message) for w in caught)
@@ -1505,26 +1600,52 @@ def phase_amg(ak, gs, ls, mesh, aux_run):
     check(diff_h <= 1e-10, f"the host and card AMG solutions differ by {diff_h:.3e} max|x|")
     del pde, x, mg, builds, x_h
 
-    # (b) a surface of >= 20,000 dofs: the 3D dof coordinates make the aux
-    # grid raise, so the default ladder takes the AMG rung
+    out.update(phase_surface(ak, gs, ls))
+    return out
+
+
+def phase_surface(ak, gs, ls):
+    """21b: a surface of >= 20,000 dofs with 3D dof coordinates. The
+    default ladder takes the rung the JAX package's takes there, the 3D aux
+    grid (SURFACE_JAX_RUNG), and builds no AMG hierarchy; then the same
+    surface with solver_preconditioner="amg" keeps the AMG surface path
+    driven. Returns {path: (K2, K6)}."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.linear_algebra.amg import AMG
+    from fdapde_core_tpu_torch.ops.auxgrid import AuxGridPreconditioner3D
+
+    out = {}
     pts, cells, bnd = delaunay_mesh(NX_SURFACE)
     pts3 = np.column_stack([pts, 0.25 * np.sin(np.pi * pts[:, 0]) * np.sin(np.pi * pts[:, 1])])
-    zero_launch_counts(ak, gs)
-    pde = fdt.PDE(fdt.Triangulation(pts3, cells, bnd), -fdt.laplacian(), order=1, device=DEVICE)
-    pde.set_forcing(np.ones(pde.quadrature_nodes().shape[0]))
-    pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
-    with AMGBuilds() as builds:
-        x, t_solve = synced_seconds(pde.solve)
-    info = pde.solve_info
-    k2, k6 = gs.ell_spmv_launches, ls.p1_stiffness_2d_launches
-    out["AMG surface rung"] = (k2, k6)
-    log(f"21b surface z = 0.25 sin(pi x) sin(pi y), nx={NX_SURFACE} ({pde.n_dofs} dofs, "
-        f"{pde.domain.n_cells} cells), default preconditioner: AMG hierarchies built {len(builds)} "
-        f"(levels {builds[0][0].level_sizes() if builds else None}), init + solve {t_solve:.4f} s, "
-        f"{info.iterations} iterations, converged {info.converged}; K2 launches {k2}, K6 launches {k6}")
-    check(pde.n_dofs >= 20_000 and len(builds) == 1, "the ladder did not take the AMG rung")
-    check(pde.success and bool(torch.isfinite(x).all()), "the surface AMG solve did not converge")
-    check(k2 > 0, "the surface AMG path never launched K2")
+    for pre in (None, "amg"):
+        zero_launch_counts(ak, gs)
+        pde = fdt.PDE(fdt.Triangulation(pts3, cells, bnd), -fdt.laplacian(), order=1,
+                      solver_preconditioner=pre, device=DEVICE)
+        pde.set_forcing(np.ones(pde.quadrature_nodes().shape[0]))
+        pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
+        with Builds(AMG) as amg_builds, Builds(AuxGridPreconditioner3D) as aux_builds:
+            x, t_solve = synced_seconds(pde.solve)
+        info = pde.solve_info
+        k2, k6 = gs.ell_spmv_launches, ls.p1_stiffness_2d_launches
+        path = "surface default ladder (3D aux grid)" if pre is None else "AMG surface"
+        out[path] = (k2, k6)
+        log(f"21b surface z = 0.25 sin(pi x) sin(pi y), nx={NX_SURFACE} ({pde.n_dofs} dofs, "
+            f"{pde.domain.n_cells} cells), solver_preconditioner={pre}: AMG hierarchies built "
+            f"{len(amg_builds)} (levels {amg_builds[0][0].level_sizes() if amg_builds else None}), 3D aux "
+            f"grids built {len(aux_builds)} (grid {aux_builds[0][0].n_grid if aux_builds else None}), "
+            f"init + solve {t_solve:.4f} s, {info.iterations} iterations (the JAX package's ladder on "
+            f"the CPU: {SURFACE_JAX_RUNG}), converged {info.converged}; K2 launches {k2}, K6 launches "
+            f"{k6}")
+        check(pde.success and bool(torch.isfinite(x).all()), f"the surface solve ({pre}) did not converge")
+        check(k2 > 0, f"the surface path ({pre}) never launched K2")
+        if pre is None:
+            check(pde.n_dofs >= 20_000 and len(amg_builds) == 0 and len(aux_builds) == 1,
+                  "the default ladder on the surface did not take the 3D aux grid, as JAX's does")
+            check(abs(info.iterations - SURFACE_JAX_RUNG[1]) <= SURFACE_JAX_RUNG[1] // 10,
+                  f"the 3D aux-grid surface solve took {info.iterations} iterations, JAX's "
+                  f"{SURFACE_JAX_RUNG[1]}")
+        else:
+            check(len(amg_builds) == 1 and len(aux_builds) == 0, "the AMG surface solve built no AMG")
     return out
 
 
@@ -1780,10 +1901,7 @@ def phase_p2(ak, gs, pts, cells, bnd):
     (x2, its2, _), t_solve2 = synced_seconds(lambda: model.solve(b, rtol=1e-8, maxiter=400, chunk=6))
     b_mod = torch.where(model.boundary, 0.0, b)
     rel_check = true_rel_residual(E, model.boundary, x, b_mod, gs)
-    free = (~model.boundary).to(torch.float64)
-    floor = its * torch.finfo(torch.float64).eps * (torch.linalg.norm(
-        gs.ell_spmv_reference(E.vals.abs(), E.cols, x.abs() * free) * free
-        + x.abs() * (1 - free)) / torch.linalg.norm(b_mod)).item()
+    floor = rounding_floor(gs, E, model.boundary, x, b_mod, its)
     log(f"24 P2 MatrixFreeElliptic.from_space nx={NX_PDE} ({n} dofs, {cells.shape[0]} cells), K=1, "
         f"c=1, max_degree={P2_MAX_DEGREE}: FEMSpace {t_space:.4f} s (host), set-up {t_setup:.4f} s, "
         f"peak device memory {peak_setup:.3f} GiB; ELL ({K}, {n}), {nnz} entries, padding "
@@ -1908,71 +2026,17 @@ def phase_lane_aux(ak, gs):
           "the gendel model is not on the lane aux grid")
     check(la.n_grid == lane_friendly_grid_n(n), f"aux grid {la.n_grid} != lane_friendly_grid_n")
 
-    # the LaneAuxGrid apply against the plain composition on the same r:
-    # the same P^T and V-cycle, then P z as the torch gather K2 replaced;
-    # the two P z differ by the kernel's fused multiply-adds
+    # the LaneAuxGrid apply against the plain composition on the same r,
+    # and K2 on its P
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
     r = torch.rand(n, generator=gen, dtype=torch.float32, device=DEVICE) - 0.5
-    zg = la.mg.v_cycle(la.PT @ r)
-    idx, w = la.idx, la.w
-    gather = lambda: (zg[idx] * w).sum(dim=0)  # noqa: E731  (P z before K2)
-    z_lane, z_plain = la(r), la.omega * la.dinv * r + gather()
-    eps32 = torch.finfo(torch.float32).eps
-    bound = 8 * eps32 * gs.ell_spmv_reference(w.abs(), idx, zg.abs()) + 2 * eps32 * z_plain.abs()
-    apply_err = (z_lane - z_plain).abs()
-    err_p, ratio_p = k2_compact_check(gs, "the aux grid's P", w, idx, zg)
-    plain = lambda: gs.ell_spmv_reference(w, idx, zg)  # noqa: E731
-    # the same product as one library call: a cuSPARSE CSR SpMV of P (timed,
-    # never used)
-    csr = torch.sparse_csr_tensor(torch.arange(0, idx.numel() + 1, 4, device=DEVICE),
-                                  idx.T.reshape(-1).long(), w.T.reshape(-1), (n, zg.shape[0]),
-                                  check_invariants=False)
-    interp = lambda: la.interpolate(zg)  # noqa: E731
-    k1, g1, l1 = time_ms(interp, 20), time_ms(gather, 20), time_ms(lambda: csr @ zg, 20)
-    k2, g2, l2 = time_ms(interp, 20), time_ms(gather, 20), time_ms(lambda: csr @ zg, 20)
-    plain_ms = time_ms(plain, 5)
-    p_ms = (k1 + k2) / 2
-    m2 = zg.shape[0]
-    p_bound = least_time(idx.numel() * 8 + (m2 + n) * 4, 2 * idx.numel(), torch.float32)
-    lib_err = (csr @ zg - gs.ell_spmv_reference(w, idx, zg)).abs().max().item()
-    del csr
-    log(f"25 LaneAuxGrid (grid {la.n_grid}, m^2 = {m2}): apply - plain apply max {apply_err.max().item():.3e}, "
-        f"max err/bound (8 eps P|z| + 2 eps |z|) "
-        f"{(apply_err / bound.clamp_min(torch.finfo(torch.float32).tiny)).max().item():.3e}; K2 compact "
-        f"on P {tuple(w.shape)} f32: max|kernel-plain| {err_p:.3e} (max err/bound {ratio_p:.3e}), bitwise "
-        f"stable; the P stage {k1:.4f} / {k2:.4f} ms against the plain gather it replaced "
-        f"{g1:.4f} / {g2:.4f} ms, torch.sparse CSR {l1:.4f} / {l2:.4f} ms (max|csr-plain| "
-        f"{lib_err:.3e}), plain {plain_ms:.4f} ms; bound {p_bound['bound_ms']:.4f} ms "
-        f"({p_bound['bound_by']}, {100 * p_bound['bound_ms'] / p_ms:.0f} %)")
-    check(bool((apply_err <= bound).all()), "the LaneAuxGrid apply differs from the plain apply")
-    del z_lane, z_plain, zg, bound, apply_err
+    aux_p_table(gs, "25 LaneAuxGrid", la, r)
 
     # K2 on the grown mesh's P1 ELL: the f32 table of the inner CG and the
-    # f64 one of the outer residuals, each against its plain version, timed
-    # beside a cuSPARSE CSR SpMV of its stored entries (timed, never used)
-    # and its bounds on the entries stored and the slots read
-    Kp, nnz = E.vals.shape[0], ell_nnz(E)
-    for V, C in ((model.op.vals, model.op.cols), (E.vals, E.cols)):
-        dt = V.dtype
-        vb = V.element_size()
-        v = torch.rand(n, generator=gen, dtype=dt, device=DEVICE) - 0.5
-        err, ratio = k2_compact_check(gs, f"the grown mesh's P1 ELL ({dt})", V, C, v)
-        csr = ell_csr(V, C)
-        lib_err = (csr @ v - gs.ell_spmv_reference(V, C, v)).abs().max().item()
-        ka, ca = time_ms(lambda: gs.ell_spmv(V, C, v), 20), time_ms(lambda: csr @ v, 20)
-        kb, cb = time_ms(lambda: gs.ell_spmv(V, C, v), 20), time_ms(lambda: csr @ v, 20)
-        p_ms = time_ms(lambda: gs.ell_spmv_reference(V, C, v), 3)
-        del csr
-        ms = (ka + kb) / 2
-        b_nnz = least_time(nnz * (vb + 4) + 2 * n * vb, 2 * nnz, dt)
-        b_read = least_time(Kp * n * (vb + 4) + 2 * n * vb, 2 * Kp * n, dt)
-        log(f"25 K2 compact on the grown mesh's P1 ELL ({Kp}, {n}) {dt}: max|kernel-plain| {err:.3e} "
-            f"(max err/bound {ratio:.3e}), bitwise stable; kernel {ka:.4f} / {kb:.4f} ms, torch.sparse "
-            f"CSR {ca:.4f} / {cb:.4f} ms (max|csr-plain| {lib_err:.3e}), plain {p_ms:.4f} ms; padding "
-            f"{Kp * n / nnz:.3f} slots read per entry; bound on its {nnz} entries "
-            f"{b_nnz['bound_ms']:.4f} ms ({b_nnz['bound_by']}, {100 * b_nnz['bound_ms'] / ms:.0f} %), "
-            f"on the {Kp * n} slots it reads {b_read['bound_ms']:.4f} ms "
-            f"({100 * b_read['bound_ms'] / ms:.0f} %)")
+    # f64 one of the outer residuals
+    for Ek in (model.op, E):
+        v = torch.rand(n, generator=gen, dtype=Ek.vals.dtype, device=DEVICE) - 0.5
+        k2_ell_table(gs, "25 the grown mesh's P1 ELL", Ek, v)
         del v
 
     rhs = torch.where(bnd, 0.0, 1.0).to(torch.float64) / n
@@ -1992,6 +2056,305 @@ def phase_lane_aux(ak, gs):
     check(its2 == its and torch.equal(xs, xs2), "the repeated gendel solve differs from the first")
     check(out["lane aux solve"] > 0, "the gendel path never launched K2")
     return out
+
+
+def rounding_floor(gs, E, bnd, x, b_mod, its):
+    """iterations x eps || |A~| |x| || / ||b~||: how far a CG's recurrence
+    residual may drift from its true one in f64."""
+    free = (~bnd).to(torch.float64)
+    return its * torch.finfo(torch.float64).eps * (torch.linalg.norm(
+        gs.ell_spmv_reference(E.vals.double().abs(), E.cols, x.abs() * free) * free
+        + x.abs() * (1 - free)) / torch.linalg.norm(b_mod)).item()
+
+
+def k2_ell_table(gs, name, E, v):
+    """K2's compact form on a square (K, n) ELL E at v: against its plain
+    version within the per-row bound, bitwise stable; timed against a
+    cuSPARSE CSR SpMV of its stored entries (timed, never used), its plain
+    version and its bounds on the entries stored and the slots read.
+    Returns the measurements."""
+    V, C = E.vals, E.cols
+    Kp, n = V.shape
+    nnz = ell_nnz(E)
+    vb = V.element_size()
+    err, ratio = k2_compact_check(gs, name, V, C, v)
+    csr = ell_csr(V, C)
+    lib_err = (csr @ v - gs.ell_spmv_reference(V, C, v)).abs().max().item()
+    ka, ca = time_ms(lambda: gs.ell_spmv(V, C, v), 20), time_ms(lambda: csr @ v, 20)
+    kb, cb = time_ms(lambda: gs.ell_spmv(V, C, v), 20), time_ms(lambda: csr @ v, 20)
+    p_ms = time_ms(lambda: gs.ell_spmv_reference(V, C, v), 3)
+    del csr
+    ms = (ka + kb) / 2
+    b_nnz = least_time(nnz * (vb + 4) + 2 * n * vb, 2 * nnz, V.dtype)
+    b_read = least_time(Kp * n * (vb + 4) + 2 * n * vb, 2 * Kp * n, V.dtype)
+    log(f"K2 compact on {name} ({Kp}, {n}) {V.dtype}: max|kernel-plain| {err:.3e} "
+        f"(max err/bound {ratio:.3e}), bitwise stable; kernel {ka:.4f} / {kb:.4f} ms, torch.sparse "
+        f"CSR {ca:.4f} / {cb:.4f} ms (max|csr-plain| {lib_err:.3e}), plain {p_ms:.4f} ms; padding "
+        f"{Kp * n / nnz:.3f} slots read per entry; bound on its {nnz} entries "
+        f"{b_nnz['bound_ms']:.4f} ms ({b_nnz['bound_by']}, {100 * b_nnz['bound_ms'] / ms:.0f} %), "
+        f"on the {Kp * n} slots it reads {b_read['bound_ms']:.4f} ms "
+        f"({100 * b_read['bound_ms'] / ms:.0f} %)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, library_ms=(ca + cb) / 2, **b_nnz)
+
+
+def phase_gen3d(ak, gs):
+    """bench.py's gen3d (bench.py:1988-2142) through the model API: the
+    n = 128 jittered Freudenthal cube, MatrixFreePoisson "auto" on its
+    banded split with BandedMGPreconditioner3D, the solve to 1e-9 twice,
+    the Jacobi CG rates of the split and of the ELL on K2, K2 on the
+    (16, n) 3D ELL in f64 and f32, and harmonic reproduction. Returns
+    ((x, y, z, cells, bnd), {path: K2 launches})."""
+    from fdapde_core_tpu_torch.fem.solvers import DirichletSystem
+    from fdapde_core_tpu_torch.geometry import cube_mesh_device, cube_mesh_device_soa
+    from fdapde_core_tpu_torch.linear_algebra import cg, jacobi_preconditioner
+    from fdapde_core_tpu_torch.models import MatrixFreePoisson
+    from fdapde_core_tpu_torch.ops.dia_split3d import BandedMGPreconditioner3D
+    from fdapde_core_tpu_torch.ops.matfree_soa import MatrixFreeSoA3D
+
+    out = {}
+    n = N_GEN3D
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts(ak, gs)
+    parts, t_mesh = synced_seconds(lambda: cube_mesh_device_soa(n, 0.2, dtype=torch.float64,
+                                                                device=DEVICE))
+    x, y, z, c0, c1, c2, c3, bnd = parts
+    nodes, cells = torch.stack([x, y, z], 1), torch.stack([c0, c1, c2, c3], 1)
+    stacked = cube_mesh_device(n, 0.2, dtype=torch.float64, device=DEVICE)
+    same = (torch.equal(stacked[0], nodes) and torch.equal(stacked[1], cells)
+            and torch.equal(stacked[2], bnd))
+    del stacked
+    nd, C = x.shape[0], c0.shape[0]
+    log(f"26 gen3d mesh n={n}: {nd} nodes, {C} tets, {int(bnd.sum())} boundary nodes, on the card in "
+        f"{t_mesh:.4f} s; cube_mesh_device's arrays equal: {same}")
+    check((nd, C) == GEN3D_SIZES, f"gen3d sizes {(nd, C)}")
+    check(same, "cube_mesh_device differs from cube_mesh_device_soa")
+
+    model, t_build = synced_seconds(lambda: MatrixFreePoisson(nodes, cells, bnd, device=DEVICE))
+    peak_build = torch.cuda.max_memory_allocated() / 2**30
+    S = model.op
+    R, M, W1 = S.G.shape3d
+    rem_nnz = 0 if S.rem is None else int((S.rem.vals != 0).sum())
+    bmg, t_bmg = synced_seconds(lambda: BandedMGPreconditioner3D.build(
+        S.astype(torch.float32).fold_dirichlet(bnd)))
+    log(f"26 MatrixFreePoisson (auto): preconditioner {model.preconditioner}, (W1, W2) = ({W1}, "
+        f"{M * W1}), lattice {S.G.shape3d}, {len(S.G.offsets3d)} offsets, remainder nnz {rem_nnz}"
+        f"{' (dropped)' if S.rem is None else ''}; build {t_build:.4f} s (peak device memory "
+        f"{peak_build:.3f} GiB); BandedMGPreconditioner3D set-up alone {t_bmg:.4f} s, levels "
+        f"{bmg.mg.shapes}")
+    check(model.preconditioner == "banded_mg" and (W1, M * W1) == (n + 1, (n + 1) ** 2),
+          f"gen3d route {model.preconditioner} with (W1, W2) = ({W1}, {M * W1})")
+    check(bmg.mg.shapes == model.aux.mg.shapes, "the BandedMG levels differ between builds")
+    del bmg
+
+    rhs = torch.where(bnd, 0.0, 1.0).to(torch.float64) / C
+    zero_launch_counts(ak, gs)
+    (xs, its, rel), t_solve = synced_seconds(lambda: model.solve(rhs, rtol=1e-9, maxiter=100))
+    out["gen3d banded Poisson"] = gs.ell_spmv_launches
+    (xs2, its2, _), t_solve2 = synced_seconds(lambda: model.solve(rhs, rtol=1e-9, maxiter=100))
+
+    # the assembled (16, n) ELL: the exact-split witness, the true residual
+    # and K2's tables
+    op, _ = MatrixFreeSoA3D.build(x, y, z, c0, c1, c2, c3, nd, 24)
+    (E64, overc), t_ell = synced_seconds(lambda: op.to_ell(16))
+    del op
+    peak_ell = torch.cuda.max_memory_allocated() / 2**30
+    check(not bool(overc), "the 3D ELL exceeds 16 columns")
+    b_mod = torch.where(bnd, 0.0, rhs)
+    rel_check = true_rel_residual(E64, bnd, xs, b_mod, gs)
+    floor = rounding_floor(gs, E64, bnd, xs, b_mod, its)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    v = torch.rand(nd, generator=gen, dtype=torch.float64, device=DEVICE) - 0.5
+    ref = gs.ell_spmv_reference(E64.vals, E64.cols, v)
+    bound = 16 * torch.finfo(torch.float64).eps * gs.ell_spmv_reference(E64.vals.abs(), E64.cols,
+                                                                         v.abs())
+    split_err = (S @ v - ref).abs()
+    log(f"26 banded solve rtol 1e-9: {t_solve:.4f} s / {t_solve2:.4f} s (again), {its} / {its2} "
+        f"iterations, true rel residual {float(rel):.4e} (recomputed in f64 through the plain ELL "
+        f"product {rel_check:.4e}, rounding floor {floor:.3e}), solutions bitwise equal "
+        f"{torch.equal(xs, xs2)}; K2 launches {out['gen3d banded Poisson']}; the (16, {nd}) ELL built "
+        f"in {t_ell:.4f} s (peak device memory {peak_ell:.3f} GiB); max|split @ v - ELL @ v (plain)| "
+        f"{split_err.max().item():.3e}, within the per-row bound {bool((split_err <= bound).all())}")
+    check(float(rel) <= 1e-9 and rel_check <= 1e-9 + floor and bool(torch.isfinite(xs).all()),
+          "the gen3d banded solve did not reach 1e-9")
+    check(its2 == its and torch.equal(xs, xs2), "the repeated gen3d solve differs from the first")
+    check(bool((split_err <= bound).all()), "the 3D split differs from the ELL")
+    del xs, xs2, v, ref, bound, split_err
+
+    # Jacobi CG rates (bench.py's gen3d_dia_cg_iters_per_s): the float32
+    # folded split against the float32 ELL on K2
+    F32 = S.astype(torch.float32).fold_dirichlet(bnd)
+    F32 = F32 if rem_nnz else F32.drop_empty_remainder()
+    E32 = E64.astype(torch.float32)
+    rhs32 = rhs.to(torch.float32)
+    rates = {}
+    for name, A in (("folded split", F32), ("ELL (K2)", E32)):
+        sysd = DirichletSystem(A, bnd)
+        jac = jacobi_preconditioner(sysd.diagonal())
+        cg(sysd, rhs32, M_inv=jac, rtol=0.0, maxiter=3)
+        (_, info_r), t_r = synced_seconds(lambda: cg(sysd, rhs32, M_inv=jac, rtol=0.0,
+                                                     maxiter=2 * GEN3D_ITERS))
+        rates[name] = 2 * GEN3D_ITERS / t_r
+        check(info_r.iterations == 2 * GEN3D_ITERS, f"the {name} CG rate run")
+    L = len(F32.G.offsets3d)
+    RW = R * M * W1
+    log(f"26 Jacobi CG rates float32, {2 * GEN3D_ITERS} iterations (one host read each): folded "
+        f"split {rates['folded split']:.2f} it/s ({((L + 1) * RW * 4 + 10 * nd * 4) * rates['folded split'] / 1e9:.1f} "
+        f"GB/s as bench.py counts), ELL on K2 {rates['ELL (K2)']:.2f} it/s "
+        f"({(16 * 8 + 10 * 4) * nd * rates['ELL (K2)'] / 1e9:.1f} GB/s)")
+    del F32, sysd
+
+    # K2 on the (16, n) 3D ELL, f64 (the outer residuals) and f32
+    tables = {}
+    for Ek in (E64, E32):
+        v = torch.rand(nd, generator=gen, dtype=Ek.vals.dtype, device=DEVICE) - 0.5
+        tables[str(Ek.vals.dtype)] = k2_ell_table(gs, "26 the 3D ELL", Ek, v)
+    del E32, v
+
+    # harmonic u = x + 2y - z reproduced through the boundary data
+    u = x + 2 * y - z
+    zero_launch_counts(ak, gs)
+    # at n = 128 the error is ~200x the relative residual (1.1e-9 at 5e-12)
+    (xh, ith, relh), t_h = synced_seconds(lambda: model.solve(torch.zeros_like(u), g=u, rtol=1e-13,
+                                                              maxiter=60))
+    out["gen3d harmonic"] = gs.ell_spmv_launches
+    errh = ((xh - u).abs().max() / u.abs().max()).item()
+    log(f"26 harmonic u = x + 2y - z: max|x - u| / max|u| = {errh:.3e} ({ith} iterations in "
+        f"{t_h:.4f} s, rel {float(relh):.3e}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(errh <= 1e-9, "gen3d does not reproduce x + 2y - z to 1e-9")
+    del model, S, E64, xh, u
+    return (x, y, z, cells, bnd), out, tables
+
+
+def phase_aux3d(ak, gs, mesh):
+    """The 3D aux-grid route and the rest of 3D: MatrixFreeElliptic(K=1,
+    gather_kernel="lane") on a block-scrambled relabelling of phase 26's
+    mesh ("auxgrid+lane" over an AuxGridPreconditioner3D), its apply and
+    K2 on its P and P^T, the solve to 1e-8 twice, equal to the lattice
+    numbering's solution; MatrixFreeParabolic at n = 64 on both routes;
+    PDE(unit_cube_mesh(32)) through the default ladder. Returns {path:
+    K2 launches} and the P / P^T measurements."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.geometry import cube_mesh_device, unit_cube_mesh
+    from fdapde_core_tpu_torch.linear_algebra.amg import AMG
+    from fdapde_core_tpu_torch.models import MatrixFreeElliptic, MatrixFreeParabolic
+    from fdapde_core_tpu_torch.ops.auxgrid import AuxGridPreconditioner3D
+    from fdapde_core_tpu_torch.ops.dia_split3d import plan_split_3d
+
+    out = {}
+    x, y, z, cells, bnd = mesh
+    nd, C = x.shape[0], cells.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    p, pinv = scramble_perm(nd, *SCRAMBLE)
+    coords_s = (x[pinv], y[pinv], z[pinv])
+    cells_s, bnd_s = p[cells.long()].to(torch.int32), bnd[pinv]
+    zero_launch_counts(ak, gs)
+    model, t_build = synced_seconds(lambda: MatrixFreeElliptic(
+        coords_s, cells_s, bnd_s, K=1.0, gather_kernel="lane", preconditioner="auto", device=DEVICE))
+    peak_build = torch.cuda.max_memory_allocated() / 2**30
+    aux = model.aux
+    E = model.op_ref
+    plan = plan_split_3d(E)
+    log(f"27 MatrixFreeElliptic K=1, gather_kernel='lane', 'auto' on the block-scrambled relabelling "
+        f"{SCRAMBLE} of phase 26's mesh ({nd} dofs): preconditioner {model.preconditioner}, "
+        f"plan_split_3d {plan}, {type(aux).__name__} over {aux.n_grid}^3 cells (MG levels "
+        f"{aux.mg.shapes}), ELL {tuple(E.vals.shape)}; build {t_build:.4f} s (peak device memory "
+        f"{peak_build:.3f} GiB)")
+    check(model.preconditioner == "auxgrid+lane" and isinstance(aux, AuxGridPreconditioner3D)
+          and aux.n_grid == N_GEN3D and plan == (None, None), "the scrambled cube's route")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    r = torch.rand(nd, generator=gen, dtype=torch.float32, device=DEVICE) - 0.5
+    tables = {"P": aux_p_table(gs, "27 the 3D aux grid", aux, r),
+              "P^T": aux_pt_table(gs, "27 the 3D aux grid", aux)}
+    del r
+
+    b = model.load_vector(torch.ones(C, dtype=torch.float64, device=DEVICE))
+    zero_launch_counts(ak, gs)
+    (xs, its, rel), t_solve = synced_seconds(lambda: model.solve(b, rtol=1e-8, maxiter=400))
+    out["3D aux grid lane solve"] = gs.ell_spmv_launches
+    (xs2, its2, _), t_solve2 = synced_seconds(lambda: model.solve(b, rtol=1e-8, maxiter=400))
+    b_mod = torch.where(bnd_s, 0.0, b)
+    rel_check = true_rel_residual(E, bnd_s, xs, b_mod, gs)
+    floor = rounding_floor(gs, E, bnd_s, xs, b_mod, its)
+    log(f"27 lane solve rtol 1e-8: {t_solve:.4f} s / {t_solve2:.4f} s (again), {its} / {its2} inner "
+        f"iterations, true rel residual {rel:.4e} (recomputed in f64 through the plain ELL product "
+        f"{rel_check:.4e}, rounding floor {floor:.3e}), solutions bitwise equal "
+        f"{torch.equal(xs, xs2)}; K2 launches {out['3D aux grid lane solve']}")
+    check(rel <= 1e-8 and rel_check <= 1e-8 + floor and bool(torch.isfinite(xs).all()),
+          "the 3D aux-grid solve did not reach 1e-8")
+    check(its2 == its and torch.equal(xs, xs2), "the repeated 3D aux-grid solve differs from the first")
+    check(out["3D aux grid lane solve"] > 0, "the 3D aux-grid path never launched K2")
+    del model, E, aux, xs2, b, b_mod
+    torch.cuda.empty_cache()
+
+    # the same problem on the lattice numbering ("auto" takes the banded split)
+    zero_launch_counts(ak, gs)
+    ml = MatrixFreeElliptic((x, y, z), cells, bnd, K=1.0, gather_kernel="lane", device=DEVICE)
+    bl = ml.load_vector(torch.ones(C, dtype=torch.float64, device=DEVICE))
+    (xl, itl, rell), t_l = synced_seconds(lambda: ml.solve(bl, rtol=1e-10, maxiter=100))
+    out["3D lattice banded solve"] = gs.ell_spmv_launches
+    diff = ((xs - xl[pinv]).abs().max() / xl.abs().max()).item()
+    log(f"27 the lattice numbering ({ml.preconditioner}): {itl} iterations in {t_l:.4f} s to rel "
+        f"{float(rell):.3e}; max|x_scrambled - x_lattice (relabelled)| / max|x| = {diff:.3e}")
+    check(ml.preconditioner == "banded_mg" and diff <= 1e-6, "the two numberings' solutions differ")
+    del ml, xl, xs, bl, coords_s, cells_s, bnd_s
+    torch.cuda.empty_cache()
+
+    # MatrixFreeParabolic at n = 64: the banded route on the lattice, the
+    # aux-grid route on a scrambled relabelling; trajectories equal
+    nodes6, cells6, bnd6 = cube_mesh_device(N_PARA3D, 0.2, dtype=torch.float64, device=DEVICE)
+    n6 = nodes6.shape[0]
+    p6, pinv6 = scramble_perm(n6, *SCRAMBLE)
+    trajectories = {}
+    for route, (nodes_r, cells_r, bnd_r) in (
+            ("banded_mg", (nodes6, cells6, bnd6)),
+            ("auxgrid", (nodes6[pinv6], p6[cells6.long()].to(torch.int32), bnd6[pinv6]))):
+        zero_launch_counts(ak, gs)
+        mp, t_b = synced_seconds(lambda: MatrixFreeParabolic(nodes_r, cells_r, bnd_r, DT_PARA3D,
+                                                             device=DEVICE))
+        u0 = (torch.sin(np.pi * nodes_r[:, 0]) * torch.sin(np.pi * nodes_r[:, 1])
+              * torch.sin(np.pi * nodes_r[:, 2]))
+        (u, info), t_s = synced_seconds(lambda: mp.solve(u0, STEPS_PARA3D, rtol=1e-11, maxiter=400,
+                                                         keep_trajectory=True))
+        path = f"3D MatrixFreeParabolic {route}"
+        out[path] = gs.ell_spmv_launches
+        trajectories[route] = info["trajectory"]
+        log(f"27 MatrixFreeParabolic n={N_PARA3D} ({n6} dofs) dt={DT_PARA3D:g}, {STEPS_PARA3D} steps "
+            f"at rtol 1e-11: preconditioner {mp.preconditioner} ({type(mp.aux).__name__}); build "
+            f"{t_b:.4f} s, steps {t_s:.4f} s, iterations {info['iterations']}, true rel residuals "
+            f"max {max(info['rel_residuals']):.3e}; K2 launches {out[path]}")
+        check(mp.preconditioner == route and max(info["rel_residuals"]) <= 1e-11,
+              f"MatrixFreeParabolic 3D {route}")
+        del mp
+    ub = trajectories["banded_mg"]
+    diffp = ((trajectories["auxgrid"] - ub[pinv6]).abs().max() / ub.abs().max()).item()
+    log(f"27 MatrixFreeParabolic: max|u_aux - u_banded (relabelled)| / max|u| over the trajectory "
+        f"= {diffp:.3e}")
+    check(diffp <= 1e-8, "the 3D parabolic routes disagree")
+    del nodes6, cells6, bnd6, trajectories, ub
+    torch.cuda.empty_cache()
+
+    # the PDE API on unit_cube_mesh(32): the default ladder takes the 3D
+    # aux grid (as the JAX package's does, tests/test_torch_pde.py), and
+    # u = x + 2y - z is reproduced
+    mesh32 = unit_cube_mesh(N_CUBE_PDE)
+    zero_launch_counts(ak, gs)
+    pde = fdt.PDE(mesh32, -fdt.laplacian(), order=1, device=DEVICE)
+    c = pde.dof_coords()
+    g = c[:, 0] + 2 * c[:, 1] - c[:, 2]
+    pde.set_dirichlet_bc(g)
+    pde.set_forcing(np.zeros(pde.quadrature_nodes().shape[0]))
+    with Builds(AMG) as amg_builds, Builds(AuxGridPreconditioner3D) as aux_builds:
+        xp, t_p = synced_seconds(pde.solve)
+    out["3D PDE default ladder"] = gs.ell_spmv_launches
+    errp = np.abs(xp.cpu().numpy().reshape(-1) - g).max() / np.abs(g).max()
+    log(f"27 PDE(unit_cube_mesh({N_CUBE_PDE})) ({pde.n_dofs} dofs, {mesh32.n_cells} tets), default "
+        f"preconditioner: 3D aux grids built {len(aux_builds)}, AMG hierarchies {len(amg_builds)}; "
+        f"init + solve {t_p:.4f} s, {pde.solve_info.iterations} iterations; max|x - u| / max|u| = "
+        f"{errp:.3e}; K2 launches {out['3D PDE default ladder']}")
+    check(len(aux_builds) == 1 and len(amg_builds) == 0, "the 3D PDE did not take the 3D aux grid")
+    check(pde.success and errp <= 1e-9, "the 3D PDE does not reproduce x + 2y - z to 1e-9")
+    return out, tables
 
 
 def timed_phase(number, fn):
@@ -2091,7 +2454,14 @@ def main():
     torch.cuda.empty_cache()
     new_paths.update({path: (k2, 0) for path, k2 in
                       timed_phase(25, lambda: phase_lane_aux(ak, gs)).items()})
-    log("K2 / K6 launches by path of phases 20-25: " + "; ".join(
+    torch.cuda.empty_cache()
+    mesh3d, k2_gen3d, tables_gen3d = timed_phase(26, lambda: phase_gen3d(ak, gs))
+    new_paths.update({path: (k2, 0) for path, k2 in k2_gen3d.items()})
+    torch.cuda.empty_cache()
+    k2_aux3d, tables_aux3d = timed_phase(27, lambda: phase_aux3d(ak, gs, mesh3d))
+    new_paths.update({path: (k2, 0) for path, k2 in k2_aux3d.items()})
+    del mesh3d
+    log("K2 / K6 launches by path of phases 20-27: " + "; ".join(
         f"{path} {k2} / {k6}" for path, (k2, k6) in new_paths.items()))
     k2_launches += sum(k2 for k2, _ in new_paths.values())
     k6_launches += sum(k6 for _, k6 in new_paths.values())
@@ -2111,6 +2481,8 @@ def main():
         launches=k2_launches,
         **k2,
         sliced=k2_sliced,
+        ell_3d={"float64": tables_gen3d["torch.float64"], "float32": tables_gen3d["torch.float32"]},
+        aux_3d=tables_aux3d,
     ), dict(
         name="p1_stiffness_2d",
         route="cuda",

@@ -85,7 +85,8 @@ def solve_elliptic(A, b, mask, g, symmetric=True, rtol=1e-12, maxiter=None,
 
     CG when the operator is symmetric, BiCGStab otherwise. preconditioner:
     None (Jacobi), a callable M_inv(r), ("auxgrid", dof_coords) for the
-    auxiliary structured-grid V-cycle (``ops/auxgrid.py``, 2D), or "amg"
+    auxiliary structured-grid V-cycle (``ops/auxgrid.py``; 3D dof
+    coordinates take ``AuxGridPreconditioner3D``), or "amg"
     (an SA-AMG V-cycle of the masked operator, ``linear_algebra/amg.py``,
     set up on the host). When the Krylov solve reports
     converged=False and ``recovery`` is set, escalate once to GMRES(50)
@@ -95,15 +96,12 @@ def solve_elliptic(A, b, mask, g, symmetric=True, rtol=1e-12, maxiter=None,
     if preconditioner == "amg":
         pre = AMG.build(masked_matrix(A, mask)).v_cycle
     elif isinstance(preconditioner, tuple) and preconditioner[0] == "auxgrid":
-        from ..ops.auxgrid import AuxGridPreconditioner
+        from ..ops.auxgrid import AuxGridPreconditioner, AuxGridPreconditioner3D
 
         coords = preconditioner[1]
-        if coords.shape[1] != 2:
-            raise NotImplementedError(
-                "the 3D auxiliary grid (AuxGridPreconditioner3D) is not ported yet: "
-                "ROADMAP queue 1, slice 4")
+        cls = AuxGridPreconditioner3D if coords.shape[1] == 3 else AuxGridPreconditioner
         diag = sys.diagonal()
-        pre = AuxGridPreconditioner.build(coords, diag, device=diag.device)
+        pre = cls.build(coords, diag, device=diag.device)
     else:
         pre = preconditioner or jacobi_preconditioner(sys.diagonal())
     b_mod = sys.rhs(b, g)

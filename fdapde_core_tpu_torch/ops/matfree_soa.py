@@ -1,12 +1,14 @@
-"""SoA (cell axis last) general gather pipeline, 2D P1 and P2.
+"""SoA (cell axis last) general gather pipeline: 2D P1 and P2, 3D P1.
 
-Port of the 2D parts of ``fdapde_core_tpu/ops/matfree_soa.py``: per-cell
-closed-form local stiffness from per-corner (C,) gathers, a (D, n)
-slot-major incidence table, the matrix-free operator over it, and its
-conversion to an assembled (K, n) row-ELL whose SpMV is the K2 kernel
+Port of ``fdapde_core_tpu/ops/matfree_soa.py``: per-cell closed-form local
+stiffness from per-corner (C,) gathers, a (D, n) slot-major incidence
+table, the matrix-free operator over it, and its conversion to an
+assembled (K, n) row-ELL whose SpMV is the K2 kernel
 (``ops/gather_spmv.ell_spmv``). The P2 operator (``MatrixFreeP2SoA``)
 stores the same three per-cell scalars as P1 and rebuilds its 6 x 6 local
-matrix from universal tables (``_p2_tables``) in every product.
+matrix from universal tables (``_p2_tables``) in every product. The tet
+operator (``MatrixFreeSoA3D``) stores six off-diagonals per cell, the
+diagonal coming from the zero row sums of its diffusion part.
 
 Index types follow the JAX package: corner ids, incidence positions and ELL
 columns are int32 (the largest intermediate, ``(slot*nb + j)*C + cell``,
@@ -26,9 +28,11 @@ from .gather_spmv import accumulation_dtype, ell_spmv
 __all__ = [
     "p1_offdiag_soa",
     "p1_general_soa",
+    "p1_general_soa_3d",
     "p2_primitives_soa",
     "build_adjacency_soa",
     "MatrixFreeSoA",
+    "MatrixFreeSoA3D",
     "MatrixFreeP2SoA",
     "ELLSoA",
     "ell_from_op_blocked",
@@ -537,8 +541,207 @@ class MatrixFreeP2SoA:
 
 
 def ell_from_op_blocked(op, max_cols: int, blocks: int = 8):
-    """``op.to_ell(max_cols)`` for a MatrixFreeSoA or MatrixFreeP2SoA. The
+    """``op.to_ell(max_cols)`` for a MatrixFreeSoA, MatrixFreeSoA3D or
+    MatrixFreeP2SoA. The
     JAX package splits the conversion into ``blocks`` row blocks to bound
     each TPU program's run time; one pass gives the identical result here,
     so ``blocks`` is ignored. Returns (ELLSoA, overflowed)."""
     return op.to_ell(max_cols)
+
+
+# 3D: the tet path in cell-axis-last layouts. Six off-diagonal arrays per
+# cell (diagonals from the zero row sums of the diffusion part), the shared
+# (D, n) slot-major incidence table, assembled (K, n) ELL.
+
+
+def p1_general_soa_3d(x, y, z, c0, c1, c2, c3, kxx=None, kxy=None, kxz=None,
+                      kyy=None, kyz=None, kzz=None, bx=None, by=None,
+                      bz=None, react=None):
+    """Per-cell primitives of the P1 tet advection-diffusion-reaction local
+    matrix
+
+        A_ij = vol (g_i . K g_j) + (vol/4) (b . g_j) + c vol/20 (1 + d_ij)
+
+    with per-cell (C,) coefficients or None (kxx alone: isotropic). With
+    edge vectors e_k = p_k - p_0 and det = e1 . (e2 x e3), the scaled
+    gradients are G1 = e2 x e3, G2 = e3 x e1, G3 = e1 x e2,
+    G0 = -(G1 + G2 + G3), g_i = G_i / det.
+
+    Returns (sd, w, r): sd (6, C) diffusion off-diagonals in pair order
+    (01, 02, 03, 12, 13, 23); w (4, C) advection column weights
+    (vol/4)(b . g_j) or None; r (C,) reaction weight c vol/20 or None.
+    """
+    x0, x1, x2, x3 = x[c0], x[c1], x[c2], x[c3]
+    y0, y1, y2, y3 = y[c0], y[c1], y[c2], y[c3]
+    z0, z1, z2, z3 = z[c0], z[c1], z[c2], z[c3]
+    e1 = (x1 - x0, y1 - y0, z1 - z0)
+    e2 = (x2 - x0, y2 - y0, z2 - z0)
+    e3 = (x3 - x0, y3 - y0, z3 - z0)
+
+    def cross(a, b):
+        return (a[1] * b[2] - a[2] * b[1],
+                a[2] * b[0] - a[0] * b[2],
+                a[0] * b[1] - a[1] * b[0])
+
+    def dot(a, b):
+        return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+    G1 = cross(e2, e3)
+    G2 = cross(e3, e1)
+    G3 = cross(e1, e2)
+    det = dot(e1, G1)  # 6 * signed volume
+    sgn = torch.sign(det)
+    scale = sgn / (6.0 * det)  # vol / det^2
+
+    if kxx is None:
+        kxx = 1.0
+    if kyy is None:
+        kyy = kxx  # isotropic when only kxx given
+    if kzz is None:
+        kzz = kxx
+    if kxy is None:
+        kxy = 0.0
+    if kxz is None:
+        kxz = 0.0
+    if kyz is None:
+        kyz = 0.0
+
+    def KG(g):
+        return (kxx * g[0] + kxy * g[1] + kxz * g[2],
+                kxy * g[0] + kyy * g[1] + kyz * g[2],
+                kxz * g[0] + kyz * g[1] + kzz * g[2])
+
+    K1, K2, K3 = KG(G1), KG(G2), KG(G3)
+    G0 = tuple(-(a + b + c) for a, b, c in zip(G1, G2, G3))
+    sd = torch.stack([
+        scale * dot(G0, K1), scale * dot(G0, K2), scale * dot(G0, K3),
+        scale * dot(G1, K2), scale * dot(G1, K3), scale * dot(G2, K3),
+    ])
+
+    w = None
+    if bx is not None or by is not None or bz is not None:
+        bvec = tuple(0.0 if v is None else v for v in (bx, by, bz))
+        # (vol/4)(b . g_j) = sgn/24 * (b . G_j)
+        w = torch.stack([(sgn / 24.0) * dot(bvec, G) for G in (G0, G1, G2, G3)])
+
+    r = None
+    if react is not None:
+        vol = sgn * det / 6.0
+        r = react * vol / 20.0
+    return sd, w, r
+
+
+# pair order of the six off-diagonals
+_TET_PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+
+
+class MatrixFreeSoA3D:
+    """Matrix-free P1 tet operator in SoA layout.
+
+    s: (6, C) off-diagonals in _TET_PAIRS order; c: (4, C) corner ids;
+    adj/adj_mask: (D, n) slot-major incidence; w: (4, C) advection column
+    weights or None; r: (C,) reaction weight or None. Operator protocol
+    (@, diagonal, astype, to_ell) of MatrixFreeSoA.
+    """
+
+    def __init__(self, s, c, adj, adj_mask, n_dofs: int, w=None, r=None):
+        self.s = s
+        self.c = c
+        self.adj = adj
+        self.adj_mask = adj_mask
+        self.n_dofs = n_dofs
+        self.w = w
+        self.r = r
+
+    @classmethod
+    def build(cls, x, y, z, c0, c1, c2, c3, n_dofs: int, max_degree: int, kappa=None):
+        """Pure-diffusion operator; returns (op, overflowed)."""
+        sd, _, _ = p1_general_soa_3d(x, y, z, c0, c1, c2, c3, kxx=kappa)
+        c = torch.stack([c0, c1, c2, c3])
+        adj, mask, over = build_adjacency_soa(c.reshape(-1), n_dofs, max_degree)
+        return cls(sd, c, adj, mask, n_dofs), over
+
+    @classmethod
+    def build_general(cls, x, y, z, c0, c1, c2, c3, n_dofs: int, max_degree: int,
+                      kxx=None, kxy=None, kxz=None, kyy=None, kyz=None, kzz=None,
+                      bx=None, by=None, bz=None, react=None):
+        """Advection-diffusion-reaction tet operator (non-symmetric when b
+        is given); returns (op, overflowed)."""
+        sd, w, r = p1_general_soa_3d(x, y, z, c0, c1, c2, c3, kxx, kxy, kxz, kyy, kyz, kzz,
+                                     bx, by, bz, react)
+        c = torch.stack([c0, c1, c2, c3])
+        adj, mask, over = build_adjacency_soa(c.reshape(-1), n_dofs, max_degree)
+        return cls(sd, c, adj, mask, n_dofs, w=w, r=r), over
+
+    @property
+    def is_symmetric(self):
+        return self.w is None
+
+    @property
+    def shape(self):
+        return (self.n_dofs, self.n_dofs)
+
+    def _offdiag(self, i, j):
+        return self.s[_TET_PAIRS.index((min(i, j), max(i, j)))]
+
+    def _entries(self):
+        """The 16 local-matrix entries, (4, 4) of (C,) tensors."""
+        A = [[None] * 4 for _ in range(4)]
+        for i in range(4):
+            for j in range(4):
+                if i != j:
+                    A[i][j] = self._offdiag(i, j)
+        for i in range(4):
+            A[i][i] = -sum(A[i][j] for j in range(4) if j != i)
+        if self.w is not None:
+            for i in range(4):
+                for j in range(4):
+                    A[i][j] = A[i][j] + self.w[j]
+        if self.r is not None:
+            for i in range(4):
+                for j in range(4):
+                    A[i][j] = A[i][j] + (2.0 if i == j else 1.0) * self.r
+        return A
+
+    def __matmul__(self, v):
+        xe = [v[self.c[j]] for j in range(4)]  # four (C,) gathers
+        ye = []
+        for i in range(4):
+            off = [self._offdiag(i, j) for j in range(4) if j != i]
+            xs = [xe[j] for j in range(4) if j != i]
+            acc = -(off[0] + off[1] + off[2]) * xe[i]
+            for sij, xj in zip(off, xs):
+                acc = acc + sij * xj
+            ye.append(acc)
+        if self.w is not None:  # row-constant: one shared dot per cell
+            adv = self.w[0] * xe[0] + self.w[1] * xe[1] + self.w[2] * xe[2] + self.w[3] * xe[3]
+            ye = [yi + adv for yi in ye]
+        if self.r is not None:
+            sx = xe[0] + xe[1] + xe[2] + xe[3]
+            ye = [yi + self.r * (sx + xe[i]) for i, yi in enumerate(ye)]
+        return _combine(ye, self.adj, self.adj_mask)
+
+    def diagonal(self):
+        d = []
+        for i in range(4):
+            off = [self._offdiag(i, j) for j in range(4) if j != i]
+            di = -(off[0] + off[1] + off[2])
+            if self.w is not None:
+                di = di + self.w[i]
+            if self.r is not None:
+                di = di + 2.0 * self.r
+            d.append(di)
+        return _combine(d, self.adj, self.adj_mask)
+
+    def astype(self, dtype):
+        return MatrixFreeSoA3D(
+            self.s.to(dtype), self.c, self.adj, self.adj_mask, self.n_dofs,
+            w=None if self.w is None else self.w.to(dtype),
+            r=None if self.r is None else self.r.to(dtype),
+        )
+
+    def to_ell(self, max_cols: int):
+        """Assembled (K, n) row-ELL (sorted merge over (4 D, n)
+        candidates); returns (ELLSoA, overflowed)."""
+        return _ell_from_entries(self._entries(), self.c, self.adj,
+                                 self.adj_mask, self.n_dofs, max_cols)

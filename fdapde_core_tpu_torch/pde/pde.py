@@ -39,8 +39,9 @@ class PDE:
     """An initialized boundary-value problem over a mesh.
 
     solver_preconditioner (elliptic solves): None (Jacobi below 20,000
-    dofs, "auto" above), "auto" (the auxiliary grid, and SA-AMG where the
-    auxiliary grid fails to build or solve, e.g. for 3D dof coordinates),
+    dofs, "auto" above), "auto" (the auxiliary grid, 2D or 3D after the dof
+    coordinates, and SA-AMG where the auxiliary grid fails to build or
+    solve),
     "auxgrid", "amg" or a callable M_inv(r). Parabolic solves take Jacobi.
     """
 
@@ -196,9 +197,9 @@ class PDE:
         g = torch.as_tensor(g, device=self.device).to(self.dtype)
 
         # preconditioner selection. "auto" (also the default beyond
-        # _AUTO_PRECOND_DOFS): the auxiliary grid first, then SA-AMG for
-        # domains no covering grid preconditions (an aux-grid build or
-        # solve failure, e.g. 3D dof coordinates)
+        # _AUTO_PRECOND_DOFS): the auxiliary grid first (3D dof coordinates
+        # take the 3D grid), then SA-AMG for domains no covering grid
+        # preconditions (an aux-grid build or solve failure)
         precond = self.solver_preconditioner
         auto = precond == "auto" or (precond is None and self.space.n_dofs >= _AUTO_PRECOND_DOFS)
         if precond == "auxgrid" or auto:

@@ -181,6 +181,20 @@ def test_closed_form_matches_jax():
     np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
     assert tcf.SYM_TO_FULL == jcf.SYM_TO_FULL
 
+    # the tet form, from the edge vectors of random positive tets, to 1e-13
+    # of the largest entry; pack_cell_axis reshapes alike
+    p = rng.uniform(size=(4, 3, 256))
+    edges = np.concatenate([p[1] - p[0], p[2] - p[0], p[3] - p[0]])
+    ref = np.asarray(jcf.p1_stiffness_3d_sym(jnp.asarray(edges)))
+    got = tcf.p1_stiffness_3d_sym(torch.from_numpy(edges)).numpy()
+    assert got.shape == ref.shape == (10, 256)
+    assert np.abs(got - ref).max() <= 1e-13 * np.abs(ref).max(), "p1_stiffness_3d_sym"
+    assert tcf.SYM4_TO_FULL == jcf.SYM4_TO_FULL
+    packed = tcf.pack_cell_axis(torch.from_numpy(edges))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jcf.pack_cell_axis(jnp.asarray(edges))))
+    with pytest.raises(ValueError):
+        tcf.pack_cell_axis(torch.zeros(9, 100))
+
 
 def test_port_never_imports_jax():
     """No module of the port imports jax (an AST scan of every .py file,

@@ -1,8 +1,9 @@
 """Port parity: the general-mesh gather path of fdapde_core_tpu_torch
-(SoA pipeline in P1 and P2, assembled ELL on the K2 gather SpMV, aux-grid
-preconditioner and its LaneAuxGrid, Krylov solvers, on-device refinement
-and strip ordering, MatrixFreePoisson / MatrixFreeElliptic) against the JAX
-package, on the same numpy inputs.
+(SoA pipeline in P1 and P2 and on tets, the element-local AoS forms and
+the C-last assembly, assembled ELL on the K2 gather SpMV, the 2D and 3D
+banded splits, aux-grid preconditioners (2D with its LaneAuxGrid, 3D),
+Krylov solvers, on-device refinement and strip ordering, the matrix-free
+models in 2D and 3D) against the JAX package, on the same numpy inputs.
 
 On the CPU the port's K2 wrapper runs its plain torch version and the JAX
 LaneRoutedELL its Pallas kernel in interpret mode. The CUDA kernel itself
@@ -23,6 +24,8 @@ import torch
 
 import fdapde_core_tpu  # noqa: F401  (enables x64)
 from fdapde_core_tpu.fem.solvers import DirichletSystem as JDirichlet
+from fdapde_core_tpu.geometry.structured import cube_mesh_device as j_cube
+from fdapde_core_tpu.geometry.structured import cube_mesh_device_soa as j_cube_soa
 from fdapde_core_tpu.geometry.structured import irregular_mesh_device as j_mesh
 from fdapde_core_tpu.geometry.structured import irregular_mesh_device_soa as j_mesh_soa
 from fdapde_core_tpu.linear_algebra import solvers as jsol
@@ -35,7 +38,12 @@ from fdapde_core_tpu.ops.auxgrid import AuxGridPreconditioner as JAux
 from fdapde_core_tpu.ops.dia_split import plan_split_width as j_plan
 from fdapde_core_tpu.ops.pallas_gather_spmv import LaneRoutedELL as JLane
 from fdapde_core_tpu_torch.fem.solvers import DirichletSystem
-from fdapde_core_tpu_torch.geometry import irregular_mesh_device, irregular_mesh_device_soa
+from fdapde_core_tpu_torch.geometry import (
+    cube_mesh_device,
+    cube_mesh_device_soa,
+    irregular_mesh_device,
+    irregular_mesh_device_soa,
+)
 from fdapde_core_tpu_torch.interop import ell_from_numpy
 from fdapde_core_tpu_torch.linear_algebra import solvers as tsol
 from fdapde_core_tpu_torch.models import (
@@ -329,6 +337,150 @@ def test_soa_pipeline_matches_jax():
         np.testing.assert_allclose(_np(tE2 @ _t(v2)), ref, rtol=1e-11, atol=1e-12,
                                    err_msg=f"{what}: ELL @ vs assembled")
     assert bool(top.to_ell(12)[1]), "P2 to_ell(12) must overflow"
+
+    # 3D: the cube meshes (topology exact, nodes to 1e-12, the boundary
+    # exact: the jitter is masked to 0 there), the tet primitives (1e-12
+    # relative), MatrixFreeSoA3D (build and build_general with K, b, c) @
+    # and diagonal (1e-12 of scale), its (16, n) ELL slot for slot (cols
+    # exact, vals to 1e-13 of scale), equal to ELLMatrix.from_local of the
+    # AoS MatrixFreeLocal (JAX tests/test_dia_split.py:222-260, whose cols
+    # are the transposed SoA cols); the AoS forms against JAX's
+    from fdapde_core_tpu.ops import ell as jell
+    from fdapde_core_tpu.ops import matfree as jmf
+    from fdapde_core_tpu_torch.ops import ell as tell
+    from fdapde_core_tpu_torch.ops import matfree as tmf
+
+    n3 = 6
+    for name, ref, got in (
+        ("cube soa", j_cube_soa(n3, 0.2, dtype=jnp.float64), cube_mesh_device_soa(n3, 0.2, device="cpu")),
+        ("cube stacked", j_cube(n3, 0.2, dtype=jnp.float64), cube_mesh_device(n3, 0.2, device="cpu")),
+    ):
+        for k, (r, g) in enumerate(zip(ref, got)):
+            r, g = np.asarray(r), _np(g)
+            assert r.shape == g.shape and r.dtype == g.dtype, f"mesh {name}[{k}]"
+            if r.dtype.kind == "f":
+                assert np.abs(r - g).max() <= 1e-12, f"mesh {name}[{k}] coordinates"
+            else:
+                np.testing.assert_array_equal(g, r, err_msg=f"mesh {name}[{k}] topology / boundary")
+    x3, y3, z3, *cs3, bnd3 = (np.asarray(a) for a in j_cube_soa(n3, 0.2, dtype=jnp.float64))
+    nd3, C3 = x3.shape[0], cs3[0].shape[0]
+    coef3 = dict(kxx=rng.uniform(1, 2, C3), kxy=rng.uniform(-.2, .2, C3), kxz=rng.uniform(-.2, .2, C3),
+                 kyy=rng.uniform(1, 2, C3), kyz=rng.uniform(-.2, .2, C3), kzz=rng.uniform(1, 2, C3),
+                 bx=rng.uniform(-1, 1, C3), by=rng.uniform(-1, 1, C3), bz=rng.uniform(-1, 1, C3),
+                 react=rng.uniform(0.1, 1.0, C3))
+    J3 = [jnp.asarray(a) for a in (x3, y3, z3, *cs3)]
+    T3 = [_t(a) for a in (x3, y3, z3, *cs3)]
+    ref = jms.p1_general_soa_3d(*J3, **{k: jnp.asarray(v) for k, v in coef3.items()})
+    got = tms.p1_general_soa_3d(*T3, **{k: _t(v) for k, v in coef3.items()})
+    for k, (r, g) in enumerate(zip(ref, got)):
+        np.testing.assert_allclose(_np(g), np.asarray(r), rtol=1e-12, atol=1e-12,
+                                   err_msg=f"p1_general_soa_3d[{k}]")
+    v3 = rng.standard_normal(nd3)
+    for kind in ("poisson", "general"):
+        if kind == "poisson":
+            jop, jover = jms.MatrixFreeSoA3D.build(*J3, nd3, 24)
+            top, tover = tms.MatrixFreeSoA3D.build(*T3, nd3, 24)
+        else:
+            jop, jover = jms.MatrixFreeSoA3D.build_general(
+                *J3, nd3, 24, **{k: jnp.asarray(a) for k, a in coef3.items()})
+            top, tover = tms.MatrixFreeSoA3D.build_general(
+                *T3, nd3, 24, **{k: _t(a) for k, a in coef3.items()})
+        what = f"MatrixFreeSoA3D ({kind})"
+        assert not bool(tover) and not bool(jover) and top.is_symmetric == (kind == "poisson"), what
+        np.testing.assert_array_equal(_np(top.adj), np.asarray(jop.adj), err_msg=what)
+        close(top @ _t(v3), jop @ jnp.asarray(v3), f"{what} @", 1e-12)
+        close(top.diagonal(), jop.diagonal(), f"{what} diagonal", 1e-12)
+        close(top.astype(torch.float32) @ _t(v3).float(),
+              jop.astype(jnp.float32) @ jnp.asarray(v3, jnp.float32), f"{what} float32 @", 1e-6)
+        jE3, jo3 = jop.to_ell(16)  # eager: at this size cheaper than a compile
+        tE3, to3 = tms.ell_from_op_blocked(top, 16)
+        assert not bool(to3) and not bool(jo3) and tuple(tE3.vals.shape) == (16, nd3), what
+        _assert_ell_close(tE3, jE3, f"{what}: to_ell")
+        close(tE3 @ _t(v3), jE3 @ jnp.asarray(v3), f"{what}: ELL @", 1e-13)
+        assert bool(top.to_ell(12)[1]), f"{what}: to_ell(12) must overflow"
+
+    nodes3 = np.stack([x3, y3, z3], 1)
+    cells3 = np.stack(cs3, 1)
+    for name, jf, tf, nodes_, cells_ in (
+        ("p1_local_stiffness", jmf.p1_local_stiffness, tmf.p1_local_stiffness,
+         np.stack([np.asarray(a) for a in J[:2]], 1), np.stack([np.asarray(a) for a in J[2:]], 1)),
+        ("p1_local_stiffness_3d", jmf.p1_local_stiffness_3d, tmf.p1_local_stiffness_3d, nodes3, cells3),
+    ):
+        nd_, nb_ = nodes_.shape[0], cells_.shape[1]
+        kap_ = rng.uniform(0.5, 2.0, cells_.shape[0])
+        A_j = jf(jnp.asarray(nodes_), jnp.asarray(cells_), jnp.asarray(kap_))
+        A_t = tf(_t(nodes_), _t(cells_), _t(kap_))
+        close(A_t, A_j, name, 1e-13)
+        D_ = 8 if nb_ == 3 else 24
+        mfj, _ = jmf.MatrixFreeLocal.build(A_j, jnp.asarray(cells_), nd_, D_)
+        mft, overl = tmf.MatrixFreeLocal.build(A_t, _t(cells_), nd_, D_)
+        assert not bool(overl) and bool(tmf.MatrixFreeLocal.build(A_t, _t(cells_), nd_, 3)[1]), name
+        np.testing.assert_array_equal(_np(mft.adj), np.asarray(mfj.adj), err_msg=f"{name}: adjacency")
+        np.testing.assert_array_equal(_np(mft.adj_mask), np.asarray(mfj.adj_mask))
+        vv = rng.standard_normal(nd_)
+        close(mft @ _t(vv), mfj @ jnp.asarray(vv), f"{name}: MatrixFreeLocal @", 1e-13)
+        close(mft.diagonal(), mfj.diagonal(), f"{name}: MatrixFreeLocal diagonal", 1e-13)
+        assert mft.astype(torch.float32).A_loc.dtype == torch.float32
+        Kc = nb_ * D_ // 2 if nb_ == 3 else 15
+        Ej, oj = jax.jit(lambda op: jell.ELLMatrix.from_local(op.A_loc, op.dofs, op.adj,
+                                                              op.adj_mask, Kc))(mfj)
+        Et, ot = tell.ELLMatrix.from_local(mft.A_loc, mft.dofs, mft.adj, mft.adj_mask, Kc)
+        assert not bool(ot) and not bool(oj), name
+        np.testing.assert_array_equal(_np(Et.cols), np.asarray(Ej.cols), err_msg=f"{name}: from_local cols")
+        close(Et.vals, Ej.vals, f"{name}: from_local vals", 1e-13)
+        close(Et @ _t(vv), Ej @ jnp.asarray(vv), f"{name}: ELLMatrix @", 1e-13)
+        close(Et.diagonal(), Ej.diagonal(), f"{name}: ELLMatrix diagonal", 1e-13)
+        dd = rng.uniform(0.5, 2.0, nd_)
+        close(Et.with_added_diagonal(_t(dd)).vals, Ej.with_added_diagonal(jnp.asarray(dd)).vals,
+              f"{name}: ELLMatrix with_added_diagonal", 1e-13)
+        close(tell.ell_spmv(mft.A_loc, mft.dofs.long(), mft.adj, mft.adj_mask, _t(vv)),
+              jell.ell_spmv(mfj.A_loc, mfj.dofs, mfj.adj, mfj.adj_mask, jnp.asarray(vv)),
+              f"{name}: the element-local combine", 1e-13)
+        if nb_ == 4:  # the SoA ELL of the same operator, transposed
+            tE3, _ = tms.MatrixFreeSoA3D.build(*T3, nd3, 24, kappa=_t(kap_))[0].to_ell(15)
+            np.testing.assert_array_equal(_np(tE3.cols).T, _np(Et.cols), err_msg="SoA vs AoS cols")
+            close(_np(tE3.vals).T, Et.vals, "SoA vs AoS vals", 1e-13)
+
+    # the C-last assembly (ops/soa_assembly.py) on a tet space and a P2
+    # triangle space: affine maps and local matrices to 1e-13 of scale,
+    # the assembled values (constant and varying coefficients) to 1e-13 of
+    # scale against JAX's and the port's assemble_matrix
+    from fdapde_core_tpu.fem.space import FEMSpace as JSpace
+    from fdapde_core_tpu.geometry.triangulation import Triangulation as JTri
+    from fdapde_core_tpu.ops import soa_assembly as jsa
+    from fdapde_core_tpu.pde import advection as jadv
+    from fdapde_core_tpu.pde import diffusion as jdiff
+    from fdapde_core_tpu.pde import laplacian as jlap
+    from fdapde_core_tpu.pde import reaction as jreac
+    from fdapde_core_tpu_torch.fem import FEMSpace
+    from fdapde_core_tpu_torch.geometry import Triangulation
+    from fdapde_core_tpu_torch.ops import soa_assembly as tsa
+
+    spaces = (("tets", JSpace(JTri(nodes3, cells3, bnd3), 1), FEMSpace(Triangulation(nodes3, cells3, bnd3), 1)),
+              ("P2", jspace, space))
+    for name, js_, ts_ in spaces:
+        N_ = ts_.mesh.embed_dim
+        Jn, Tn = jnp.asarray(ts_.mesh.nodes), _t(ts_.mesh.nodes)
+        Jc, Tc = jnp.asarray(ts_.mesh.cells.T), _t(ts_.mesh.cells.T).long()
+        for r, g in zip(jsa.affine_maps_soa(Jn, Jc), tsa.affine_maps_soa(Tn, Tc)):
+            r, g = (np.asarray(r), torch.stack([torch.stack(row) for row in g]).numpy()) \
+                if isinstance(r, list) else (np.asarray(r), _np(g))
+            close(g, r, f"{name}: affine_maps_soa", 1e-13)
+        Kd = np.eye(N_) + 0.2 * (np.ones((N_, N_)) - np.eye(N_))
+        bv_ = np.linspace(0.5, 1.0, N_)
+        for kind, cf in (("laplacian", None), ("diffusion", Kd), ("advection", bv_), ("reaction", 0.7)):
+            args = (ts_.phi_tab, ts_.grad_tab, ts_.quad.weights)
+            r = jsa.local_matrices_soa(kind, cf, Jn, Jc, *args)
+            g = tsa.local_matrices_soa(kind, cf, Tn, Tc, *args)
+            close(torch.stack([torch.stack(row) for row in g]), np.asarray(jnp.stack([jnp.stack(row) for row in r])),
+                  f"{name}: local_matrices_soa {kind}", 1e-13)
+        c_var = lambda p: 1.0 + p[..., 0] ** 2  # noqa: E731  (a varying reaction)
+        for L, JL in ((-diffusion(Kd) + advection(bv_) + reaction(0.7), -jdiff(Kd) + jadv(bv_) + jreac(0.7)),
+                      (-laplacian() + reaction(c_var), -jlap() + jreac(c_var))):
+            ref = np.asarray(jsa.assemble_soa_values(js_, JL))
+            got = tsa.assemble_soa_values(ts_, L, device="cpu")
+            close(got, ref, f"{name}: assemble_soa_values", 1e-13)
+            close(got, assemble_matrix(ts_, L, device="cpu").vals, f"{name}: soa vs assemble_matrix", 1e-13)
 
 
 def test_lane_routed_ell_matches_jax():
@@ -647,6 +799,57 @@ def test_auxgrid_and_solvers_match_jax():
     _, info = tsol.cg_split_programs(sys, tb, tpre, rtol=1e-10, maxiter=500, check_every=6)
     assert info.iterations % 6 == 0, "cg_split_programs stops only at a check"
 
+    # AuxGridPreconditioner3D in float64, build_device ((n, 3) and the
+    # (x, y, z) tuple) and the host build, against JAX: the grid, idx
+    # exact, w and dinv to 1e-14, the apply to 1e-12 of max|z| and equal
+    # across two calls; carried across by interop (JAX's levels) to 1e-12;
+    # P^T is P's adjoint, <P z, r> == <z, P^T r> to 1e-12 relative; and
+    # solve_elliptic's ("auxgrid", coords) takes it on 3D coordinates
+    from fdapde_core_tpu.ops.auxgrid import AuxGridPreconditioner3D as JAux3
+    from fdapde_core_tpu_torch.fem.solvers import solve_elliptic
+    from fdapde_core_tpu_torch.interop import aux_grid_3d_from_numpy
+    from fdapde_core_tpu_torch.ops.auxgrid import AuxGridPreconditioner3D
+
+    nodes3, cells3, bnd3 = (np.asarray(a) for a in j_cube(8, 0.2, dtype=jnp.float64))
+    nd3 = nodes3.shape[0]
+    diag3 = rng.uniform(0.5, 2.0, nd3)
+    r3 = rng.standard_normal(nd3)
+    j3 = (("build_device", JAux3.build_device(jnp.asarray(nodes3), jnp.asarray(diag3), dtype=jnp.float64)),
+          ("build", JAux3.build(nodes3, jnp.asarray(diag3))))
+    t3 = (("build_device", AuxGridPreconditioner3D.build_device(_t(nodes3), _t(diag3), dtype=torch.float64)),
+          ("build", AuxGridPreconditioner3D.build(nodes3, _t(diag3), device="cpu")))
+    soa3 = AuxGridPreconditioner3D.build_device(tuple(_t(nodes3[:, d]) for d in range(3)), _t(diag3),
+                                                dtype=torch.float64)
+    for (name, j), (_, t) in zip(j3, t3):
+        name = f"3D aux grid {name}"
+        assert t.n_grid == j.n_grid == 8 and t.mg.shapes == tuple(j.mg.shapes), name
+        assert t.idx.shape == (8, nd3) and t.PT.shape == ((t.n_grid + 1) ** 3, nd3), name
+        np.testing.assert_array_equal(_np(t.idx), np.asarray(j.idx), err_msg=name)
+        for what in ("w", "dinv"):
+            np.testing.assert_allclose(_np(getattr(t, what)), np.asarray(getattr(j, what)),
+                                       rtol=1e-14, atol=1e-14, err_msg=f"{name}: {what}")
+        ref = np.asarray(jax.jit(lambda a, v: a(v))(j, jnp.asarray(r3)))
+        got = t(_t(r3))
+        assert np.abs(_np(got) - ref).max() <= 1e-12 * np.abs(ref).max(), f"{name}: apply"
+        assert torch.equal(t(_t(r3)), got), f"{name}: apply differs between calls"
+        carried = aux_grid_3d_from_numpy(
+            j.idx, j.w, j.dinv, ([np.asarray(d) for d in j.mg.datas], j.mg.offsets, j.mg.shapes,
+                                 j.mg.omega, j.mg.nu, j.mg.coarse_iters), j.omega, j.n_grid, device="cpu")
+        assert np.abs(_np(carried(_t(r3))) - ref).max() <= 1e-12 * np.abs(ref).max(), f"{name}: interop"
+        zg = _t(rng.standard_normal(t.PT.shape[0]))
+        lhs = float(t.interpolate(zg) @ _t(r3))
+        assert abs(lhs - float(zg @ (t.PT @ _t(r3)))) <= 1e-12 * abs(lhs), f"{name}: P^T adjoint"
+    assert torch.equal(soa3(_t(r3)), t3[0][1](_t(r3))), "the (x, y, z) tuple gives another aux grid"
+    jE3, _ = jms.MatrixFreeSoA3D.build(*(jnp.asarray(nodes3[:, d]) for d in range(3)),
+                                       *(jnp.asarray(cells3[:, j]) for j in range(4)), nd3, 24)[0].to_ell(16)
+    A3 = ell_from_numpy(jE3.vals, jE3.cols, jE3.shape, device="cpu")
+    b3, g3, m3 = _t(np.where(bnd3, 0.0, 1.0)), torch.zeros(nd3, dtype=torch.float64), _t(bnd3)
+    x3, info3 = solve_elliptic(A3, b3, m3, g3, rtol=1e-10, preconditioner=("auxgrid", nodes3))
+    pre3 = AuxGridPreconditioner3D.build(nodes3, DirichletSystem(A3, m3).diagonal(), device="cpu")
+    x3b, info3b = solve_elliptic(A3, b3, m3, g3, rtol=1e-10, preconditioner=pre3)
+    assert info3.converged and info3.iterations == info3b.iterations <= 30, (info3, info3b)
+    assert torch.equal(x3, x3b), "solve_elliptic's 3D aux grid is not AuxGridPreconditioner3D.build's"
+
 
 def test_models_match_jax():
     """MatrixFreePoisson (auxgrid) and MatrixFreeElliptic (K=1, c=0.5,
@@ -829,3 +1032,114 @@ def test_models_match_jax():
     assert float(relq) <= 1e-12 and (xq - u).abs().max() <= 1e-10 * u.abs().max(), "P2 quadratic"
     with pytest.raises(ValueError):
         MatrixFreeElliptic.from_space(FEMSpace(Triangulation(pts, cells_d, bnd_d), 3), device="cpu")
+
+    # 3D on the jittered n = 6 cube. plan_split_3d reads (m, m^2) in both
+    # packages and rejects a block-scrambled numbering; the split at the
+    # plan is exact with an empty remainder, at (m + 1, m (m + 1)) its
+    # remainder equals JAX's slot for slot (cols exact, vals to 1e-14 of
+    # scale); layers and fold to 1e-14 of scale, and at the plan a float64
+    # BandedMGPreconditioner3D V-cycle (levels 9, 5, 3) to 1e-12 of scale
+    from fdapde_core_tpu.ops import dia_split3d as jds3
+    from fdapde_core_tpu_torch.interop import banded_split_3d_from_numpy, mesh_from_numpy
+    from fdapde_core_tpu_torch.ops import dia_split3d as tds3
+
+    n3 = 6
+    m3 = n3 + 1
+    nodes3, cells3, bnd3 = (np.asarray(a) for a in j_cube(n3, 0.2, dtype=jnp.float64))
+    nd3, C3 = nodes3.shape[0], cells3.shape[0]
+    J3 = [jnp.asarray(nodes3[:, d]) for d in range(3)] + [jnp.asarray(cells3[:, j]) for j in range(4)]
+    jE3, _ = jax.jit(lambda o: o.to_ell(16))(jms.MatrixFreeSoA3D.build(*J3, nd3, 24)[0])
+    tE3, _ = tms.MatrixFreeSoA3D.build(*(_t(_np(a)) for a in J3), nd3, 24)[0].to_ell(16)
+    assert tds3.plan_split_3d(tE3) == jds3.plan_split_3d(jE3) == (m3, m3 * m3)
+    v3 = rng.standard_normal(nd3)
+    y3 = _np(tE3 @ _t(v3))
+    for (w1, w2, max_rem) in ((m3, m3 * m3, 2), (m3 + 1, m3 * (m3 + 1), 6)):
+        what = f"3D split ({w1}, {w2})"
+        jS, jo = jax.jit(lambda E: jds3.build_banded_split_3d(E, w1, w2, max_rem=max_rem))(jE3)
+        tS, to = tds3.build_banded_split_3d(tE3, w1, w2, max_rem=max_rem)
+        assert not bool(to) and not bool(jo), what
+        assert tS.G.offsets3d == jS.G.offsets3d and tS.G.shape3d == jS.G.shape3d, what
+        sc = np.abs(np.asarray(jS.G.data)).max()
+        assert np.abs(_np(tS.G.data) - np.asarray(jS.G.data)).max() <= 1e-14 * sc, what
+        np.testing.assert_array_equal(_np(tS.rem.cols), np.asarray(jS.rem.cols), err_msg=what)
+        assert np.abs(_np(tS.rem.vals) - np.asarray(jS.rem.vals)).max() <= 1e-14 * sc, what
+        rem_nnz = int((tS.rem.vals != 0).sum())
+        assert (rem_nnz == 0) == (w1 == m3), f"{what}: {rem_nnz} remainder entries"
+        ops = [tS] + ([tS.drop_empty_remainder()] if rem_nnz == 0 else [])
+        for op in ops:
+            assert np.abs(_np(op @ _t(v3)) - y3).max() <= 1e-14 * np.abs(y3).max(), f"{what}: inexact"
+            np.testing.assert_allclose(_np(op.diagonal()), _np(tE3.diagonal()), rtol=1e-14)
+        dd = rng.uniform(0.5, 2.0, nd3)
+        np.testing.assert_allclose(_np(tS.with_added_diagonal(_t(dd)) @ _t(v3)), y3 + dd * v3,
+                                   rtol=0, atol=1e-14 * np.abs(y3).max(), err_msg=what)
+        carried = banded_split_3d_from_numpy(
+            np.asarray(jS.G.data), jS.G.offsets3d, jS.G.shape3d, nd3,
+            (np.asarray(jS.rem.vals), np.asarray(jS.rem.cols)), device="cpu")
+        assert np.abs(_np(carried @ _t(v3)) - y3).max() <= 1e-14 * np.abs(y3).max(), f"{what}: interop"
+        jF, tF = jS.fold_dirichlet(jnp.asarray(bnd3)), tS.fold_dirichlet(_t(bnd3))
+        assert np.abs(_np(tF.G.data) - np.asarray(jF.G.data)).max() <= 1e-14 * sc, what
+        assert tF.astype(torch.float32).G.data.dtype == torch.float32
+        if rem_nnz == 0:
+            jb = jds3.BandedMGPreconditioner3D.build(jF, dtype=jnp.float64, coarse_n=2)
+            tb = tds3.BandedMGPreconditioner3D.build(tF, dtype=torch.float64, coarse_n=2)
+            assert tb.mg.shapes == tuple(jb.mg.shapes) == (9, 5, 3), what
+            zr = np.asarray(jax.jit(lambda b_, v_: b_(v_))(jb, jnp.asarray(v3)))
+            assert np.abs(_np(tb(_t(v3))) - zr).max() <= 1e-12 * np.abs(zr).max(), f"{what}: V-cycle"
+    assert bool(tds3.build_banded_split_3d(tE3, m3 + 1, m3 * (m3 + 1), max_rem=1)[1])
+    p3, pinv3 = _scramble_ids(nd3, 256, 89)
+    cs3, ns3, bs3 = p3[cells3].astype(np.int32), nodes3[pinv3], bnd3[pinv3]
+    tsc = MatrixFreePoisson(_t(ns3), _t(cs3), _t(bs3), device="cpu")
+    jsc = jms.ELLSoA(jnp.asarray(np.asarray(jE3.vals)[:, pinv3]),
+                     jnp.asarray(p3[np.asarray(jE3.cols)[:, pinv3]].astype(np.int32)), jE3.shape)
+    assert tds3.plan_split_3d(tsc.op) == jds3.plan_split_3d(jsc) == (None, None)
+    assert tsc.preconditioner == "auxgrid", "the scrambled cube is not rejected"
+    with pytest.raises(ValueError):
+        MatrixFreePoisson(_t(ns3), _t(cs3), _t(bs3), preconditioner="banded_mg", device="cpu")
+
+    # the 3D models against JAX at rtol 1e-12 (the lane path 1e-10):
+    # iterations within 1, solutions to 1e-10 relative, load vectors to
+    # 1e-14. MatrixFreePoisson "auto" (banded_mg) and "auxgrid";
+    # MatrixFreeElliptic with JAX tests/test_matfree_general.py:346's
+    # coefficients (BiCGStab) on the aux grid, and gather_kernel="lane"
+    # with aux_kernel="lane" (a 3D aux grid, not a LaneAuxGrid, as in JAX)
+    f3 = rng.standard_normal(C3)
+    nodes3_t = mesh_from_numpy(nodes3, cells3, bnd3, device="cpu")
+    assert nodes3_t[1].dtype == torch.int32 and nodes3_t[2].dtype == torch.bool
+    nodes3_j = (jnp.asarray(nodes3), jnp.asarray(cells3), jnp.asarray(bnd3))
+    gen3 = dict(K=(1.3, 0.2, -0.1, 0.9, 0.15, 1.1), b=(0.8, -0.4, 0.3), c=0.5, grid_n=n3)
+    lane3 = dict(K=(1.3, 0.2, -0.1, 0.9, 0.15, 1.1), c=0.5, preconditioner="auxgrid",
+                 gather_kernel="lane", aux_kernel="lane")
+    for name, cls_j, cls_t, kw, route, rtol in (
+        ("3D MatrixFreePoisson auto", JPoisson, MatrixFreePoisson, {}, "banded_mg", 1e-12),
+        ("3D MatrixFreePoisson auxgrid", JPoisson, MatrixFreePoisson,
+         dict(preconditioner="auxgrid"), "auxgrid", 1e-12),
+        ("3D MatrixFreeElliptic auxgrid", JElliptic, MatrixFreeElliptic,
+         dict(gen3, preconditioner="auxgrid"), "auxgrid", 1e-12),
+        ("3D MatrixFreeElliptic lane", JElliptic, MatrixFreeElliptic, lane3, "auxgrid+lane", 1e-10),
+    ):
+        jm, tm = cls_j(*nodes3_j, **kw), cls_t(*nodes3_t, device="cpu", **kw)
+        assert tm.preconditioner == jm.preconditioner == route, name
+        assert tm.dim == jm.dim == 3, name
+        if route == "banded_mg":
+            assert tm.aux.mg.shapes == tuple(jm.aux.mg.shapes), name
+        else:
+            assert type(tm.aux).__name__ == type(jm.aux).__name__ == "AuxGridPreconditioner3D", name
+            assert tm.aux.n_grid == jm.aux.n_grid, name
+        compare(name, jm, tm, rtol, it_slack=1, sol_tol=1e-10, f=f3)
+
+    # MatrixFreeParabolic in 3D (JAX :392) at dt = 0.01 over 3 steps on
+    # both routes: iterations within 1, trajectories to 1e-10; the
+    # aux-grid route without bbox takes the unit box (JAX passes None)
+    u3 = np.sin(np.pi * nodes3[:, 0]) * np.sin(np.pi * nodes3[:, 1]) * np.sin(np.pi * nodes3[:, 2])
+    for route, kw_t, kw_j in (("banded_mg", {}, {}),
+                              ("auxgrid", dict(preconditioner="auxgrid"),
+                               dict(preconditioner="auxgrid", bbox=((0.0,) * 3, (1.0,) * 3)))):
+        jp = JParabolic(*nodes3_j, 0.01, **kw_j)
+        tp = MatrixFreeParabolic(*nodes3_t, 0.01, device="cpu", **kw_t)
+        assert tp.preconditioner == jp.preconditioner == route
+        ju, jinfo = jp.solve(jnp.asarray(u3), n_steps=3, rtol=1e-12, maxiter=200)
+        tu, tinfo = tp.solve(_t(u3), n_steps=3, rtol=1e-12, maxiter=200)
+        assert all(abs(a - b) <= 1 for a, b in zip(tinfo["iterations"], jinfo["iterations"])), \
+            (route, tinfo["iterations"], jinfo["iterations"])
+        assert max(tinfo["rel_residuals"]) <= 1e-12, route
+        assert np.abs(_np(tu) - np.asarray(ju)).max() <= 1e-10, route

@@ -276,7 +276,9 @@ def test_pde_solve_matches_jax(monkeypatch):
     masked_matrix and gmres against JAX; the recovery step (BiCGStab
     stalled at maxiter=3 -> GMRES(50)) against JAX's; with the aux grid's
     build failing, the "auto" ladder takes the AMG rung in both packages
-    (solutions to 1e-10). Parabolic PDEs on unit_square_mesh(16) over 11
+    (solutions to 1e-10); on unit_cube_mesh(6) "auto" takes the 3D aux grid
+    in both (no AMG hierarchy built, iterations within 1, solutions to
+    1e-10 max|x|). Parabolic PDEs on unit_square_mesh(16) over 11
     instants (consistent and lumped mass, and advection through BiCGStab)
     against JAX's solve_parabolic: trajectories to 1e-10 max|u|, the step
     iterations equal, the L2 functional to 1e-10 relative; the stalled-step
@@ -358,6 +360,38 @@ def test_pde_solve_matches_jax(monkeypatch):
     monkeypatch.undo()
     (xj, rj), (xt, rt) = out
     assert rt["success"] and rt["solver_iterations"] == rj["solver_iterations"]
+    assert np.abs(xt - xj).max() <= 1e-10 * np.abs(xj).max()
+
+    # a 3D volume with "auto": both packages take the 3D aux grid, neither
+    # builds an AMG hierarchy; iterations within 1, solutions to 1e-10
+    # max|x| at rtol 1e-12
+    from fdapde_core_tpu.geometry.structured import unit_cube_mesh as j_unit_cube
+    from fdapde_core_tpu.ops.auxgrid import AuxGridPreconditioner3D as JAux3
+    from fdapde_core_tpu_torch.geometry import unit_cube_mesh
+    from fdapde_core_tpu_torch.ops.auxgrid import AuxGridPreconditioner3D
+
+    calls = []
+
+    def counted(cls, name):
+        orig = getattr(cls, name)
+        monkeypatch.setattr(cls, name, lambda *a, **k: calls.append((cls, name)) or orig(*a, **k))
+
+    for cls in (JAux3, AuxGridPreconditioner3D):
+        counted(cls, "build")
+    for cls in (jamg.AMG, tamg.AMG):
+        counted(cls, "build")
+    out = []
+    for mod, mesh, kw in ((fdm, j_unit_cube(6), {}), (fdt, unit_cube_mesh(6), {"device": CPU})):
+        pde = mod.PDE(mesh, -mod.laplacian(), solver_preconditioner="auto", **kw)
+        pde.set_forcing(np.ones(pde.quadrature_nodes().shape[0]))
+        pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
+        pde.solve()
+        out.append((np.asarray(pde.solution()).reshape(-1), pde.report()))
+    monkeypatch.undo()
+    assert calls == [(JAux3, "build"), (AuxGridPreconditioner3D, "build")], calls
+    (xj, rj), (xt, rt) = out
+    assert rt["success"] and rj["success"]
+    assert abs(rt["solver_iterations"] - rj["solver_iterations"]) <= 1
     assert np.abs(xt - xj).max() <= 1e-10 * np.abs(xj).max()
 
     # parabolic problems against JAX's solve_parabolic on the same inputs
