@@ -210,15 +210,49 @@ Phases (each raises on failure; nothing is caught):
     5 steps on the banded route (lattice) and the aux-grid route
     (scrambled): trajectories equal, relabelled, to 1e-8; PDE(unit_cube_
     mesh(32)) (35,937 dofs) through the default ladder takes the 3D aux
-    grid (as the JAX package's does) and reproduces u = x + 2y - z to 1e-9.
-    Phases 20-27 print their seconds and K2 / K6 launches by path.
+    grid (as the JAX package's does) and reproduces u = x + 2y - z to 1e-9;
+28. solve_semilinear (BASELINE configuration 4, -Lap u + u^3 = f with
+    u = sin(pi x) sin(pi y)) on phase 12's mesh (519,841 dofs): f from
+    fields (-trace of ScalarField.derive_twice(mode="auto") + u^3, vmapped
+    over the quadrature points on the card) equals 2 pi^2 u + u^3 to 1e-12;
+    Newton in <= 8 steps, last residual < 1e-10, max error below
+    SEMILINEAR_BOUND, K2's sliced layout built once, K6 launched; then the
+    forced BFGS fallback (max_newton=1, newton_tol=1e-30, H = v^4 / 4) on
+    unit_square_mesh(N_BFGS): method "bfgs_fallback", equal to Newton to
+    1e-4, K2's backward launched;
+29. mixed Dirichlet/Neumann data (BASELINE configuration 2, JAX's
+    test_mixed_bc_quadratic_solution: u = x^2, du/dn = 2 on x = 1) on phase
+    12's mesh through solve_elliptic at rtol 1e-13: P1 within
+    NEUMANN_P1_BOUND (K6 launched), P2 on phase 24's space (2,076,481
+    dofs) to 1e-9; assemble_neumann(1, whole boundary) sums to 4 and
+    integrate(mesh, 1) to 1, both to 1e-12; the host FEMSpace(order=2) with
+    the native hash pass (built with g++ here) and with the NumPy sort,
+    both timed, their edges and dof tables equal;
+30. cg_differentiable on phase 12's mesh: d|u(kappa) - target|^2 / dkappa
+    (matvec = kappa A + M, Jacobi-preconditioned) equals its central
+    difference to 1e-4 relative, the adjoint solve within 20 % of the
+    forward's iterations, K2's backward launched; a directional derivative
+    in the (nnz,) values of a weighted mass matrix equals the same
+    gradient through K2's plain version on the card to 1e-10 relative and
+    its central difference to 1e-4; K2's backward product (A^T v on the
+    transpose's sliced form) against its plain version within the per-row
+    bound, timed against the forward on the same table, CSR and its bound;
+    the inverse problem (kappa* = 3 by optimization.newton, its Hessian
+    through the solve) on delaunay_mesh(N_INVERSE) to 1e-6; the FSPAI rung
+    of the recovery step on delaunay_mesh(N_FSPAI) (Jacobi CG stopped by
+    FSPAI_MAXITER): the warning names FSPAI, the set-up took the native
+    library once (host seconds and L's nnz printed), GMRES(50) converges
+    with a true residual <= 1e-9.
+    Phases 20-30 print their seconds and K2 / K6 launches by path.
 
 Prints one JSON line of per-kernel results (each with its bound on the
 card from this run's shapes: bytes over 3.35 TB/s or operations over the
 type's peak, whichever is larger; K2's entry is the compact (9, 10.25M)
 ELL of phase 7, with the sliced form on phase 18's Psi^T under "sliced",
-the 3D ELL of phase 26 under "ell_3d" and the 3D aux grid's P and P^T of
-phase 27 under "aux_3d"),
+the 3D ELL of phase 26 under "ell_3d", the 3D aux grid's P and P^T of
+phase 27 under "aux_3d", the launches of its backward in phases 28-30
+under "launches_backward" and phase 30's backward product under
+"backward"),
 then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device or
 without the package beside it.
@@ -282,6 +316,28 @@ GEN3D_SIZES = (2_146_689, 12_582_912)  # nodes, tets
 GEN3D_ITERS = 10  # the Jacobi CG rate runs (bench.py's ITERS)
 N_PARA3D, DT_PARA3D, STEPS_PARA3D = 64, 1e-3, 5  # phase 27's MatrixFreeParabolic: 274,625 dofs
 N_CUBE_PDE = 32  # phase 27's PDE on unit_cube_mesh: 35,937 dofs
+# phase 28: the P1 max error of -Lap u + u^3 = f (u = sin pi x sin pi y)
+# on delaunay_mesh(nx), measured on the CPU at nx = 24, 48, 96, is at most
+# 0.479 h^2 ln(1/h); the bound is twice that at nx = 720
+SEMILINEAR_BOUND = 2 * 0.479 * np.log(NX_PDE) / NX_PDE ** 2
+# the largest unit_square_mesh at which the forced BFGS fallback agreed with
+# Newton to 1e-4 within 500 iterations on the CPU (1.8e-8 at 96; 128 was not
+# tried there: its dense inverse Hessian is 2.2 GB)
+N_BFGS = 96
+# phase 29: the P1 max error of the mixed problem u = x^2 on
+# delaunay_mesh(nx) is at most 0.0754 h^2 ln(1/h) on the CPU (nx = 24, 48,
+# 96); twice that at nx = 720. P2 takes Jacobi CG: on the CPU it needed
+# 573, 1,138, 2,222 iterations at nx = 48, 96, 192 to rtol 1e-13 (the aux
+# grid 107, 189, 263, each a launch-bound V-cycle on the card)
+NEUMANN_P1_BOUND = 2 * 0.0754 * np.log(NX_PDE) / NX_PDE ** 2
+NEUMANN_P2_PRE = None
+# phase 30: the inverse problem's mesh (cut from nx = 720 for the time
+# budget: each Newton step takes ~12 solves), and the FSPAI rung's: the
+# masked Laplacian's native FSPAI set-up took 3.2 s at nx = 150 and 14.5 s
+# at nx = 300 (90,601 dofs) on a shared CPU; maxiter leaves Jacobi CG short
+# of 1e-10 and GMRES(50) maxiter / 50 cycles
+N_INVERSE = 64
+N_FSPAI, FSPAI_MAXITER = 300, 500
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the vector (non-tensor
 # core) peaks of the types these kernels compute in
 HBM_BYTES_PER_S = 3.35e12
@@ -432,6 +488,7 @@ def zero_launch_counts(ak, gs):
     ls.p1_stiffness_2d_launches = 0
     ls.p1_stiffness_edges_launches = 0
     ls.p1_stiffness_edges_offdiag_launches = 0
+    gs.ell_spmv_backward_launches = 0
 
 
 def phase_main_path(ak, gs, StructuredPoisson):
@@ -1501,26 +1558,33 @@ def phase_parabolic(ak, gs, ls, mesh):
 
 
 class Builds:
-    """Times every cls.build (AMG's, an aux grid's) while active:
-    [(built object, host seconds)]."""
+    """Times every call of owner.name while active (by default a class's
+    static build: AMG's, an aux grid's; or a classmethod, or a module's
+    function): [(result, host seconds)]."""
 
-    def __init__(self, cls):
-        self.cls = cls
+    def __init__(self, owner, name="build"):
+        self.owner, self.name = owner, name
 
     def __enter__(self):
-        self.raw, self.builds = self.cls.__dict__["build"], []
-        bound = self.cls.build
+        self.raw, self.builds = self.owner.__dict__[self.name], []
+        bound = getattr(self.owner, self.name)
 
         def timed(*args, **kwargs):
             obj, t = synced_seconds(lambda: bound(*args, **kwargs))
             self.builds.append((obj, t))
             return obj
 
-        self.cls.build = staticmethod(timed)
+        if isinstance(self.raw, classmethod):
+            wrapped = classmethod(lambda cls, *args, **kwargs: timed(*args, **kwargs))
+        elif isinstance(self.raw, staticmethod):
+            wrapped = staticmethod(timed)
+        else:
+            wrapped = timed
+        setattr(self.owner, self.name, wrapped)
         return self.builds
 
     def __exit__(self, *exc):
-        self.cls.build = self.raw
+        setattr(self.owner, self.name, self.raw)
 
 
 def host_amg_solve(pde, mg):
@@ -1875,7 +1939,8 @@ def phase_p2(ak, gs, pts, cells, bnd):
     order-2 space of phase 12's mesh, MatrixFreeElliptic.from_space(K=1,
     c=1, max_degree=16) on the aux grid, the solve to 1e-8 twice, the ELL
     against the assembled -Laplace + 1, K2 on the P2 ELL in both forms, and
-    the quadratic reproduction at nx = 256. Returns {path: K2 launches}."""
+    the quadratic reproduction at nx = 256. Returns ({path: K2 launches},
+    the order-2 space, its scatter tables built, for phase 29)."""
     import fdapde_core_tpu_torch as fdt
     from fdapde_core_tpu_torch.fem import FEMSpace, assemble_matrix
     from fdapde_core_tpu_torch.models import MatrixFreeElliptic
@@ -1970,7 +2035,7 @@ def phase_p2(ak, gs, pts, cells, bnd):
         f"max|x - u| / max|u| = {errq:.3e} ({itq} iterations, rel {float(relq):.3e}, "
         f"{mq.preconditioner}); K2 launches {out['P2 quadratic']}")
     check(errq <= 1e-8, "P2 does not reproduce x^2 + y^2 to 1e-8")
-    return out
+    return out, space
 
 
 def phase_lane_aux(ak, gs):
@@ -2357,6 +2422,340 @@ def phase_aux3d(ak, gs, mesh):
     return out, tables
 
 
+def sine_field():
+    """u = sin(pi x) sin(pi y) as a port ScalarField (torch callable)."""
+    from fdapde_core_tpu_torch.fields import ScalarField
+
+    return ScalarField(lambda p: torch.sin(torch.pi * p[0]) * torch.sin(torch.pi * p[1]))
+
+
+def phase_semilinear(ak, gs, ls, pts, cells, bnd):
+    """solve_semilinear (BASELINE configuration 4) on phase 12's mesh with
+    f from fields on the card; then the forced BFGS fallback on
+    unit_square_mesh(N_BFGS). Returns ({path: (K2, K6 launches)}, the P1
+    space, K2 backward launches)."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import FEMSpace
+    from fdapde_core_tpu_torch.geometry import unit_square_mesh
+    from fdapde_core_tpu_torch.models import solve_semilinear
+
+    out = {}
+    t0 = time.perf_counter()
+    space = FEMSpace(fdt.Triangulation(pts, cells, bnd), 1)
+    q = torch.as_tensor(space.quadrature_nodes, device=DEVICE)
+    space.scatter
+    tables = [space.segment_sum(w, DEVICE) for w in ("matrix", "forcing")]
+    t_space = time.perf_counter() - t0
+    u = sine_field()
+    H = u.derive_twice(mode="auto")
+    (fq, uq), t_f = synced_seconds(lambda: (
+        -torch.func.vmap(H)(q).diagonal(dim1=1, dim2=2).sum(1) + torch.func.vmap(u)(q) ** 3,
+        torch.func.vmap(u)(q)))
+    s = torch.sin(torch.pi * q[:, 0]) * torch.sin(torch.pi * q[:, 1])
+    err_f = (fq - (2 * np.pi ** 2 * s + s ** 3)).abs().max().item()
+    log(f"28 fields: f = -tr(ScalarField.derive_twice(mode='auto')) + u^3 at {q.shape[0]} quadrature "
+        f"points on the card in {t_f:.4f} s; max|f - (2 pi^2 u + u^3)| = {err_f:.3e}")
+    check(err_f <= 1e-12, "the fields' Hessian does not give the closed-form forcing to 1e-12")
+    del tables
+
+    zero_launch_counts(ak, gs)
+    with Builds(gs.SlicedELL, "from_coo") as layouts:
+        (x, info), t_solve = synced_seconds(lambda: solve_semilinear(
+            space, -fdt.laplacian(), h=lambda v: v ** 3, dh=lambda v: 3 * v ** 2, forcing=fq,
+            g=np.zeros(space.n_dofs), device=DEVICE))
+    out["semilinear Newton"] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
+    c = torch.as_tensor(space.dof_coords, device=DEVICE)
+    err = (x - torch.sin(torch.pi * c[:, 0]) * torch.sin(torch.pi * c[:, 1])).abs().max().item()
+    log(f"28 solve_semilinear -Lap u + u^3 = f nx={NX_PDE} ({space.n_dofs} dofs): host space and "
+        f"tables {t_space:.4f} s, solve {t_solve:.4f} s; {info['newton_iterations']} Newton steps, "
+        f"Jacobi CG iterations a step {info['cg_iterations']}, residuals "
+        + ", ".join(f"{r:.3e}" for r in info["residuals"])
+        + f"; max|u - sin sin| = {err:.3e} (bound {SEMILINEAR_BOUND:.3e}); K2 sliced layouts built "
+        f"{len(layouts)}; K2 / K6 launches {out['semilinear Newton']}")
+    check(info["method"] == "newton" and info["newton_iterations"] <= 8,
+          f"Newton took {info['newton_iterations']} > 8 steps")
+    check(info["residuals"][-1] < 1e-10, "the last Newton residual is not below 1e-10")
+    check(bool(torch.isfinite(x).all()) and err < SEMILINEAR_BOUND, "the semilinear error exceeds its bound")
+    check(len(layouts) == 1, f"K2's sliced pattern was built {len(layouts)} times, not once")
+    check(out["semilinear Newton"][1] >= 1 and out["semilinear Newton"][0] > 0,
+          "the semilinear path did not launch K6 and K2")
+
+    sb = FEMSpace(unit_square_mesh(N_BFGS), 1)
+    kw = dict(h=lambda v: v ** 3, dh=lambda v: 3 * v ** 2, g=np.zeros(sb.n_dofs), device=DEVICE,
+              forcing=lambda p: 2 * np.pi ** 2 * np.sin(np.pi * p[..., 0]) * np.sin(np.pi * p[..., 1])
+              + (np.sin(np.pi * p[..., 0]) * np.sin(np.pi * p[..., 1])) ** 3)
+    un, _ = solve_semilinear(sb, -fdt.laplacian(), **kw)
+    zero_launch_counts(ak, gs)
+    (ub, ib), t_bfgs = synced_seconds(lambda: solve_semilinear(
+        sb, -fdt.laplacian(), max_newton=1, newton_tol=1e-30, bfgs_fallback=True,
+        H_potential=lambda v: v ** 4 / 4, **kw))
+    out["semilinear BFGS fallback"] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
+    backward = gs.ell_spmv_backward_launches
+    diff = (ub - un).abs().max().item()
+    log(f"28 BFGS fallback on unit_square_mesh({N_BFGS}) ({sb.n_dofs} dofs): method {ib['method']}, "
+        f"{ib['bfgs_iterations']} BFGS iterations in {t_bfgs:.4f} s, max|u_bfgs - u_newton| = {diff:.3e}; "
+        f"K2 / K6 launches {out['semilinear BFGS fallback']}, K2 backward launches {backward}")
+    check(ib["method"] == "bfgs_fallback" and diff < 1e-4, "the BFGS fallback disagrees with Newton")
+    check(backward > 0, "the BFGS fallback's gradient never launched K2's backward")
+    return out, space, backward
+
+
+def mixed_bc(space, device):
+    """JAX's test_mixed_bc_quadratic_solution on a space: (A, F, Dirichlet
+    mask, u = x^2) with du/dn = 2 on {x = 1} and Dirichlet data elsewhere."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import assemble_forcing, assemble_matrix
+    from fdapde_core_tpu_torch.fem.neumann import assemble_neumann, boundary_facet_selector
+
+    A = assemble_matrix(space, -fdt.laplacian(), device=device)
+    F = assemble_forcing(space, lambda x: -2.0, device=device)
+    side = boundary_facet_selector(space.mesh, lambda p: p[:, 0] > 1.0 - 1e-9)
+    F = F + assemble_neumann(space, 2.0, side, device=device)
+    coords = space.dof_coords
+    dmask = space.boundary_dofs.copy()
+    corner = (coords[:, 1] < 1e-9) | (coords[:, 1] > 1 - 1e-9)
+    dmask &= ~((coords[:, 0] > 1.0 - 1e-9) & ~corner)
+    return A, F, torch.as_tensor(dmask, device=device), torch.as_tensor(coords[:, 0] ** 2, device=device)
+
+
+def phase_neumann(ak, gs, ls, pts, cells, bnd, space1, space2):
+    """Mixed Dirichlet/Neumann data (BASELINE configuration 2) on phase 12's
+    mesh, P1 and P2 (phase 24's space), through solve_elliptic; the
+    boundary-length and unit-area identities; the host P2 FEMSpace with the
+    native hash pass and with the NumPy one. Returns {path: (K2, K6)}."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import FEMSpace, solve_elliptic
+    from fdapde_core_tpu_torch.fem.neumann import assemble_neumann, boundary_facet_selector
+    from fdapde_core_tpu_torch.geometry import triangulation as ttri
+    from fdapde_core_tpu_torch.native import native_available, topology
+    from fdapde_core_tpu_torch.utils.integration import integrate
+
+    out = {}
+    for order, space, pre, bound in ((1, space1, None, NEUMANN_P1_BOUND),
+                                     (2, space2, NEUMANN_P2_PRE, 1e-9)):
+        zero_launch_counts(ak, gs)
+        (A, F, dmask, u), t_asm = synced_seconds(lambda: mixed_bc(space, DEVICE))
+        if pre == "auxgrid":
+            pre = ("auxgrid", space.dof_coords)
+        (x, info), t_solve = synced_seconds(lambda: solve_elliptic(
+            A, F, dmask, u, rtol=1e-13, preconditioner=pre, recovery=False))
+        out[f"Neumann P{order}"] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
+        err = (x - u).abs().max().item()
+        log(f"29 mixed Dirichlet/Neumann u = x^2, du/dn = 2 on x = 1, P{order} ({space.n_dofs} dofs): "
+            f"assembly {t_asm:.4f} s, solve {t_solve:.4f} s ({pre[0] if pre else 'Jacobi'} CG), "
+            f"{info.iterations} iterations, converged {info.converged}; max|x - x^2| = {err:.3e} "
+            f"(bound {bound:.1e}); K2 / K6 launches {out[f'Neumann P{order}']}")
+        check(info.converged and err < bound, f"P{order} mixed Neumann data not reproduced within {bound}")
+        del A, F, x
+    check(out["Neumann P1"][1] >= 1, "the Neumann P1 assembly did not launch K6")
+    whole = boundary_facet_selector(space1.mesh, lambda p: p[:, 0] > -1.0)
+    length = float(assemble_neumann(space1, 1.0, whole, device=DEVICE).sum())
+    area = integrate(space1.mesh, lambda p: 1.0)
+    log(f"29 assemble_neumann(1, whole boundary).sum() = {length:.15f} (4), integrate(mesh, 1) = {area:.15f}")
+    check(abs(length - 4.0) <= 1e-12 and abs(area - 1.0) <= 1e-12, "boundary length / area identity")
+
+    check(native_available(), "the native library cannot be built on this machine (no g++)")
+    spaces = {}
+    for path in ("native", "numpy"):
+        topology.native_calls = 0
+        raw = ttri.first_encounter_unique
+        if path == "numpy":
+            ttri.first_encounter_unique = ttri.first_encounter_unique_numpy
+        try:
+            t0 = time.perf_counter()
+            sp = FEMSpace(fdt.Triangulation(pts, cells, bnd), order=2)
+            sp.dof_coords
+            spaces[path] = (sp, time.perf_counter() - t0, topology.native_calls)
+        finally:
+            ttri.first_encounter_unique = raw
+    (sn, tn, cn), (sp, tp, cp) = spaces["native"], spaces["numpy"]
+    same = (np.array_equal(sn.mesh.edges, sp.mesh.edges) and np.array_equal(sn.dofs, sp.dofs)
+            and np.array_equal(sn.boundary_dofs, sp.boundary_dofs))
+    log(f"29 host FEMSpace(order=2) nx={NX_PDE}: native hash pass {tn:.4f} s ({cn} native calls), "
+        f"NumPy sort {tp:.4f} s ({cp}); edges, dof tables and boundary equal {same}")
+    check(cn > 0 and cp == 0 and same, "the native and NumPy P2 spaces differ or the native path was not taken")
+    return out
+
+
+def fem_misfit(A, M, F, mask, target, mm=None, record=None, pre=None):
+    """loss(kappa) = |u(kappa) - target|^2 with u solving the masked
+    (kappa A + M) u = F by cg_differentiable; mm(S, v) the product (S @ v
+    by default, on K2)."""
+    from fdapde_core_tpu_torch.linear_algebra import cg_differentiable
+
+    mm = mm or (lambda S, v: S @ v)
+    free = (~mask).to(F.dtype)
+
+    def loss(kappa, M=M):
+        def matvec(x):
+            return (kappa * mm(A, x * free) + mm(M, x * free)) * free + x * mask
+
+        x = cg_differentiable(matvec, F * free, M_inv=pre, rtol=1e-13, record=record)
+        return torch.sum((x - target) ** 2)
+
+    return loss
+
+
+def phase_differentiable(ak, gs, ls, space1):
+    """cg_differentiable at full width on phase 12's mesh (a diffusion
+    coefficient, a direction in a weighted mass matrix's values, K2's
+    backward against a forward on the same table), the inverse problem by
+    newton at nx = N_INVERSE, and the FSPAI rung at nx = N_FSPAI. Returns
+    ({path: (K2, K6)}, K2 backward launches, the backward's timing)."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import FEMSpace, assemble_forcing, assemble_matrix, solve_elliptic
+    from fdapde_core_tpu_torch.fem.solvers import DirichletSystem
+    from fdapde_core_tpu_torch.linear_algebra import cg_differentiable, jacobi_preconditioner
+    from fdapde_core_tpu_torch.optimization import newton
+
+    fspai_mod = sys.modules["fdapde_core_tpu_torch.linear_algebra.fspai"]
+    out, backward = {}, 0
+    A = assemble_matrix(space1, -fdt.laplacian(), device=DEVICE)
+    M = assemble_matrix(space1, fdt.reaction(1.0), device=DEVICE)
+    F = assemble_forcing(space1, lambda p: 1.0, device=DEVICE)
+    mask = torch.as_tensor(space1.boundary_dofs, device=DEVICE)
+    c = torch.as_tensor(space1.dof_coords, device=DEVICE)
+    target = torch.sin(torch.pi * c[:, 0]) * torch.sin(torch.pi * c[:, 1])
+    pre = jacobi_preconditioner(DirichletSystem(A * 2.0 + M, mask).diagonal())
+    record = []
+    loss = fem_misfit(A, M, F, mask, target, record=record, pre=pre)
+    kappa = torch.tensor(2.0, dtype=torch.float64, device=DEVICE, requires_grad=True)
+    zero_launch_counts(ak, gs)
+    (g,), t_grad = synced_seconds(lambda: torch.autograd.grad(loss(kappa), kappa))
+    out["cg_differentiable kappa"] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
+    bw = gs.ell_spmv_backward_launches
+    backward += bw
+    its = [(k, i.iterations) for k, i in record]
+    eps = 1e-4
+    with torch.no_grad():
+        fd = (float(loss(2.0 + eps)) - float(loss(2.0 - eps))) / (2 * eps)
+    rel = abs(float(g) - fd) / abs(fd)
+    log(f"30 d|u(kappa) - target|^2 / dkappa nx={NX_PDE} ({space1.n_dofs} dofs): {float(g):.12e} "
+        f"in {t_grad:.4f} s, central difference {fd:.12e} (rel {rel:.3e}); solves (kind, iterations) "
+        f"{its}; K2 launches {out['cg_differentiable kappa'][0]}, of them backward {bw}")
+    check(rel <= 1e-4, "dloss/dkappa disagrees with its finite difference")
+    check(its[1][0] == "adjoint" and abs(its[1][1] - its[0][1]) <= 0.2 * its[0][1],
+          "the adjoint solve's iterations are not about the forward's")
+    check(bw > 0, "the gradient never launched K2's backward")
+
+    # a direction d in the (nnz,) values of the mass matrix weighted by
+    # w = 1 + x y: d/ds loss(M_w + s d) through K2 and through its plain version
+    Mw = assemble_matrix(space1, fdt.reaction(lambda p: 1.0 + p[..., 0] * p[..., 1]), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 30)
+    # each value moved by 50-150 % of its size a unit of s
+    d = (torch.rand(Mw.nnz, generator=gen, dtype=torch.float64, device=DEVICE) + 0.5) * Mw.vals.abs()
+    grads = {}
+    for route, mm in (("K2", None), ("plain", lambda S, v: S.matmul_reference(v))):
+        rec = []
+        lw = fem_misfit(A, Mw, F, mask, target, mm=mm, record=rec, pre=pre)
+        s = torch.zeros((), dtype=torch.float64, device=DEVICE, requires_grad=True)
+        zero_launch_counts(ak, gs)
+        (gs_,), t = synced_seconds(lambda: torch.autograd.grad(lw(2.0, M=Mw.with_vals(Mw.vals + s * d)), s))
+        grads[route] = (float(gs_), t, [(k, i.iterations) for k, i in rec], gs.ell_spmv_launches,
+                        gs.ell_spmv_backward_launches)
+    eps_w = 1e-5
+    with torch.no_grad():
+        fdw = (float(lw(2.0, M=Mw.with_vals(Mw.vals + eps_w * d)))
+               - float(lw(2.0, M=Mw.with_vals(Mw.vals - eps_w * d)))) / (2 * eps_w)
+    gk, gp = grads["K2"][0], grads["plain"][0]
+    out["cg_differentiable mass values"] = (grads["K2"][3], 0)
+    backward += grads["K2"][4]
+    log(f"30 directional derivative in the weighted mass matrix's {Mw.nnz} values: K2 {gk:.12e} "
+        f"({grads['K2'][1]:.4f} s, solves {grads['K2'][2]}, K2 launches {grads['K2'][3]}, backward "
+        f"{grads['K2'][4]}), K2's plain version {gp:.12e} ({grads['plain'][1]:.4f} s, K2 launches "
+        f"{grads['plain'][3]}): rel {abs(gk - gp) / abs(gp):.3e}; central difference {fdw:.12e} "
+        f"(rel {abs(gk - fdw) / abs(fdw):.3e})")
+    check(abs(gk - gp) <= 1e-10 * abs(gp), "the K2 gradient differs from its plain version's")
+    check(abs(gk - fdw) <= 1e-4 * abs(fdw), "the mass-values gradient disagrees with its finite difference")
+    check(grads["plain"][3] == 0 and grads["K2"][4] > 0, "the routes did not take their products")
+
+    # K2's backward against a forward on the same table: A^T G on the
+    # transpose's sliced form (built once per pattern) and A x
+    v = torch.rand(A.shape[1], generator=gen, dtype=torch.float64, device=DEVICE)
+    At = A.transpose_with(A.vals[A.transpose_order()])
+    fwd = lambda: A.sliced() @ v  # noqa: E731
+    bwd = lambda: At.sliced() @ v  # noqa: E731
+    plain = lambda: At.matmul_reference(v)  # noqa: E731
+    ref = plain()
+    err = (bwd() - ref).abs().max().item()
+    scale = At.with_vals(At.vals.abs()).matmul_reference(v.abs())
+    bound_err = bool(((bwd() - ref).abs() <= At.sliced().width * torch.finfo(torch.float64).eps * scale).all())
+    f1, b1, p1 = time_ms(fwd, 20), time_ms(bwd, 20), time_ms(plain, 3)
+    f2, b2, p2 = time_ms(fwd, 20), time_ms(bwd, 20), time_ms(plain, 3)
+    n, nnz = A.shape[0], A.nnz
+    bnd_t = least_time(nnz * 12 + 2 * n * 8, 2 * nnz, torch.float64)
+    lib = A.to_scipy().T.tocsr()
+    Acsr = torch.sparse_csr_tensor(torch.as_tensor(lib.indptr, device=DEVICE),
+                                   torch.as_tensor(lib.indices, device=DEVICE),
+                                   torch.as_tensor(lib.data, device=DEVICE), size=lib.shape)
+    l1, l2 = time_ms(lambda: Acsr @ v, 20), time_ms(lambda: Acsr @ v, 20)
+    timing = dict(table=f"A^T, phase 12's P1 Laplacian ({n} x {n}, {nnz} entries), f64", ms=(b1 + b2) / 2,
+                  forward_ms=(f1 + f2) / 2, plain_ms=(p1 + p2) / 2, library_ms=(l1 + l2) / 2,
+                  max_abs_err=err, **bnd_t)
+    log(f"30 K2 backward (A^T v on the transpose's sliced form) {b1:.4f} / {b2:.4f} ms against the "
+        f"forward A v {f1:.4f} / {f2:.4f} ms on the same table; plain {p1:.4f} / {p2:.4f} ms, "
+        f"torch.sparse CSR {l1:.4f} / {l2:.4f} ms; bound {bnd_t['bound_ms']:.4f} ms ({bnd_t['bound_by']}); "
+        f"max|kernel-plain| {err:.3e}, within the per-row bound {bound_err}")
+    check(bound_err, "K2's backward product disagrees with its plain version")
+    del A, M, Mw, At, Acsr, d, v
+
+    # the inverse problem (JAX's test_coefficient_estimation_inverse_problem)
+    ps, cs, bs = delaunay_mesh(N_INVERSE)
+    si = FEMSpace(fdt.Triangulation(ps, cs, bs), 1)
+    Ai = assemble_matrix(si, -fdt.laplacian(), device=DEVICE)
+    Fi = assemble_forcing(si, lambda p: 4.0, device=DEVICE)
+    mi = torch.as_tensor(si.boundary_dofs, device=DEVICE)
+    free = (~mi).to(Fi.dtype)
+    rec = []
+
+    def solve_for(k):
+        return cg_differentiable(lambda v: k * (Ai @ (v * free)) * free + v * mi, Fi * free,
+                                 rtol=1e-13, record=rec)
+
+    u_obs = solve_for(3.0)
+    zero_launch_counts(ak, gs)
+    res, t_inv = synced_seconds(lambda: newton(lambda k: torch.sum((solve_for(k) - u_obs) ** 2),
+                                               torch.tensor([1.0], dtype=torch.float64, device=DEVICE),
+                                               tol=1e-12, max_iter=50))
+    out["inverse problem"] = (gs.ell_spmv_launches, 0)
+    backward += gs.ell_spmv_backward_launches
+    kx = float(res.x[0])
+    log(f"30 inverse problem on delaunay_mesh({N_INVERSE}) ({si.n_dofs} dofs): newton kappa = {kx:.12f} "
+        f"(kappa* = 3) in {res.n_iter} iterations, {t_inv:.4f} s, {len(rec)} solves, "
+        f"{sum(i.iterations for _, i in rec)} CG iterations; K2 launches {out['inverse problem'][0]}, "
+        f"backward {gs.ell_spmv_backward_launches}")
+    check(abs(kx - 3.0) <= 1e-6, "the inverse problem did not recover kappa* = 3 to 1e-6")
+
+    # the FSPAI rung of the recovery step
+    pf, cf, bf = delaunay_mesh(N_FSPAI)
+    sf = FEMSpace(fdt.Triangulation(pf, cf, bf), 1)
+    Af = assemble_matrix(sf, -fdt.laplacian(), device=DEVICE)
+    mf = torch.as_tensor(sf.boundary_dofs, device=DEVICE)
+    bf_ = torch.ones(sf.n_dofs, dtype=torch.float64, device=DEVICE) / sf.n_dofs
+    zf = torch.zeros_like(bf_)
+    fspai_mod.native_calls = 0
+    zero_launch_counts(ak, gs)
+    with Builds(fspai_mod, "fspai") as setups, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        (xf, info), t_f = synced_seconds(lambda: solve_elliptic(Af, bf_, mf, zf, rtol=1e-10,
+                                                                maxiter=FSPAI_MAXITER))
+    out["FSPAI recovery"] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
+    msgs = [str(w.message) for w in caught]
+    sysf = DirichletSystem(Af, mf)
+    rhs = sysf.rhs(bf_, zf)
+    true = float(torch.linalg.norm(rhs - sysf(xf)) / torch.linalg.norm(rhs))
+    t_setup = setups[0][1] if setups else float("nan")
+    nnz_l = setups[0][0].nnz if setups else 0
+    log(f"30 FSPAI recovery on delaunay_mesh({N_FSPAI}) ({sf.n_dofs} dofs), maxiter {FSPAI_MAXITER}: "
+        f"warnings {msgs}; FSPAI host set-up {t_setup:.4f} s (native calls {fspai_mod.native_calls}), "
+        f"L nnz {nnz_l}; solve {t_f:.4f} s, {info.iterations} GMRES iterations, converged "
+        f"{info.converged}, true rel residual {true:.3e}; K2 launches {out['FSPAI recovery'][0]}")
+    check(any("FSPAI" in m for m in msgs), "the recovery step did not take the FSPAI rung")
+    check(fspai_mod.native_calls == 1 and len(setups) == 1, "FSPAI did not take the native library")
+    check(info.converged and true <= 1e-9, "the FSPAI-preconditioned GMRES did not converge to 1e-9")
+    return out, backward, timing
+
+
 def timed_phase(number, fn):
     """Run a phase, print its seconds, return its result."""
     out, t = synced_seconds(fn)
@@ -2449,8 +2848,8 @@ def main():
     new_paths.update(timed_phase(23, lambda: phase_matfree_parabolic(ak, gs, ls, lattice)))
     del lattice
     torch.cuda.empty_cache()
-    new_paths.update({path: (k2, 0) for path, k2 in
-                      timed_phase(24, lambda: phase_p2(ak, gs, pts, cells, bnd)).items()})
+    k2_p2, space2 = timed_phase(24, lambda: phase_p2(ak, gs, pts, cells, bnd))
+    new_paths.update({path: (k2, 0) for path, k2 in k2_p2.items()})
     torch.cuda.empty_cache()
     new_paths.update({path: (k2, 0) for path, k2 in
                       timed_phase(25, lambda: phase_lane_aux(ak, gs)).items()})
@@ -2461,8 +2860,20 @@ def main():
     k2_aux3d, tables_aux3d = timed_phase(27, lambda: phase_aux3d(ak, gs, mesh3d))
     new_paths.update({path: (k2, 0) for path, k2 in k2_aux3d.items()})
     del mesh3d
-    log("K2 / K6 launches by path of phases 20-27: " + "; ".join(
-        f"{path} {k2} / {k6}" for path, (k2, k6) in new_paths.items()))
+    torch.cuda.empty_cache()
+    paths_28, space1, bw28 = timed_phase(28, lambda: phase_semilinear(ak, gs, ls, pts, cells, bnd))
+    new_paths.update(paths_28)
+    torch.cuda.empty_cache()
+    new_paths.update(timed_phase(29, lambda: phase_neumann(ak, gs, ls, pts, cells, bnd, space1, space2)))
+    del space2
+    torch.cuda.empty_cache()
+    paths_30, bw30, k2_backward = timed_phase(30, lambda: phase_differentiable(ak, gs, ls, space1))
+    new_paths.update(paths_30)
+    del space1
+    k2_backward_launches = bw28 + bw30
+    log("K2 / K6 launches by path of phases 20-30: " + "; ".join(
+        f"{path} {k2} / {k6}" for path, (k2, k6) in new_paths.items())
+        + f"; K2 backward launches {k2_backward_launches} (phase 28 {bw28}, phase 30 {bw30})")
     k2_launches += sum(k2 for k2, _ in new_paths.values())
     k6_launches += sum(k6 for _, k6 in new_paths.values())
 
@@ -2479,7 +2890,9 @@ def main():
         source="fdapde_core_tpu_torch/csrc/ell_spmv.cu",
         replaces="fdapde_core_tpu/ops/pallas_gather_spmv.py:563",
         launches=k2_launches,
+        launches_backward=k2_backward_launches,
         **k2,
+        backward=k2_backward,
         sliced=k2_sliced,
         ell_3d={"float64": tables_gen3d["torch.float64"], "float32": tables_gen3d["torch.float32"]},
         aux_3d=tables_aux3d,

@@ -36,10 +36,29 @@ planes kernel, the fused assembly's first stage
 data-fitting path: point location (``geometry/point_location.py``), basis
 evaluation (``fem/evaluation.py``), B-splines (``splines/``),
 ``models.SmoothingRegression`` and ``models.SpaceTimeSmoothing``, which run
-K2 for every sparse product and K6 in their penalties' assembly.
+K2 for every sparse product and K6 in their penalties' assembly; and the
+solver breadth beyond the linear solve: ``fem.nonlinear.solve_semilinear``
+(Newton with a BFGS fallback), ``fem.neumann``, the differentiable CG
+(``linear_algebra.cg_differentiable``; K2 products carry a backward),
+FSPAI and its recovery rung, ``fields``, ``optimization``,
+``linear_algebra.block`` / ``binary``, ``utils.integration`` and the native
+host library (``native/``: the first-encounter hash pass and FSPAI, g++ at
+first use).
 """
 
-from . import fem, geometry, linear_algebra, models, ops, pde, splines, utils
+from . import (
+    fem,
+    fields,
+    geometry,
+    linear_algebra,
+    models,
+    native,
+    ops,
+    optimization,
+    pde,
+    splines,
+    utils,
+)
 from .fem import FEMSpace
 from .geometry import Interval, Triangulation
 from .pde import PDE, advection, bilaplacian, diffusion, dt, laplacian, reaction

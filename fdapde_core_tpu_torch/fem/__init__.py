@@ -1,7 +1,10 @@
 """FEM: reference elements and Lagrange bases (host copies), ``FEMSpace``,
 batched assembly into sparse or DIA storage (``assembler``), the
-Dirichlet-masked elliptic and implicit-Euler solvers (``solvers``) and
-basis evaluation at data locations (``evaluation``)."""
+Dirichlet-masked elliptic and implicit-Euler solvers (``solvers``),
+basis evaluation at data locations (``evaluation``), Neumann boundary loads
+(``neumann``) and the semilinear Newton solver (``nonlinear``)."""
+
+from . import neumann, nonlinear
 
 from .assembler import assemble_dia, assemble_forcing, assemble_matrix, local_matrices
 from .evaluation import basis_expansion, eval_basis_areal, eval_basis_pointwise

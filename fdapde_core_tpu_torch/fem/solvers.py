@@ -18,10 +18,14 @@ K = A + M/dt (or A + diag(lump(M))/dt), per-step right-hand side
 warm-started from the previous step. JAX runs the steps in a
 ``lax.scan``; here they are a host loop.
 
-Differences from the JAX module: the recovery step skips the FSPAI rung on
-purpose (``linear_algebra/fspai.py`` needs the package's native C++, not
-ported yet) and says so in its warning, where JAX swallows a failed FSPAI
-setup.
+Recovery: a non-converged elliptic solve escalates once to GMRES(50),
+with an FSPAI preconditioner (``linear_algebra/fspai.py``, native set-up,
+applied as two K2 products) on symmetric systems of at most 200,000 dofs,
+as in JAX. Difference: JAX keeps its first preconditioner when the FSPAI
+set-up raises anything; here only a numerical failure of the set-up
+(``LinAlgError``) does, and a failed native build raises. An operator that
+is not a ``SparseMatrix`` (DIA storage) keeps its preconditioner, where
+JAX's FSPAI set-up raises on it and is caught: the same rung.
 """
 
 from __future__ import annotations
@@ -109,22 +113,37 @@ def solve_elliptic(A, b, mask, g, symmetric=True, rtol=1e-12, maxiter=None,
     solver = cg if symmetric else bicgstab
     x, info = solver(sys, b_mod, M_inv=pre, x0=x0, rtol=rtol, maxiter=maxiter)
     if recovery and not info.converged:
-        x, info = _recover_elliptic(sys, b_mod, x, x0, rtol, maxiter, pre)
+        x, info = _recover_elliptic(A, sys, b_mod, x, x0, symmetric, rtol, maxiter, pre)
     return x, info
 
 
-def _recover_elliptic(sys, b_mod, x, x0, rtol, maxiter, pre):
-    """One escalation step: GMRES(50) with the same preconditioner,
+_FSPAI_RECOVERY_MAX_DOFS = 200_000  # host-side set-up cost bound
+
+
+def _recover_elliptic(A, sys, b_mod, x, x0, symmetric, rtol, maxiter, pre):
+    """One escalation step: a stronger solver (GMRES(50)) and, when
+    affordable, a stronger preconditioner (FSPAI of the masked operator),
     restarted from the stalled iterate unless it is not finite (a Krylov
     breakdown)."""
     x_start = x if bool(torch.isfinite(x).all()) else x0
+    pre_strong = pre
+    if symmetric and isinstance(A, SparseMatrix) and sys.A.shape[0] <= _FSPAI_RECOVERY_MAX_DOFS:
+        from ..linear_algebra.fspai import fspai
+
+        try:
+            L = fspai(masked_matrix(A, sys.mask), alpha=8, beta=8, epsilon=1e-4)
+
+            def pre_strong(r):
+                return L @ L.rmatvec(r)
+        except np.linalg.LinAlgError:  # keep the first preconditioner
+            pre_strong = pre
     warnings.warn(
-        "elliptic solve did not converge; escalating to GMRES(50) with the same "
-        "preconditioner (the FSPAI rung of the JAX package is not ported: "
-        "ROADMAP queue 3)",
+        "elliptic solve did not converge; escalating to GMRES(50) "
+        f"({'FSPAI' if pre_strong is not pre else 'Jacobi'}-preconditioned)",
         stacklevel=3,
     )
-    return gmres(sys, b_mod, M_inv=pre, x0=x_start, rtol=rtol, maxiter=maxiter, restart=50)
+    return gmres(sys, b_mod, M_inv=pre_strong, x0=x_start, rtol=rtol, maxiter=maxiter,
+                 restart=50)
 
 
 def solve_parabolic(A, Mass, F, mask, g, u0, times, rtol=1e-12, maxiter=None,

@@ -6,11 +6,11 @@ Host-only NumPy copy of ``fdapde_core_tpu/geometry/triangulation.py``
 faces, neighbors, boundary markers) is derived vectorized on the host;
 geometric per-cell maps live in `affine.py` (torch, and a NumPy twin).
 
-Difference from the JAX package's module: sub-simplex numbering always
-takes the NumPy sort-based `first_encounter_unique` (the native C++ hash
-pass is not ported yet, ROADMAP queue 1 item 3; P1 meshes with explicit
-boundary markers never reach it). Point location (`locate` on the host,
-`locate_device` in torch) is `geometry/point_location.py`.
+Sub-simplex numbering takes the native C++ hash pass
+(`native/topology.cpp`, built with g++ at first use) wherever a g++ is on
+PATH, as the JAX package does, and the NumPy sort otherwise; both give the
+same ids. Point location (`locate` on the host, `locate_device` in torch)
+is `geometry/point_location.py`.
 
 Numbering parity with the reference (required so P2 degrees of freedom and
 golden matrices match bit-for-bit):
@@ -33,7 +33,7 @@ import torch
 
 from ..utils.combinatorics import combinations
 
-__all__ = ["Triangulation", "first_encounter_unique"]
+__all__ = ["Triangulation", "first_encounter_unique", "first_encounter_unique_numpy"]
 
 
 def first_encounter_unique(keys: np.ndarray):
@@ -43,9 +43,19 @@ def first_encounter_unique(keys: np.ndarray):
     0,1,2,... in order of first appearance (matching the reference's
     sequential hash-map numbering, triangulation.h:167-191).
 
-    Sort-based (O(n log n)); the JAX package takes a native C++ hash pass
-    when it is built, with the same result.
+    Uses the native C++ hash pass (O(n)) when a g++ can build it, as the JAX
+    package does; the sort-based NumPy pass (O(n log n)) otherwise. A failed
+    native build raises.
     """
+    from ..native import first_encounter_unique_native, native_available
+
+    if native_available():
+        return first_encounter_unique_native(np.ascontiguousarray(keys, np.int32))
+    return first_encounter_unique_numpy(keys)
+
+
+def first_encounter_unique_numpy(keys: np.ndarray):
+    """The sort-based NumPy form of ``first_encounter_unique``: the same ids."""
     _, first_idx, inverse = np.unique(
         keys, axis=0, return_index=True, return_inverse=True
     )

@@ -1,7 +1,7 @@
 """Preconditioned Krylov solvers: CG, BiCGStab and restarted GMRES.
 
 Port of ``fdapde_core_tpu/linear_algebra/solvers.py`` ``SolveInfo``,
-``cg``, ``bicgstab``, ``gmres``, ``jacobi_preconditioner``,
+``cg``, ``bicgstab``, ``gmres``, ``cg_differentiable``, ``jacobi_preconditioner``,
 ``dense_solve``, ``iterative_refinement`` and the host-driven forms
 ``cg_chunked``, ``bicgstab_chunked`` and ``cg_split_programs``. The JAX
 package splits a solve into device programs to stay under a TPU
@@ -28,7 +28,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["SolveInfo", "cg", "cg_chunked", "cg_split_programs", "bicgstab",
+__all__ = ["SolveInfo", "cg", "cg_chunked", "cg_differentiable", "cg_split_programs", "bicgstab",
            "bicgstab_chunked", "dense_solve", "gmres", "iterative_refinement",
            "jacobi_preconditioner"]
 
@@ -283,6 +283,71 @@ def dense_solve(A, b):
     A = torch.as_tensor(A)
     b = torch.as_tensor(b, device=A.device).to(A.dtype)
     return torch.linalg.solve(A, b)
+
+
+def cg_differentiable(matvec, b, M_inv=None, rtol=1e-12, maxiter=None, symmetric=True,
+                      record=None):
+    """CG solve of matvec(x) = b with implicit differentiation (JAX's
+    ``lax.custom_linear_solve`` semantics).
+
+    Gradients of the solution with respect to anything ``matvec`` closes
+    over, or that enters ``b``, come from ADJOINT SOLVES, never from
+    autograd through the iterations (x* is solved under ``no_grad``).
+    ``symmetric``: the transpose solve reuses ``matvec``; otherwise
+    matvec^T is its vector-Jacobian product. ``record``: a list that each
+    solve, forward and adjoint, appends ("forward" | "adjoint", SolveInfo)
+    to.
+
+    The result, of value x* exactly, is x~ + S(b - matvec(x~)) with
+    x~ = x* + S(b - matvec(x*)), where S is the identity forward and, on
+    the way back, a hook that maps the incoming gradient g to
+    cg_differentiable(matvec^T, g), itself differentiable. The outer S
+    gives the gradient: one adjoint solve. x~ carries the solution's
+    derivative into the operator's, which a Hessian through the solve needs
+    (JAX's x in d(A x)); in a first backward what reaches the inner S is
+    the adjoint solve's residual, which the inner solve meets at once with
+    the outer one's accuracy as its absolute tolerance (the larger of
+    rtol ||g|| and twice the adjoint's true residual, one more matvec).
+    """
+    return _cg_differentiable(matvec, b, M_inv, rtol, maxiter, symmetric, record, "forward")
+
+
+def _cg_differentiable(matvec, b, M_inv, rtol, maxiter, symmetric, record, kind, atol=0.0):
+    with torch.no_grad():
+        x, info = cg(matvec, b.detach(), M_inv=M_inv, rtol=rtol, atol=atol, maxiter=maxiter)
+    if record is not None:
+        record.append((kind, info))
+    if not torch.is_grad_enabled():
+        return x
+    r0 = b - matvec(x)
+    if not r0.requires_grad:
+        return x
+    if symmetric:
+        transposed = matvec
+    else:
+        def transposed(v):
+            z = torch.zeros_like(x, requires_grad=True)
+            with torch.enable_grad():
+                return torch.autograd.grad(matvec(z), z, v, create_graph=torch.is_grad_enabled())[0]
+
+    outer_tol = [0.0]  # the outer adjoint solve's accuracy, this backward's
+
+    def adjoint(g):
+        lam = _cg_differentiable(transposed, g, M_inv, rtol, maxiter, symmetric, record, "adjoint")
+        with torch.no_grad():  # CG stops on its recurrence; the true residual may sit above
+            true = float(torch.linalg.norm(g.detach() - transposed(lam.detach())))
+        outer_tol[0] = max(rtol * float(torch.linalg.norm(g.detach())), 2.0 * true)
+        return lam
+
+    def inner(g):
+        return _cg_differentiable(transposed, g, M_inv, rtol, maxiter, symmetric, record,
+                                  "adjoint", atol=outer_tol[0])
+
+    r0.register_hook(inner)
+    x_tilde = x + (r0 - r0.detach())
+    r = b - matvec(x_tilde)
+    r.register_hook(adjoint)
+    return x_tilde + (r - r.detach())
 
 
 def iterative_refinement(A, b, inner_solve, n_refine: int = 3):

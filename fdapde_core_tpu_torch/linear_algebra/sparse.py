@@ -24,6 +24,17 @@ built on it. Every sum here therefore runs in a fixed order:
   and each column equals the vector product of that column bitwise.
   ``matmul_reference`` is the plain gather-multiply-sum of either form,
   the oracle the products are held to.
+
+Gradients. JAX differentiates its ``segment_sum`` product for free; K2
+records no graph. So where ``vals`` or the operand requires grad (and grad
+mode is on), ``@`` runs through ``SparseProduct``, an autograd Function
+whose inputs are the values and the operand: the gradient with respect to
+the operand is A^T G on K2's sliced form of the transpose (``T``, whose
+sort and layout are built once per pattern and shared by every
+``with_vals``), the one with respect to the values G[rows] X[cols] (summed
+over a block's columns; plain torch, as JAX's is XLA). The backward calls
+the same Function, so double backward works. Without such an input the
+product is the plain launch, bit for bit.
 """
 
 from __future__ import annotations
@@ -31,9 +42,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import gather_spmv
 from ..ops.gather_spmv import SlicedELL
 
-__all__ = ["SegmentSum", "SparseMatrix", "coo_sum_duplicates"]
+__all__ = ["SegmentSum", "SparseMatrix", "SparseProduct", "coo_sum_duplicates"]
 
 
 def coo_sum_duplicates(rows, cols, n_rows, n_cols):
@@ -91,7 +103,8 @@ class SparseMatrix:
     """Sorted-COO sparse matrix: rows (nnz,) int32 sorted, cols (nnz,)
     int32 sorted within each row, vals (nnz,), all on one device."""
 
-    def __init__(self, rows, cols, vals, shape, _pattern: list | None = None):
+    def __init__(self, rows, cols, vals, shape, _pattern: list | None = None,
+                 _transpose: list | None = None):
         self.rows = rows
         self.cols = cols
         self.vals = vals
@@ -99,6 +112,10 @@ class SparseMatrix:
         # [SlicedELL pattern or None]: the rows' sliced layout, built at the
         # first product and shared by every with_vals of this matrix
         self._pattern = [None] if _pattern is None else _pattern
+        # [None or (order, rows, cols, pattern list, own transpose list)]:
+        # the transpose's entry order (vals[order] are its values), its
+        # pattern and its sliced layout, shared by every with_vals
+        self._transpose = [None] if _transpose is None else _transpose
         self._sliced = {}  # dtype -> SlicedELL with this matrix's values
         self._T = None
 
@@ -142,7 +159,7 @@ class SparseMatrix:
         matrix's by default)."""
         dtype = self.vals.dtype if dtype is None else dtype
         if dtype not in self._sliced:
-            vals = self.vals.to(dtype)
+            vals = self.vals.detach().to(dtype)
             if self._pattern[0] is None:
                 A = SlicedELL.from_coo(self.rows, self.cols, vals, self.shape)
                 self._pattern[0] = A.pattern()
@@ -152,9 +169,12 @@ class SparseMatrix:
         return self._sliced[dtype]
 
     def __matmul__(self, x):
-        """A @ x for an (n_src,) vector or an (n_src, k) block, on K2."""
+        """A @ x for an (n_src,) vector or an (n_src, k) block, on K2;
+        through ``SparseProduct`` where the values or x require grad."""
         x = torch.as_tensor(x, device=self.vals.device)
         dtype = torch.promote_types(self.vals.dtype, x.dtype)
+        if torch.is_grad_enabled() and (self.vals.requires_grad or x.requires_grad):
+            return SparseProduct.apply(self.vals.to(dtype), x.to(dtype), self)
         return self.sliced(dtype) @ x.to(dtype)
 
     def matmul_reference(self, x):
@@ -187,14 +207,34 @@ class SparseMatrix:
         """x @ A, i.e. A^T applied to x."""
         return self.T @ x
 
+    def transpose_order(self) -> torch.Tensor:
+        """(nnz,) int64: the transpose's entries are this matrix's entries
+        in this order. Built once per pattern (a stable device sort)."""
+        if self._transpose[0] is None:
+            # rows are sorted, so a stable sort by column gives (col, row)
+            # order, on the device
+            order = torch.sort(self.cols, stable=True).indices
+            back = torch.empty_like(order).index_put_(
+                (order,), torch.arange(order.shape[0], device=order.device))
+            own = [None]
+            self._transpose[0] = (order, self.cols[order], self.rows[order], [None], own)
+            # the transpose's transpose is this pattern
+            own[0] = (back, self.rows, self.cols, self._pattern, self._transpose)
+        return self._transpose[0][0]
+
+    def transpose_with(self, vals_t) -> "SparseMatrix":
+        """The transpose with ``vals_t`` (nnz,) in its entry order (this
+        matrix's values gathered by ``transpose_order``), on the shared
+        transposed pattern."""
+        self.transpose_order()
+        _, rows, cols, pattern, tpose = self._transpose[0]
+        return SparseMatrix(rows, cols, vals_t, (self.shape[1], self.shape[0]),
+                            _pattern=pattern, _transpose=tpose)
+
     @property
     def T(self) -> "SparseMatrix":
         if self._T is None:
-            # rows are sorted, so a stable sort by column gives (col, row)
-            # order, on the device
-            idx = torch.sort(self.cols, stable=True).indices
-            self._T = SparseMatrix(self.cols[idx], self.rows[idx], self.vals[idx],
-                                   (self.shape[1], self.shape[0]))
+            self._T = self.transpose_with(self.vals[self.transpose_order()])
         return self._T
 
     def diagonal(self):
@@ -205,7 +245,8 @@ class SparseMatrix:
         return d
 
     def with_vals(self, vals) -> "SparseMatrix":
-        return SparseMatrix(self.rows, self.cols, vals, self.shape, _pattern=self._pattern)
+        return SparseMatrix(self.rows, self.cols, vals, self.shape, _pattern=self._pattern,
+                            _transpose=self._transpose)
 
     def __add__(self, other: "SparseMatrix") -> "SparseMatrix":
         if self.shape != other.shape:
@@ -249,6 +290,39 @@ class SparseMatrix:
 
     def __repr__(self):
         return f"SparseMatrix(shape={self.shape}, nnz={self.nnz}, dtype={self.dtype})"
+
+
+class SparseProduct(torch.autograd.Function):
+    """Y = A X on K2 with gradients: ``apply(vals, X, A)``, vals (nnz,) the
+    values of the ``SparseMatrix`` A's pattern in X's dtype (equal to
+    A.vals), X an (n_src,) vector or (n_src, k) block.
+
+    Backward: dX = A^T G, the transpose's ``@`` (so through this Function
+    again under ``create_graph``); dvals = G[rows] X[cols], summed over a block's
+    columns. The launches the backward makes are also counted in
+    ``ops.gather_spmv.ell_spmv_backward_launches``."""
+
+    @staticmethod
+    def forward(ctx, vals, X, A):
+        ctx.A = A
+        ctx.save_for_backward(vals, X)
+        if vals is A.vals:
+            return A.sliced(vals.dtype) @ X
+        return A.with_vals(vals).sliced(vals.dtype) @ X
+
+    @staticmethod
+    def backward(ctx, G):
+        vals, X = ctx.saved_tensors
+        A = ctx.A
+        d_vals = d_X = None
+        if ctx.needs_input_grad[1]:
+            before = gather_spmv.ell_spmv_launches
+            d_X = A.transpose_with(vals[A.transpose_order()]) @ G
+            gather_spmv.ell_spmv_backward_launches += gather_spmv.ell_spmv_launches - before
+        if ctx.needs_input_grad[0]:
+            prod = G[A.rows.long()] * X[A.cols.long()]
+            d_vals = prod.sum(1) if prod.dim() == 2 else prod
+        return d_vals, d_X, None
 
 
 def _host(a) -> np.ndarray:

@@ -5,8 +5,11 @@ CG); the general-mesh gather path, ``MatrixFreePoisson`` and
 aux-grid preconditioned Krylov solve); and the data-fitting models,
 ``SmoothingRegression`` (fit, predict, GCV) and the Kronecker-structured
 space-time layer (``SeparableOperator``, ``solve_space_time``,
-``SpaceTimeSmoothing``), whose sparse products all run on K2."""
+``SpaceTimeSmoothing``), whose sparse products all run on K2; and the
+semilinear Newton solver with its BFGS fallback (``solve_semilinear``,
+``fem/nonlinear.py``)."""
 
+from ..fem.nonlinear import solve_semilinear
 from ..pde import PDE
 from .matfree import MatrixFreeElliptic, MatrixFreeParabolic, MatrixFreePoisson
 from .regression import SmoothingRegression
@@ -23,4 +26,4 @@ from .structured import StructuredPoisson
 __all__ = ["MatrixFreeElliptic", "MatrixFreeParabolic", "MatrixFreePoisson",
            "ModeDiagPreconditioner", "ModeMGPreconditioner", "PDE", "SeparableOperator",
            "SmoothingRegression", "SpaceTimeSmoothing", "StructuredPoisson",
-           "solve_space_time", "solve_space_time_fdm"]
+           "solve_semilinear", "solve_space_time", "solve_space_time_fdm"]

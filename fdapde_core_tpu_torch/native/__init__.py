@@ -1,0 +1,10 @@
+"""Native (C++) host-side kernels, built with g++ at first use and bound with
+ctypes: the first-encounter hash pass of mesh topology (``topology.cpp``)
+and FSPAI (``fspai.cpp``). Copies of the JAX package's sources; the build
+raises on a failed compile (``build.py``). ``rcm.cpp`` waits for the
+multi-device slice."""
+
+from .build import get_lib, native_available
+from .topology import first_encounter_unique_native
+
+__all__ = ["first_encounter_unique_native", "get_lib", "native_available"]

@@ -40,6 +40,9 @@ __all__ = ["LaneRoutedELL", "SlicedELL", "ell_spmv", "ell_spmv_reference", "slic
 # kernel launches of either form since import (or since a caller last reset
 # it to 0)
 ell_spmv_launches = 0
+# those of them made by the backward of a differentiable SparseMatrix
+# product (linear_algebra.sparse.SparseProduct), counted there
+ell_spmv_backward_launches = 0
 
 SLICE = 32  # rows per slice of a SlicedELL: the lanes of a warp (kC in the source)
 # rows are sorted by length within windows of this many positions before

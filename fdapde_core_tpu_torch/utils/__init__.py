@@ -1,2 +1,5 @@
 """Host utilities copied from the JAX package: combinatorics, quadrature
-rules and batched evaluation of user callables."""
+rules, batched evaluation of user callables and integration over meshes
+(``integration``)."""
+
+from . import integration

@@ -7,6 +7,8 @@ plain version by the `cuda`-marked test (skipped without a card).
 """
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -152,9 +154,39 @@ def test_stencil_oracles_agree_with_fused_path():
         ak.p1_offdiag_planes_from_coords(tX[:n], tY[:n], n)
 
 
+def _check_k2_autograd_on_cpu():
+    """K2's autograd Function (linear_algebra.sparse.SparseProduct) on CPU
+    tensors: gradcheck and gradgradcheck in f64 on a rectangular matrix,
+    with respect to the values and a vector or a block; the gradients equal
+    the plain product's (matmul_reference) to 1e-13; a product with no
+    input that requires grad is the plain launch, bit for bit; no launch is
+    counted on the CPU."""
+    from fdapde_core_tpu_torch.linear_algebra.sparse import SparseMatrix
+    from fdapde_core_tpu_torch.ops import gather_spmv as gs
+
+    rng = np.random.default_rng(4)
+    a = np.where(rng.uniform(size=(9, 7)) < 0.4, rng.standard_normal((9, 7)), 0.0)
+    A = SparseMatrix.from_dense(a, device="cpu")
+    before = (gs.ell_spmv_launches, gs.ell_spmv_backward_launches)
+    v = A.vals.clone().requires_grad_(True)
+    for X in (torch.from_numpy(rng.standard_normal(7)), torch.from_numpy(rng.standard_normal((7, 3)))):
+        X = X.requires_grad_(True)
+        product = lambda vals, x: A.with_vals(vals) @ x  # noqa: E731
+        assert torch.autograd.gradcheck(product, (v, X))
+        assert torch.autograd.gradgradcheck(product, (v, X))
+        G = torch.from_numpy(rng.standard_normal((9,) + tuple(X.shape[1:])))
+        got = torch.autograd.grad(product(v, X), (v, X), G)
+        ref = torch.autograd.grad(A.with_vals(v).matmul_reference(X), (v, X), G)
+        for g, r in zip(got, ref):
+            assert (g - r).abs().max() <= 1e-13 * r.abs().max()
+        assert torch.equal(A @ X.detach(), A.sliced() @ X.detach())
+    assert (gs.ell_spmv_launches, gs.ell_spmv_backward_launches) == before
+
+
 def test_cpu_wrapper_runs_plain_version_and_counts_nothing():
     """On CPU tensors the wrapper takes the plain version (no launch is
-    counted) and still checks its arguments."""
+    counted) and still checks its arguments; so does K2's autograd
+    Function (``_check_k2_autograd_on_cpu``)."""
     n = 8
     X, Y = (torch.from_numpy(a) for a in _planes(n, True))
     before = ak.p1_stencil_launches
@@ -171,9 +203,91 @@ def test_cpu_wrapper_runs_plain_version_and_counts_nothing():
         ak.p1_stencil_layers_into(X.t(), Y.t(), n, out)
     with pytest.raises(ValueError):  # wrong output shape
         ak.p1_stencil_layers_into(X, Y, n, out[:, :n])
+    _check_k2_autograd_on_cpu()
+
+
+def _f_np(x, m):
+    """sin(x0) x1^2 + exp(x0 x1) in either framework's math module m."""
+    return m.sin(x[0]) * x[1] ** 2 + m.exp(x[0] * x[1])
+
+
+def _check_fields_match_jax():
+    """fields: values, gradients and Hessians of ScalarField (auto mode to
+    1e-12 of JAX's, FD mode to 1e-6 of the analytic ones and to 1e-9 of
+    JAX's FD), the algebra, the unary wrappers, VectorField.dot and
+    MatrixField products, at seeded points."""
+    from fdapde_core_tpu import fields as jf
+    from fdapde_core_tpu_torch import fields as tf
+
+    rng = np.random.default_rng(6)
+    for x in rng.uniform(-1.0, 1.0, size=(3, 2)):
+        xj, xt = jnp.asarray(x), torch.from_numpy(x)
+        fj, ft = jf.ScalarField(lambda p: _f_np(p, jnp)), tf.ScalarField(lambda p: _f_np(p, torch))
+        gj, gt = (2.0 * fj - fj / (fj + 3.0)) * jf.sin(fj), (2.0 * ft - ft / (ft + 3.0)) * tf.sin(ft)
+        for what, a, b in (("value", gj(xj), gt(xt)),
+                           ("grad", fj.derive()(xj), ft.derive()(xt)),
+                           ("hessian", fj.derive_twice()(xj), ft.derive_twice()(xt)),
+                           ("composed grad", gj.derive()(xj), gt.derive()(xt))):
+            assert np.abs(b.numpy() - np.asarray(a)).max() <= 1e-12 * max(1.0, np.abs(a).max()), what
+        exact = np.asarray(fj.derive()(xj))
+        for what, a, b in (("fd grad", fj.derive(mode="fd")(xj), ft.derive(mode="fd")(xt)),
+                           ("fd hessian", fj.derive_twice(mode="fd")(xj), ft.derive_twice(mode="fd")(xt))):
+            # the quotients amplify torch's and XLA's one-ulp differences in
+            # sin/exp by up to 16 / (12 h^2) ~ 1.3e6
+            assert np.abs(b.numpy() - np.asarray(a)).max() <= 1e-9, what
+        assert np.abs(ft.derive(mode="fd")(xt).numpy() - exact).max() <= 1e-6
+        hexact = np.asarray(fj.derive_twice()(xj))
+        assert np.abs(ft.derive_twice(mode="fd")(xt).numpy() - hexact).max() <= 1e-6
+    vt = tf.VectorField([lambda p: p[0], lambda p: p[1]])
+    assert float(vt.dot(torch.tensor([2.0, 3.0]))(torch.tensor([1.0, 1.0]))) == 5.0
+    assert float(vt.dot(vt)(torch.tensor([3.0, 4.0]))) == 25.0
+    K = tf.MatrixField([[lambda p: p[0], lambda p: 0.0], [lambda p: 0.0, lambda p: p[1]]])
+    p = torch.tensor([2.0, 5.0], dtype=torch.float64)
+    np.testing.assert_array_equal((K @ K)(p).numpy(), [[4.0, 0.0], [0.0, 25.0]])
+    np.testing.assert_array_equal(K.matvec(torch.ones(2, dtype=torch.float64))(p).numpy(), [2.0, 5.0])
+    H = tf.TwiceDifferentiableScalarField(lambda p: p[0], lambda p: p, lambda p: torch.eye(2) * 7.0)
+    assert float(H.derive_twice()(p)[1, 1]) == 7.0 and float(H.derive()(p)[1]) == 5.0
+
+
+def _check_optimizers_match_jax():
+    """optimization: JAX's tests/test_optimization.py on both packages, the
+    port's x to 1e-8 of JAX's (grid search: the same point), iterations
+    equal where the test pins them."""
+    from fdapde_core_tpu import optimization as jo
+    from fdapde_core_tpu_torch import optimization as to
+
+    def quadratic(x):
+        return (x[0] - 1.0) ** 2 + 4.0 * (x[1] + 2.0) ** 2
+
+    def rosenbrock(x):
+        return 100.0 * (x[1] - x[0] ** 2) ** 2 + (1.0 - x[0]) ** 2
+
+    xs = np.linspace(-2, 2, 41)
+    grid = np.stack(np.meshgrid(xs, xs, indexing="ij"), axis=-1).reshape(-1, 2)
+    cases = (
+        ("grid", lambda m, a: m.grid_search(quadratic, a(grid))),
+        ("gd backtracking", lambda m, a: m.gradient_descent(
+            quadratic, a([5.0, 5.0]), step=1.0, tol=1e-8, max_iter=2000, line_search="backtracking")),
+        ("newton quadratic", lambda m, a: m.newton(quadratic, a([8.0, -5.0]))),
+        ("newton rosenbrock", lambda m, a: m.newton(rosenbrock, a([-1.2, 1.0]), max_iter=100, tol=1e-10)),
+        ("bfgs wolfe", lambda m, a: m.bfgs(rosenbrock, a([-1.2, 1.0]), tol=1e-8, max_iter=500,
+                                           line_search="wolfe")),
+        ("bfgs backtracking", lambda m, a: m.bfgs(quadratic, a([8.0, -5.0]), line_search="backtracking")),
+        ("custom line search", lambda m, a: m.gradient_descent(
+            quadratic, a([5.0, 5.0]), tol=1e-10, max_iter=200, line_search=lambda f, g, x, p, s: 0.1)),
+    )
+    for name, run in cases:
+        rj = run(jo, lambda v: jnp.asarray(v, jnp.float64))
+        rt = run(to, lambda v: torch.tensor(v, dtype=torch.float64))
+        assert np.abs(rt.x.numpy() - np.asarray(rj.x)).max() <= 1e-8, name
+        if name in ("grid", "newton quadratic"):
+            assert rt.n_iter == int(rj.n_iter), name
 
 
 def test_closed_form_matches_jax():
+    """The closed forms (2D and tet), and the host-side analytic layers
+    beside them: fields (``_check_fields_match_jax``) and the optimizers
+    (``_check_optimizers_match_jax``)."""
     rng = np.random.default_rng(3)
     coords = rng.uniform(size=(6, 50))
     ref = np.asarray(jcf.p1_stiffness_2d_sym(jnp.asarray(coords)))
@@ -194,12 +308,16 @@ def test_closed_form_matches_jax():
     np.testing.assert_array_equal(packed.numpy(), np.asarray(jcf.pack_cell_axis(jnp.asarray(edges))))
     with pytest.raises(ValueError):
         tcf.pack_cell_axis(torch.zeros(9, 100))
+    _check_fields_match_jax()
+    _check_optimizers_match_jax()
 
 
 def test_port_never_imports_jax():
     """No module of the port imports jax (an AST scan of every .py file,
-    the modules of the device-scale P2, lane aux grid and refinement paths
-    among them)."""
+    the modules of the device-scale P2, lane aux grid and refinement paths,
+    and the solver-breadth modules: fields, optimization, Neumann data,
+    the semilinear solver, FSPAI, block and binary matrices, integration
+    and the native library, among them)."""
     offenders, scanned = [], set()
     for path in sorted(PORT.rglob("*.py")):
         if "_build" in path.relative_to(PORT).parts:  # build outputs, not source
@@ -217,7 +335,20 @@ def test_port_never_imports_jax():
                 offenders.append(f"{path.relative_to(PORT)}:{node.lineno}")
     assert not offenders, offenders
     assert {"ops/matfree_soa.py", "ops/lane_aux.py", "geometry/refine_device.py",
-            "models/matfree.py"} <= scanned
+            "models/matfree.py", "fields/fields.py", "fields/__init__.py",
+            "optimization/optimizers.py", "optimization/__init__.py", "fem/neumann.py",
+            "fem/nonlinear.py", "linear_algebra/fspai.py", "linear_algebra/block.py",
+            "linear_algebra/binary.py", "native/__init__.py", "native/build.py",
+            "native/topology.py", "utils/integration.py"} <= scanned
+    # and at run time: importing the new modules loads neither package
+    code = ("import sys\n"
+            "import fdapde_core_tpu_torch.fields, fdapde_core_tpu_torch.optimization\n"
+            "import fdapde_core_tpu_torch.fem.neumann, fdapde_core_tpu_torch.fem.nonlinear\n"
+            "import fdapde_core_tpu_torch.linear_algebra.fspai, fdapde_core_tpu_torch.native\n"
+            "assert not {'jax', 'fdapde_core_tpu'} & set(sys.modules), sorted(sys.modules)\n")
+    done = subprocess.run([sys.executable, "-c", code], cwd=PORT.parent, capture_output=True,
+                          text=True, timeout=120)
+    assert done.returncode == 0, done.stderr[-2000:]
 
 
 @pytest.mark.cuda

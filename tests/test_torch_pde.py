@@ -9,6 +9,7 @@ against the plain versions by the `cuda`-marked test in
 tests/test_torch_assembly.py (skipped without a card).
 """
 
+import importlib
 import warnings
 
 import jax
@@ -175,13 +176,252 @@ def test_local_stiffness_kernels_match_jax():
         np.testing.assert_allclose(_np(G.data), fused, rtol=0, atol=1e-12)
 
 
+def _check_host_modules_match_jax(pts, cells, bnd):
+    """The host modules of the solver-breadth slice against JAX: Neumann
+    loads (P1 and P2, constant and callable data, two selectors) and
+    integration to 1e-13; the boundary-length identity to 1e-12; FSPAI, the
+    port's native L against JAX's native L (and NumPy against NumPy) to
+    1e-12; the native first-encounter pass against the NumPy one (ids
+    equal, and equal to JAX's); SparseBlockMatrix and BinaryMatrix (JAX's
+    tests/test_linear_algebra.py:154 and tests/test_aux.py:11)."""
+    from fdapde_core_tpu.fem import neumann as jn
+    from fdapde_core_tpu.geometry.triangulation import first_encounter_unique as j_feu
+    from fdapde_core_tpu.linear_algebra import SparseBlockMatrix as JBlock
+    from fdapde_core_tpu.linear_algebra import fspai as j_fspai
+    from fdapde_core_tpu.utils import integration as ji
+    from fdapde_core_tpu_torch.fem import neumann as tn
+    from fdapde_core_tpu_torch.geometry import triangulation as ttri
+    from fdapde_core_tpu_torch.linear_algebra import BinaryMatrix, BinaryVector, SparseBlockMatrix
+    from fdapde_core_tpu_torch.native import native_available
+    from fdapde_core_tpu_torch.utils import integration as ti
+
+    hfun = lambda x: np.sin(3 * x[..., 0]) + x[..., 1] ** 2  # noqa: E731
+    sides = (lambda p: p[:, 0] > 1.0 - 1e-9, lambda p: p[:, 1] < 1e-9, lambda p: p[:, 0] > -1.0)
+    for order in (1, 2):
+        sj, st = JSpace(j_unit_square(10), order), TSpace(unit_square_mesh(10), order)
+        for side in sides:
+            for h in (2.0, hfun):
+                r = jn.assemble_neumann(sj, h, jn.boundary_facet_selector(sj.mesh, side))
+                g = tn.assemble_neumann(st, h, tn.boundary_facet_selector(st.mesh, side), device=CPU)
+                assert g.dtype == torch.float64 and np.abs(g.numpy() - r).max() <= 1e-13, order
+        whole = tn.boundary_facet_selector(st.mesh, sides[2])
+        assert abs(float(tn.assemble_neumann(st, 1.0, whole).sum()) - 4.0) <= 1e-12
+    f = lambda x: np.exp(x[..., 0]) * x[..., 1]  # noqa: E731
+    mj, mt = fdm.Triangulation(pts, cells, bnd), fdt.Triangulation(pts, cells, bnd)
+    for order in (1, 2):
+        assert abs(ti.integrate(mt, f, order) - ji.integrate(mj, f, order)) <= 1e-13
+        assert np.abs(ti.integrate_cells(mt, f, order) - ji.integrate_cells(mj, f, order)).max() <= 1e-13
+    assert abs(ti.integrate(mt, lambda x: 1.0) - 1.0) <= 1e-12
+
+    # the module (the package's name `fspai` is the function)
+    tfspai_mod = importlib.import_module("fdapde_core_tpu_torch.linear_algebra.fspai")
+    assert native_available()
+    rng = np.random.default_rng(12)
+    lap = 2 * np.eye(96) - np.eye(96, k=1) - np.eye(96, k=-1)
+    spd = rng.standard_normal((60, 60))
+    spd = spd @ spd.T + 60 * np.eye(60)
+    spd[np.abs(spd) < 1.0] = 0.0
+    for a, kw in ((lap, dict(alpha=8, beta=4, epsilon=1e-8)), (spd, dict(alpha=8, beta=8, epsilon=1e-4))):
+        before = tfspai_mod.native_calls
+        for native in (True, False):
+            Lj = j_fspai(JSparse.from_dense(a), native=native, **kw).toarray()
+            Lt = tfspai_mod.fspai(SparseMatrix.from_dense(a, device=CPU), native=native, **kw)
+            assert Lt.vals.device.type == "cpu"
+            assert np.abs(Lt.toarray() - Lj).max() <= 1e-12, native
+        assert tfspai_mod.native_calls == before + 1
+
+    keys = np.sort(cells[:, [[0, 1], [0, 2], [1, 2]]].reshape(-1, 2), axis=1).astype(np.int32)
+    (un, idn), (up, idp) = ttri.first_encounter_unique(keys), ttri.first_encounter_unique_numpy(keys)
+    np.testing.assert_array_equal(idn, idp)
+    np.testing.assert_array_equal(un, up)
+    np.testing.assert_array_equal(idn, j_feu(keys)[1])
+
+    blocks = [rng.standard_normal((3, 3)), rng.standard_normal((3, 2)), rng.standard_normal((2, 2))]
+    blocks = [np.where(rng.uniform(size=b.shape) < 0.6, b, 0.0) for b in blocks]
+    dense = np.block([[blocks[0], blocks[1]], [np.zeros((2, 3)), blocks[2]]])
+    Bj = JBlock([[JSparse.from_dense(blocks[0]), JSparse.from_dense(blocks[1])],
+                 [None, JSparse.from_dense(blocks[2])]])
+    Bt = SparseBlockMatrix([[SparseMatrix.from_dense(blocks[0], device=CPU),
+                             SparseMatrix.from_dense(blocks[1], device=CPU)],
+                            [None, SparseMatrix.from_dense(blocks[2], device=CPU)]])
+    x = rng.standard_normal(5)
+    assert Bt.shape == Bj.shape == (5, 5)
+    np.testing.assert_allclose(Bt.to_sparse().toarray(), dense, rtol=0, atol=1e-14)
+    np.testing.assert_allclose((Bt @ _t(x)).numpy(), np.asarray(Bj @ jnp.asarray(x)), rtol=0, atol=1e-14)
+
+    a = BinaryMatrix(np.eye(3), device=CPU)
+    b = BinaryMatrix.ones(3, 3, device=CPU)
+    assert (a & b).count() == 3 and (a | b).all() and (~a).count() == 6 and (a ^ a).count() == 0
+    assert a.block(0, 0, 2, 2).count() == 2 and a.repeat(2, 1).shape == (6, 3)
+    v = BinaryVector([1, 0, 1], device=CPU)
+    assert v.count() == 2 and not v.all() and v.any() and a[1, 1] is True
+    M = np.arange(9.0).reshape(3, 3)
+    np.testing.assert_array_equal(a.select(M).numpy(), np.diag(np.diag(M)))
+    np.testing.assert_array_equal(a.select(SparseMatrix.from_dense(M, device=CPU)).toarray(),
+                                  np.diag(np.diag(M)))
+
+
+def _check_cg_differentiable_matches_jax():
+    """cg_differentiable against JAX's (tests/test_linear_algebra.py:258-350):
+    the gradient of |x(theta)|^2 through a dense operator, of a data misfit
+    with respect to a diffusion coefficient through the FEM operator's
+    SparseMatrix products (K2's backward), and a directional derivative with
+    respect to the (nnz,) values of a weighted mass matrix, each to 1e-8
+    relative of JAX's and the finite difference; the adjoint solve takes
+    about as many iterations as the forward one (within 20 %; the inner one
+    none); the inverse problem (kappa* = 3 by
+    newton with its Hessian through the solve) to 1e-6, in JAX's number of
+    iterations."""
+    from fdapde_core_tpu.linear_algebra.solvers import cg_differentiable as j_cgd
+    from fdapde_core_tpu.optimization import newton as j_newton
+    from fdapde_core_tpu_torch.linear_algebra import cg_differentiable
+    from fdapde_core_tpu_torch.optimization import newton
+
+    rng = np.random.default_rng(13)
+    Q = rng.standard_normal((30, 30))
+    A0, M0, b = Q @ Q.T + 30 * np.eye(30), np.diag(rng.uniform(1, 2, 30)), rng.standard_normal(30)
+
+    def dense_loss(m, solve, theta):
+        A, M, bb = (m.asarray(a) for a in (A0, M0, b))
+        return m.sum(solve(lambda x: A @ x + theta * (M @ x), bb, rtol=1e-13) ** 2)
+
+    gj = float(jax.grad(lambda t: dense_loss(jnp, j_cgd, t))(0.7))
+    th = torch.tensor(0.7, dtype=torch.float64, requires_grad=True)
+    (gt,) = torch.autograd.grad(dense_loss(torch, cg_differentiable, th), th)
+    assert abs(float(gt) - gj) <= 1e-8 * abs(gj)
+
+    sj, st = JSpace(j_unit_square(8), 1), TSpace(unit_square_mesh(8), 1)
+    target = np.sin(np.pi * st.dof_coords[:, 0]) * np.sin(np.pi * st.dof_coords[:, 1])
+    Aj, Mj = ja.assemble_matrix(sj, -fdm.laplacian()), ja.assemble_matrix(sj, fdm.reaction(1.0))
+    At, Mt = (ta.assemble_matrix(st, op, device=CPU) for op in (-fdt.laplacian(), fdt.reaction(1.0)))
+    Fj, Ft = ja.assemble_forcing(sj, lambda x: 1.0), ta.assemble_forcing(st, lambda x: 1.0, device=CPU)
+    maskj, maskt = jnp.asarray(sj.boundary_dofs), _t(st.boundary_dofs)
+
+    def fem_loss(m, solve, A, M, F, mask, kappa, **kw):
+        free = (~mask).astype(F.dtype) if m is jnp else (~mask).to(F.dtype)
+
+        def matvec(x):
+            return (kappa * (A @ (x * free)) + (M @ (x * free))) * free + x * mask
+
+        return m.sum((solve(matvec, F * free, rtol=1e-13, **kw) - m.asarray(target)) ** 2)
+
+    gj = float(jax.grad(lambda k: fem_loss(jnp, j_cgd, Aj, Mj, Fj, maskj, k))(2.0))
+    record = []
+    kappa = torch.tensor(2.0, dtype=torch.float64, requires_grad=True)
+    (gt,) = torch.autograd.grad(fem_loss(torch, cg_differentiable, At, Mt, Ft, maskt, kappa,
+                                         record=record), kappa)
+    eps = 1e-5
+    fd = (float(fem_loss(torch, cg_differentiable, At, Mt, Ft, maskt, 2.0 + eps))
+          - float(fem_loss(torch, cg_differentiable, At, Mt, Ft, maskt, 2.0 - eps))) / (2 * eps)
+    assert abs(float(gt) - gj) <= 1e-8 * abs(gj) and abs(float(gt) - fd) <= 1e-4 * abs(fd)
+    kinds = [k for k, _ in record]
+    assert kinds[0] == "forward" and kinds.count("adjoint") == 2
+    fwd, adj = record[0][1].iterations, record[1][1].iterations
+    assert abs(adj - fwd) <= 0.2 * fwd and record[2][1].iterations == 0, record
+
+    # a direction in the values of a weighted mass matrix: d/ds loss(M + s D)
+    d = rng.uniform(0.5, 1.5, Mt.nnz)
+    s = torch.tensor(0.0, dtype=torch.float64, requires_grad=True)
+    (gt,) = torch.autograd.grad(fem_loss(torch, cg_differentiable, At, Mt.with_vals(Mt.vals + s * _t(d)),
+                                         Ft, maskt, 2.0), s)
+    gj = float(jax.grad(lambda s: fem_loss(jnp, j_cgd, Aj, Mj.with_vals(Mj.vals + s * jnp.asarray(d)),
+                                           Fj, maskj, 2.0))(0.0))
+    assert abs(float(gt) - gj) <= 1e-8 * abs(gj)
+
+    sj, st = JSpace(j_unit_square(10), 1), TSpace(unit_square_mesh(10), 1)
+    Aj, At = ja.assemble_matrix(sj, -fdm.laplacian()), ta.assemble_matrix(st, -fdt.laplacian(), device=CPU)
+    Fj, Ft = ja.assemble_forcing(sj, lambda x: 4.0), ta.assemble_forcing(st, lambda x: 4.0, device=CPU)
+    runs = []
+    for m, solve, opt, A, F, mask, arr in (
+            (jnp, j_cgd, j_newton, Aj, Fj, jnp.asarray(sj.boundary_dofs), jnp.asarray),
+            (torch, cg_differentiable, newton, At, Ft, _t(st.boundary_dofs),
+             lambda v: torch.tensor(v, dtype=torch.float64))):
+        free = (~mask).astype(F.dtype) if m is jnp else (~mask).to(F.dtype)
+
+        def solve_for(kappa, A=A, F=F, mask=mask, free=free, solve=solve):
+            return solve(lambda v: kappa * (A @ (v * free)) * free + v * mask, F * free, rtol=1e-13)
+
+        u_obs = solve_for(3.0)
+        res = opt(lambda k, u_obs=u_obs, m=m, sf=solve_for: m.sum((sf(k) - u_obs) ** 2), arr([1.0]),
+                  tol=1e-12, max_iter=50)
+        runs.append((float(res.x[0]), int(res.n_iter)))
+    (xj, nj), (xt, nt) = runs
+    assert abs(xt - 3.0) <= 1e-6 and nt == nj, runs
+
+
+def _check_semilinear_and_neumann_match_jax():
+    """solve_semilinear against JAX's on unit_square_mesh(12) (-Lap u + u^3
+    = f, u = sin(pi x) sin(pi y)): Newton iterations equal, solutions and
+    residual histories to 1e-10; h = 0 reproduces the linear solve to 1e-9
+    (tests/test_nonlinear.py); the forced BFGS fallback on
+    unit_square_mesh(8) agrees with Newton to 1e-4. JAX's
+    test_mixed_bc_quadratic_solution on both packages: P2 reproduces x^2 to
+    1e-9, P1 within 5e-3, solutions equal to 1e-10."""
+    from fdapde_core_tpu.fem import neumann as jn
+    from fdapde_core_tpu.fem.nonlinear import solve_semilinear as j_semilinear
+    from fdapde_core_tpu_torch.fem import neumann as tn
+    from fdapde_core_tpu_torch.models import solve_semilinear
+
+    def exact(x):
+        return np.sin(np.pi * x[..., 0]) * np.sin(np.pi * x[..., 1])
+
+    def forcing(x):
+        return 2 * np.pi ** 2 * exact(x) + exact(x) ** 3
+
+    kw = dict(h=lambda v: v ** 3, dh=lambda v: 3 * v ** 2, forcing=forcing, g=np.zeros(169))
+    uj, ij = j_semilinear(JSpace(j_unit_square(12), 1), -fdm.laplacian(), **kw)
+    st = TSpace(unit_square_mesh(12), 1)
+    ut, it = solve_semilinear(st, -fdt.laplacian(), device=CPU, **kw)
+    assert it["newton_iterations"] == ij["newton_iterations"] and it["method"] == "newton"
+    assert np.abs(ut.numpy() - np.asarray(uj)).max() <= 1e-10
+    assert np.abs(np.array(it["residuals"]) - np.array(ij["residuals"])).max() <= 1e-10
+    assert it["residuals"][-1] < 1e-10 and np.abs(ut.numpy() - exact(st.dof_coords)).max() < 1e-2
+
+    c = st.dof_coords
+    g = 1 - c[:, 0] ** 2 - c[:, 1] ** 2
+    ul, _ = solve_semilinear(st, -fdt.laplacian(), h=lambda v: 0.0 * v, dh=lambda v: 0.0 * v,
+                             forcing=lambda x: 4.0, g=g, device=CPU)
+    A = ta.assemble_matrix(st, -fdt.laplacian(), device=CPU)
+    F = ta.assemble_forcing(st, lambda x: 4.0, device=CPU)
+    x, _ = tsolvers.solve_elliptic(A, F, _t(st.boundary_dofs), _t(g), rtol=1e-12)
+    assert (ul - x).abs().max() <= 1e-9
+
+    s8 = TSpace(unit_square_mesh(8), 1)
+    kw8 = dict(kw, g=np.zeros(s8.n_dofs))
+    un, _ = solve_semilinear(s8, -fdt.laplacian(), device=CPU, **kw8)
+    ub, ib = solve_semilinear(s8, -fdt.laplacian(), device=CPU, max_newton=1, newton_tol=1e-30,
+                              bfgs_fallback=True, H_potential=lambda v: v ** 4 / 4, **kw8)
+    assert ib["method"] == "bfgs_fallback" and (ub - un).abs().max() < 1e-4
+
+    for order in (1, 2):
+        out = []
+        for m, nm, space, asm, arr in ((fdm, jn, JSpace(j_unit_square(16), order), ja, jnp.asarray),
+                                       (fdt, tn, TSpace(unit_square_mesh(16), order), ta, _t)):
+            dev = {} if m is fdm else {"device": CPU}
+            A = asm.assemble_matrix(space, -m.laplacian(), **dev)
+            F = asm.assemble_forcing(space, lambda x: -2.0, **dev)
+            side = nm.boundary_facet_selector(space.mesh, lambda p: p[:, 0] > 1.0 - 1e-9)
+            F = F + arr(nm.assemble_neumann(space, 2.0, side))
+            coords = space.dof_coords
+            dmask = space.boundary_dofs.copy()
+            corner = (coords[:, 1] < 1e-9) | (coords[:, 1] > 1 - 1e-9)
+            dmask &= ~((coords[:, 0] > 1.0 - 1e-9) & ~corner)
+            solve = jsolvers.solve_elliptic if m is fdm else tsolvers.solve_elliptic
+            x, _ = solve(A, F, arr(dmask), arr(coords[:, 0] ** 2), rtol=1e-13)
+            out.append((np.asarray(x), coords[:, 0] ** 2))
+        (xj, exact_j), (xt, exact_t) = out
+        assert np.abs(xt - xj).max() <= 1e-10
+        assert np.abs(xt - exact_t).max() < (1e-9 if order == 2 else 5e-3), order
+
+
 def test_affine_sparse_and_assembly_match_jax():
     """affine_maps (torch and NumPy) and SparseMatrix against JAX to 1e-13
     relative; assemble_matrix for -laplacian, diffusion (a matrix K),
     advection, reaction and all four mixed, on P1 and P2 unit_square_mesh(16)
     and P1 on a jittered Delaunay mesh: rows and cols identical, vals to
     1e-13 max|vals| (layout="soa" the same call); assemble_forcing with
-    array, multi-column and callable forcing."""
+    array, multi-column and callable forcing; the host modules of the
+    solver-breadth slice (``_check_host_modules_match_jax``)."""
     pts, cells, bnd = _delaunay(24)
     meshes = (("unit square P1", j_unit_square(16), unit_square_mesh(16), 1),
               ("unit square P2", j_unit_square(16), unit_square_mesh(16), 2),
@@ -252,12 +492,14 @@ def test_affine_sparse_and_assembly_match_jax():
         rows, cols, _t(vals), A.shape)
     np.testing.assert_array_equal(_np(Dt.rows), np.asarray(Dj.rows))
     assert np.abs(_np(Dt.vals) - np.asarray(Dj.vals)).max() <= 1e-13 * np.abs(np.asarray(Dj.vals)).max()
+    _check_host_modules_match_jax(pts, cells, bnd)
 
 
 def test_entry_step_matches_jax():
     """The port's chain on unit_square_mesh(32) (assembly with K6, forcing
     f = 4, Dirichlet g = 1 - x^2 - y^2, Jacobi CG to 1e-8) reproduces
-    __graft_entry__.entry()'s x to 1e-10."""
+    __graft_entry__.entry()'s x to 1e-10; the differentiable solve through
+    that chain's operators (``_check_cg_differentiable_matches_jax``)."""
     step, (nodes, f_quad, g) = entry()
     xj = np.asarray(jax.jit(step)(jnp.asarray(nodes), jnp.asarray(f_quad), jnp.asarray(g)))
     space = TSpace(unit_square_mesh(32), 1)
@@ -266,6 +508,7 @@ def test_entry_step_matches_jax():
     x, info = tsolvers.solve_elliptic(A, b, _t(space.boundary_dofs), _t(g), rtol=1e-8, maxiter=500)
     assert info.converged
     assert np.abs(_np(x) - xj).max() <= 1e-10
+    _check_cg_differentiable_matches_jax()
 
 
 def test_pde_solve_matches_jax(monkeypatch):
@@ -274,7 +517,10 @@ def test_pde_solve_matches_jax(monkeypatch):
     equal, solutions to 1e-10 max|x|. SA-AMG's hierarchy against JAX's
     (aggregates and level sizes equal, one V-cycle to 1e-12 max|z|).
     masked_matrix and gmres against JAX; the recovery step (BiCGStab
-    stalled at maxiter=3 -> GMRES(50)) against JAX's; with the aux grid's
+    stalled at maxiter=3 -> Jacobi GMRES(50)) and its FSPAI rung (CG
+    stalled on a symmetric system -> FSPAI GMRES(50)) against JAX's, the
+    same warnings; semilinear Newton, its BFGS fallback and mixed Neumann
+    data (``_check_semilinear_and_neumann_match_jax``); with the aux grid's
     build failing, the "auto" ladder takes the AMG rung in both packages
     (solutions to 1e-10); on unit_cube_mesh(6) "auto" takes the 3D aux grid
     in both (no AMG hierarchy built, iterations within 1, solutions to
@@ -321,9 +567,29 @@ def test_pde_solve_matches_jax(monkeypatch):
                                          symmetric=False, rtol=1e-10, maxiter=3)
         xt, it = tsolvers.solve_elliptic(At, _t(b), _t(bnd), _t(g), symmetric=False, rtol=1e-10,
                                          maxiter=3)
-    assert any("FSPAI rung of the JAX package is not ported" in str(w.message) for w in caught)
+    msgs = [str(w.message) for w in caught if "escalating" in str(w.message)]
+    assert msgs == ["elliptic solve did not converge; escalating to GMRES(50) "
+                    "(Jacobi-preconditioned)"] * 2, msgs
     assert it.iterations == int(ij.iterations) == 50
     assert np.abs(_np(xt) - np.asarray(xj)).max() <= 1e-10 * np.abs(np.asarray(xj)).max()
+    # the FSPAI rung (tests/test_recovery.py:51): symmetric, Jacobi CG
+    # stalled at maxiter=60 -> FSPAI-preconditioned GMRES(50), as in JAX
+    n = 200
+    d = 2 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)
+    Dj, Dt = JSparse.from_dense(d), SparseMatrix.from_dense(d, device=CPU)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        xj, ij = jsolvers.solve_elliptic(Dj, jnp.ones(n), jnp.zeros(n, bool), jnp.zeros(n),
+                                         rtol=1e-10, maxiter=60)
+        xt, it = tsolvers.solve_elliptic(Dt, torch.ones(n, dtype=torch.float64),
+                                         torch.zeros(n, dtype=torch.bool),
+                                         torch.zeros(n, dtype=torch.float64), rtol=1e-10, maxiter=60)
+    msgs = [str(w.message) for w in caught]
+    assert len(msgs) == 2 and msgs[0] == msgs[1] and "FSPAI" in msgs[1], msgs
+    res = float(torch.linalg.norm(Dt @ xt - 1.0)) / np.sqrt(n)
+    assert it.converged and res < 1e-9 and it.iterations == int(ij.iterations)
+    assert np.abs(_np(xt) - np.asarray(xj)).max() <= 1e-10 * np.abs(np.asarray(xj)).max()
+    _check_semilinear_and_neumann_match_jax()
 
     # SA-AMG of the masked Laplacian: the hierarchy against JAX's
     Lj = jsolvers.masked_matrix(ja.assemble_matrix(JSpace(mj, 1), -fdm.laplacian()), jnp.asarray(bnd))
