@@ -330,13 +330,15 @@ N_BFGS = 96
 # 573, 1,138, 2,222 iterations at nx = 48, 96, 192 to rtol 1e-13 (the aux
 # grid 107, 189, 263, each a launch-bound V-cycle on the card)
 NEUMANN_P1_BOUND = 2 * 0.0754 * np.log(NX_PDE) / NX_PDE ** 2
-NEUMANN_P2_PRE = None
-# phase 30: the inverse problem's mesh (cut from nx = 720 for the time
-# budget: each Newton step takes ~12 solves), and the FSPAI rung's: the
-# masked Laplacian's native FSPAI set-up took 3.2 s at nx = 150 and 14.5 s
-# at nx = 300 (90,601 dofs) on a shared CPU; maxiter leaves Jacobi CG short
-# of 1e-10 and GMRES(50) maxiter / 50 cycles
-N_INVERSE = 64
+# phase 30: the inverse problem's mesh, cut from nx = 720 for the time
+# budget (10 Newton steps, 124 solves, CG iterations ~ nx): newton took
+# 5.0, 9.2, 14.2 and 19.6 s at nx = 64, 128, 192 and 256 (NVIDIA H100 80GB
+# HBM3, 700 W, inverse_problem below), and phases 28-30 took 77-85 s at
+# nx = 64, so 256 keeps them within ~120 s
+N_INVERSE = 256
+# the FSPAI rung's mesh: the masked Laplacian's native FSPAI set-up took
+# 3.2 s at nx = 150 and 14.5 s at nx = 300 (90,601 dofs) on a shared CPU;
+# maxiter leaves Jacobi CG short of 1e-10 and GMRES(50) maxiter / 50 cycles
 N_FSPAI, FSPAI_MAXITER = 300, 500
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the vector (non-tensor
 # core) peaks of the types these kernels compute in
@@ -2531,18 +2533,15 @@ def phase_neumann(ak, gs, ls, pts, cells, bnd, space1, space2):
     from fdapde_core_tpu_torch.utils.integration import integrate
 
     out = {}
-    for order, space, pre, bound in ((1, space1, None, NEUMANN_P1_BOUND),
-                                     (2, space2, NEUMANN_P2_PRE, 1e-9)):
+    for order, space, bound in ((1, space1, NEUMANN_P1_BOUND), (2, space2, 1e-9)):
         zero_launch_counts(ak, gs)
         (A, F, dmask, u), t_asm = synced_seconds(lambda: mixed_bc(space, DEVICE))
-        if pre == "auxgrid":
-            pre = ("auxgrid", space.dof_coords)
         (x, info), t_solve = synced_seconds(lambda: solve_elliptic(
-            A, F, dmask, u, rtol=1e-13, preconditioner=pre, recovery=False))
+            A, F, dmask, u, rtol=1e-13, preconditioner=None, recovery=False))
         out[f"Neumann P{order}"] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
         err = (x - u).abs().max().item()
         log(f"29 mixed Dirichlet/Neumann u = x^2, du/dn = 2 on x = 1, P{order} ({space.n_dofs} dofs): "
-            f"assembly {t_asm:.4f} s, solve {t_solve:.4f} s ({pre[0] if pre else 'Jacobi'} CG), "
+            f"assembly {t_asm:.4f} s, solve {t_solve:.4f} s (Jacobi CG), "
             f"{info.iterations} iterations, converged {info.converged}; max|x - x^2| = {err:.3e} "
             f"(bound {bound:.1e}); K2 / K6 launches {out[f'Neumann P{order}']}")
         check(info.converged and err < bound, f"P{order} mixed Neumann data not reproduced within {bound}")
@@ -2605,7 +2604,7 @@ def phase_differentiable(ak, gs, ls, space1):
     import fdapde_core_tpu_torch as fdt
     from fdapde_core_tpu_torch.fem import FEMSpace, assemble_forcing, assemble_matrix, solve_elliptic
     from fdapde_core_tpu_torch.fem.solvers import DirichletSystem
-    from fdapde_core_tpu_torch.linear_algebra import cg_differentiable, jacobi_preconditioner
+    from fdapde_core_tpu_torch.linear_algebra import jacobi_preconditioner
     from fdapde_core_tpu_torch.optimization import newton
 
     fspai_mod = sys.modules["fdapde_core_tpu_torch.linear_algebra.fspai"]
@@ -2689,42 +2688,44 @@ def phase_differentiable(ak, gs, ls, space1):
                                    torch.as_tensor(lib.indices, device=DEVICE),
                                    torch.as_tensor(lib.data, device=DEVICE), size=lib.shape)
     l1, l2 = time_ms(lambda: Acsr @ v, 20), time_ms(lambda: Acsr @ v, 20)
+    # the whole backward call: autograd's dX = A^T G for y = A x, the
+    # launch on A.T's cached sliced form with the engine's own work
+    xr = v.clone().requires_grad_(True)
+    y = A @ xr
+    call = lambda: torch.autograd.grad(y, xr, v, retain_graph=True)  # noqa: E731
+    call_err = (call()[0] - ref).abs().max().item()
+    c1, c2 = time_ms(call, 20), time_ms(call, 20)
+    _, t_calls = synced_seconds(lambda: [call() for _ in range(200)])
     timing = dict(table=f"A^T, phase 12's P1 Laplacian ({n} x {n}, {nnz} entries), f64", ms=(b1 + b2) / 2,
-                  forward_ms=(f1 + f2) / 2, plain_ms=(p1 + p2) / 2, library_ms=(l1 + l2) / 2,
-                  max_abs_err=err, **bnd_t)
+                  call_ms=(c1 + c2) / 2, call_host_ms=t_calls * 5, forward_ms=(f1 + f2) / 2,
+                  plain_ms=(p1 + p2) / 2, library_ms=(l1 + l2) / 2, max_abs_err=err, **bnd_t)
     log(f"30 K2 backward (A^T v on the transpose's sliced form) {b1:.4f} / {b2:.4f} ms against the "
-        f"forward A v {f1:.4f} / {f2:.4f} ms on the same table; plain {p1:.4f} / {p2:.4f} ms, "
+        f"forward A v {f1:.4f} / {f2:.4f} ms on the same table; the whole autograd backward call "
+        f"{c1:.4f} / {c2:.4f} ms on the card, {t_calls * 5:.4f} ms on the host's clock (max|call-plain| "
+        f"{call_err:.3e}); plain {p1:.4f} / {p2:.4f} ms, "
         f"torch.sparse CSR {l1:.4f} / {l2:.4f} ms; bound {bnd_t['bound_ms']:.4f} ms ({bnd_t['bound_by']}); "
         f"max|kernel-plain| {err:.3e}, within the per-row bound {bound_err}")
+    check(call_err <= err, "the autograd backward call differs from the backward product")
     check(bound_err, "K2's backward product disagrees with its plain version")
-    del A, M, Mw, At, Acsr, d, v
+    del A, M, Mw, At, Acsr, d, v, xr, y
 
     # the inverse problem (JAX's test_coefficient_estimation_inverse_problem)
-    ps, cs, bs = delaunay_mesh(N_INVERSE)
-    si = FEMSpace(fdt.Triangulation(ps, cs, bs), 1)
-    Ai = assemble_matrix(si, -fdt.laplacian(), device=DEVICE)
-    Fi = assemble_forcing(si, lambda p: 4.0, device=DEVICE)
-    mi = torch.as_tensor(si.boundary_dofs, device=DEVICE)
-    free = (~mi).to(Fi.dtype)
-    rec = []
-
-    def solve_for(k):
-        return cg_differentiable(lambda v: k * (Ai @ (v * free)) * free + v * mi, Fi * free,
-                                 rtol=1e-13, record=rec)
-
-    u_obs = solve_for(3.0)
     zero_launch_counts(ak, gs)
-    res, t_inv = synced_seconds(lambda: newton(lambda k: torch.sum((solve_for(k) - u_obs) ** 2),
-                                               torch.tensor([1.0], dtype=torch.float64, device=DEVICE),
-                                               tol=1e-12, max_iter=50))
+    res, t_inv, rec, dofs = inverse_problem(N_INVERSE, lambda: zero_launch_counts(ak, gs))
     out["inverse problem"] = (gs.ell_spmv_launches, 0)
     backward += gs.ell_spmv_backward_launches
     kx = float(res.x[0])
-    log(f"30 inverse problem on delaunay_mesh({N_INVERSE}) ({si.n_dofs} dofs): newton kappa = {kx:.12f} "
+    log(f"30 inverse problem on delaunay_mesh({N_INVERSE}) ({dofs} dofs): newton kappa = {kx:.12f} "
         f"(kappa* = 3) in {res.n_iter} iterations, {t_inv:.4f} s, {len(rec)} solves, "
         f"{sum(i.iterations for _, i in rec)} CG iterations; K2 launches {out['inverse problem'][0]}, "
         f"backward {gs.ell_spmv_backward_launches}")
     check(abs(kx - 3.0) <= 1e-6, "the inverse problem did not recover kappa* = 3 to 1e-6")
+    # an x0 that is not a tensor lands on the card, as JAX's jnp.asarray
+    # puts it on the accelerator
+    on_card = newton(lambda x: torch.sum((x - 2.0) ** 2), [1.0])
+    log(f"30 newton(f, [1.0]) -> x {on_card.x.tolist()} on {on_card.x.device}")
+    check(on_card.x.device.type == "cuda" and abs(float(on_card.x[0]) - 2.0) <= 1e-12,
+          "newton on a list x0 did not run on the card")
 
     # the FSPAI rung of the recovery step
     pf, cf, bf = delaunay_mesh(N_FSPAI)
@@ -2754,6 +2755,39 @@ def phase_differentiable(ak, gs, ls, space1):
     check(fspai_mod.native_calls == 1 and len(setups) == 1, "FSPAI did not take the native library")
     check(info.converged and true <= 1e-9, "the FSPAI-preconditioned GMRES did not converge to 1e-9")
     return out, backward, timing
+
+
+def inverse_problem(nx, zero_counts=lambda: None):
+    """JAX's test_coefficient_estimation_inverse_problem on delaunay_mesh(nx):
+    u_obs solves kappa* A u = 4 (kappa* = 3, zero Dirichlet data) by
+    cg_differentiable; optimization.newton from kappa = 1 minimises
+    |u(kappa) - u_obs|^2, its Hessian through the solve. zero_counts runs
+    just before newton. Returns (OptimizeResult, newton's seconds, the
+    solves' (kind, SolveInfo) record, dofs)."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import FEMSpace, assemble_forcing, assemble_matrix
+    from fdapde_core_tpu_torch.linear_algebra import cg_differentiable
+    from fdapde_core_tpu_torch.optimization import newton
+
+    ps, cs, bs = delaunay_mesh(nx)
+    si = FEMSpace(fdt.Triangulation(ps, cs, bs), 1)
+    Ai = assemble_matrix(si, -fdt.laplacian(), device=DEVICE)
+    Fi = assemble_forcing(si, lambda p: 4.0, device=DEVICE)
+    mi = torch.as_tensor(si.boundary_dofs, device=DEVICE)
+    free = (~mi).to(Fi.dtype)
+    rec = []
+
+    def solve_for(k):
+        return cg_differentiable(lambda v: k * (Ai @ (v * free)) * free + v * mi, Fi * free,
+                                 rtol=1e-13, record=rec)
+
+    u_obs = solve_for(3.0)
+    rec.clear()
+    zero_counts()
+    res, t = synced_seconds(lambda: newton(lambda k: torch.sum((solve_for(k) - u_obs) ** 2),
+                                           torch.tensor([1.0], dtype=torch.float64, device=DEVICE),
+                                           tol=1e-12, max_iter=50))
+    return res, t, rec, si.n_dofs
 
 
 def timed_phase(number, fn):

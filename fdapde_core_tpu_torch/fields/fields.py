@@ -25,6 +25,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import func as tfunc
 
@@ -45,8 +46,10 @@ __all__ = [
 
 
 def _as_point(x):
-    """A point as a float tensor (float64 unless it already is floating)."""
-    x = torch.as_tensor(x)
+    """A point as a float tensor (float64 unless it already is floating), on
+    x's device when it is a tensor and on the card otherwise."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x), device="cuda")
     return x if x.is_floating_point() else x.to(torch.float64)
 
 
@@ -241,7 +244,7 @@ class VectorField:
         if isinstance(other, VectorField):
             return ScalarField(lambda x: torch.dot(self(x), other(x)))
         v = torch.as_tensor(other)
-        return ScalarField(lambda x: torch.dot(self(x), v.to(x.dtype)))
+        return ScalarField(lambda x: torch.dot(self(x), v.to(x.device, x.dtype)))
 
     def __add__(self, other):
         return VectorField.from_callable(lambda x: self(x) + other(x))
@@ -294,7 +297,7 @@ class MatrixField:
         if isinstance(v, VectorField):
             return VectorField.from_callable(lambda x: self(x) @ v(x))
         vv = torch.as_tensor(v)
-        return VectorField.from_callable(lambda x: self(x) @ vv.to(x.dtype))
+        return VectorField.from_callable(lambda x: self(x) @ vv.to(x.device, x.dtype))
 
     def __add__(self, other):
         return MatrixField.from_callable(lambda x: self(x) + other(x))
@@ -316,7 +319,7 @@ class MatrixField:
         arr = torch.as_tensor(other)
         if arr.dim() == 1:
             return self.matvec(arr)
-        return MatrixField.from_callable(lambda x: self(x) @ arr.to(x.dtype))
+        return MatrixField.from_callable(lambda x: self(x) @ arr.to(x.device, x.dtype))
 
 
 def _unary(fn):

@@ -36,19 +36,18 @@ __all__ = ["fspai"]
 native_calls = 0
 
 
-def fspai(A, alpha: int = 10, beta: int = 10, epsilon: float = 0.005, native: bool = True,
-          device=None) -> SparseMatrix:
+def fspai(A, alpha: int = 10, beta: int = 10, epsilon: float = 0.005,
+          native: bool = True) -> SparseMatrix:
     """Approximate inverse Cholesky factor L of SPD matrix A (L L^T ~= A^{-1}),
-    on ``device`` (A's for a ``SparseMatrix``; "cuda" for a dense array by
-    default), float64.
+    float64, on A's device for a ``SparseMatrix`` and on the card for a
+    dense array.
 
     Takes the native C++ implementation (native/fspai.cpp) where a g++ can
     build it; the NumPy path below otherwise, or with ``native=False``.
     """
     from ..native import native_available
 
-    if device is None:
-        device = A.vals.device if isinstance(A, SparseMatrix) else "cuda"
+    device = A.vals.device if isinstance(A, SparseMatrix) else "cuda"
     As = _host_csr(A)
     if native and native_available():
         return _fspai_native(As, alpha, beta, epsilon, device)

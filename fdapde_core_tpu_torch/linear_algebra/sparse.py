@@ -293,22 +293,22 @@ class SparseMatrix:
 
 
 class SparseProduct(torch.autograd.Function):
-    """Y = A X on K2 with gradients: ``apply(vals, X, A)``, vals (nnz,) the
-    values of the ``SparseMatrix`` A's pattern in X's dtype (equal to
-    A.vals), X an (n_src,) vector or (n_src, k) block.
+    """Y = A X on K2 with gradients: ``apply(vals, X, A[, backward])``, vals
+    (nnz,) the values of the ``SparseMatrix`` A's pattern in X's dtype
+    (equal to A.vals), X an (n_src,) vector or (n_src, k) block;
+    ``backward`` counts the launch as a backward's.
 
-    Backward: dX = A^T G, the transpose's ``@`` (so through this Function
-    again under ``create_graph``); dvals = G[rows] X[cols], summed over a block's
-    columns. The launches the backward makes are also counted in
-    ``ops.gather_spmv.ell_spmv_backward_launches``."""
+    Backward: dX = A^T G on the transpose's sliced form (A.T's, cached,
+    when vals is A.vals and no graph over vals is asked for), through this
+    Function again under ``create_graph``; dvals = G[rows] X[cols], summed
+    over a block's columns."""
 
     @staticmethod
-    def forward(ctx, vals, X, A):
-        ctx.A = A
+    def forward(ctx, vals, X, A, backward=False):
+        ctx.A, ctx.own = A, vals is A.vals
         ctx.save_for_backward(vals, X)
-        if vals is A.vals:
-            return A.sliced(vals.dtype) @ X
-        return A.with_vals(vals).sliced(vals.dtype) @ X
+        S = A.sliced(vals.dtype) if ctx.own else A.with_vals(vals).sliced(vals.dtype)
+        return gather_spmv.sliced_ell_spmm(S, X, backward=backward)
 
     @staticmethod
     def backward(ctx, G):
@@ -316,13 +316,19 @@ class SparseProduct(torch.autograd.Function):
         A = ctx.A
         d_vals = d_X = None
         if ctx.needs_input_grad[1]:
-            before = gather_spmv.ell_spmv_launches
-            d_X = A.transpose_with(vals[A.transpose_order()]) @ G
-            gather_spmv.ell_spmv_backward_launches += gather_spmv.ell_spmv_launches - before
+            graph = torch.is_grad_enabled()
+            if ctx.own and not (graph and vals.requires_grad):
+                At = A.T
+            else:
+                At = A.transpose_with(vals[A.transpose_order()])
+            if graph and (At.vals.requires_grad or G.requires_grad):
+                d_X = SparseProduct.apply(At.vals, G, At, True)
+            else:
+                d_X = gather_spmv.sliced_ell_spmm(At.sliced(), G, backward=True)
         if ctx.needs_input_grad[0]:
             prod = G[A.rows.long()] * X[A.cols.long()]
             d_vals = prod.sum(1) if prod.dim() == 2 else prod
-        return d_vals, d_X, None
+        return d_vals, d_X, None, None
 
 
 def _host(a) -> np.ndarray:

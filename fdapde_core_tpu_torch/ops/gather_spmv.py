@@ -40,8 +40,8 @@ __all__ = ["LaneRoutedELL", "SlicedELL", "ell_spmv", "ell_spmv_reference", "slic
 # kernel launches of either form since import (or since a caller last reset
 # it to 0)
 ell_spmv_launches = 0
-# those of them made by the backward of a differentiable SparseMatrix
-# product (linear_algebra.sparse.SparseProduct), counted there
+# those of them made for the backward of a differentiable SparseMatrix
+# product (linear_algebra.sparse.SparseProduct: ``backward=True``)
 ell_spmv_backward_launches = 0
 
 SLICE = 32  # rows per slice of a SlicedELL: the lanes of a warp (kC in the source)
@@ -274,14 +274,15 @@ def sliced_ell_spmm_reference(A, X):
     return torch.empty_like(acc).index_put_((A.perm.long(),), acc)
 
 
-def sliced_ell_spmm(A, X):
+def sliced_ell_spmm(A, X, backward: bool = False):
     """Y = A X for a ``SlicedELL`` A and an (n_src,) vector or (n_src, k)
     block X of A's dtype, read where it lies through its strides (no copy).
     Returns a new (n,) or (n, k) tensor; a block is laid out as X is. On a
     CUDA tensor it launches the kernel (``csrc/ell_spmv.cu``, sell_spmm) and
-    counts the launch in ``ell_spmv_launches``; on a CPU tensor it runs the
-    plain version."""
-    global ell_spmv_launches
+    counts the launch in ``ell_spmv_launches``, and with ``backward`` also in
+    ``ell_spmv_backward_launches``; on a CPU tensor it runs the plain
+    version."""
+    global ell_spmv_launches, ell_spmv_backward_launches
     _check_sliced(A, X)
     if X.device.type == "cpu":
         return sliced_ell_spmm_reference(A, X)
@@ -308,6 +309,7 @@ def sliced_ell_spmm(A, X):
     if err != 0:
         raise RuntimeError(f"sliced ELL kernel launch failed: cudaError {err}")
     ell_spmv_launches += 1
+    ell_spmv_backward_launches += backward
     return Y
 
 

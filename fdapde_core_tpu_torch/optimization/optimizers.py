@@ -25,7 +25,7 @@ mirror the reference:
   (f, grad_f, x, p, step0) -> step.
 
 Each returns an `OptimizeResult(x, value, n_iter)`; x and value are
-tensors on x0's device, n_iter an int.
+tensors on x0's device (the card when x0 is not a tensor), n_iter an int.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from __future__ import annotations
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 __all__ = ["OptimizeResult", "grid_search", "gradient_descent", "newton", "bfgs"]
@@ -49,8 +50,9 @@ def _as_fn(obj) -> Callable:
 
 
 def _point(x0) -> torch.Tensor:
-    """x0 as a float tensor (float64 unless it already is floating)."""
-    x = torch.as_tensor(x0)
+    """x0 as a float tensor (float64 unless it already is floating), on
+    x0's device when it is a tensor and on the card otherwise."""
+    x = x0 if isinstance(x0, torch.Tensor) else torch.as_tensor(np.asarray(x0), device="cuda")
     return x.clone() if x.is_floating_point() else x.to(torch.float64)
 
 

@@ -247,6 +247,9 @@ def _check_fields_match_jax():
     np.testing.assert_array_equal(K.matvec(torch.ones(2, dtype=torch.float64))(p).numpy(), [2.0, 5.0])
     H = tf.TwiceDifferentiableScalarField(lambda p: p[0], lambda p: p, lambda p: torch.eye(2) * 7.0)
     assert float(H.derive_twice()(p)[1, 1]) == 7.0 and float(H.derive()(p)[1]) == 5.0
+    if not torch.cuda.is_available():  # a point that is not a tensor goes to the card: no fallback
+        with pytest.raises((AssertionError, RuntimeError)):
+            ft([1.0, 2.0])
 
 
 def _check_optimizers_match_jax():
@@ -282,6 +285,10 @@ def _check_optimizers_match_jax():
         assert np.abs(rt.x.numpy() - np.asarray(rj.x)).max() <= 1e-8, name
         if name in ("grid", "newton quadratic"):
             assert rt.n_iter == int(rj.n_iter), name
+    if not torch.cuda.is_available():  # a point that is not a tensor goes to the card: no fallback
+        for run in (lambda: to.newton(quadratic, [1.0, 1.0]), lambda: to.grid_search(quadratic, grid)):
+            with pytest.raises((AssertionError, RuntimeError)):
+                run()
 
 
 def test_closed_form_matches_jax():
