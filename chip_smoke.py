@@ -242,8 +242,33 @@ Phases (each raises on failure; nothing is caught):
     of the recovery step on delaunay_mesh(N_FSPAI) (Jacobi CG stopped by
     FSPAI_MAXITER): the warning names FSPAI, the set-up took the native
     library once (host seconds and L's nnz printed), GMRES(50) converges
-    with a true residual <= 1e-9.
-    Phases 20-30 print their seconds and K2 / K6 launches by path.
+    with a true residual <= 1e-9;
+31. the last single-device modules at full size: (a) a street network,
+    phase 12's jittered lattice joined by its horizontal and vertical
+    segments (519,841 junctions, 1,038,240 segments), through
+    PDE(LinearNetwork(...)) with the default ladder at rtol NETWORK_RTOL:
+    constant data 2.5 reproduced to 1e-10 and g = x + y within its range +- 1e-8, both on the
+    2D aux grid as in JAX, the true residual recomputed in f64 <= 1e-8,
+    utils.profiling.timer(sync=) reading at least the CUDA-event time of
+    the same solve; K2 on the network's stiffness (k2_table); at
+    NX_NETWORK_SMALL JAX's rung and iterations within 10 % of
+    NETWORK_JAX_RUNG; (b) Interval(0, 1, 2^17) P1 and P2 through the
+    default ladder: the aux grid's build raises on 1-column coordinates and
+    SA-AMG converges without recovery, P1's error <= 1e-11 and iterations
+    within 10 % of INTERVAL_JAX_RUNG; u = x on unit_interval_mesh(2^17) to
+    1e-9; (c) phase 21a's SA-AMG hierarchy through save_amg / load_amg on
+    the card (V-cycle bitwise; PDE(solver_preconditioner=loaded.v_cycle)
+    takes phase 21a's iterations and solution bitwise) and phase 12's P1
+    FEMSpace through save_space / load_space (assemble_matrix through K6
+    bitwise), seconds beside the set-up's; (d) delaunay_mesh(256)'s
+    stiffness written as an R-style 1-indexed COO CSV and read by
+    read_csv_sparse onto the card (rows, cols, vals and K2's product
+    bitwise, Jacobi CG to 1e-10), the mesh through load_mesh_csv, read_mtx
+    of unit_square_mesh(32)'s matrix against its dense form; (e)
+    assert_all_finite over the phase's solutions, sanitize.checked raising
+    on a masked NaN and on one out of K2 and passing clean code, and an
+    xprof_trace of a network solve whose CUDA kernels include K2's.
+    Phases 20-31 print their seconds and K2 / K6 launches by path.
 
 Prints one JSON line of per-kernel results (each with its bound on the
 card from this run's shapes: bytes over 3.35 TB/s or operations over the
@@ -333,13 +358,37 @@ NEUMANN_P1_BOUND = 2 * 0.0754 * np.log(NX_PDE) / NX_PDE ** 2
 # phase 30: the inverse problem's mesh, cut from nx = 720 for the time
 # budget (10 Newton steps, 124 solves, CG iterations ~ nx): newton took
 # 5.0, 9.2, 14.2 and 19.6 s at nx = 64, 128, 192 and 256 (NVIDIA H100 80GB
-# HBM3, 700 W, inverse_problem below), and phases 28-30 took 77-85 s at
-# nx = 64, so 256 keeps them within ~120 s
-N_INVERSE = 256
+# HBM3, 700 W, inverse_problem below), and 31.3 s at 256 in the whole
+# script; 128 makes room for phase 31 (151 s alone on the same card)
+N_INVERSE = 128
 # the FSPAI rung's mesh: the masked Laplacian's native FSPAI set-up took
 # 3.2 s at nx = 150 and 14.5 s at nx = 300 (90,601 dofs) on a shared CPU;
 # maxiter leaves Jacobi CG short of 1e-10 and GMRES(50) maxiter / 50 cycles
 N_FSPAI, FSPAI_MAXITER = 300, 500
+# phase 31 (a): the street network of phase 12's lattice, and the same
+# construction at NX_NETWORK_SMALL (25,921 junctions), where the JAX
+# package's default ladder on the CPU (PDE(LinearNetwork(...)), g = x + y,
+# f = 0, rtol 1e-12; a scratch run, JAX_PLATFORMS=cpu) built the 2D aux
+# grid and took 168 CG iterations; the port's ladder on the CPU
+# (PDE(LinearNetwork(*street_network(nx)), ..., device="cpu")) took the
+# same rung and count, and 218 iterations at nx = 320
+NX_NETWORK_SMALL = 160
+# the error of the constant is about kappa * rtol * 2.5: at nx = NX_PDE, rtol
+# 1e-12 left 4.06e-10 (NVIDIA H100 80GB HBM3, 700 W), at nx = 160 on the CPU
+# 7.2e-11 against 7.6e-12 at 1e-13, so the full-size network solves run at
+# 1e-13
+NETWORK_RTOL = 1e-13
+NX_NETWORK_TRACE = 32  # (e): the network solve traced by xprof_trace (Jacobi CG)
+NETWORK_JAX_RUNG = ("auxgrid", 168)
+# (b) 1D P1 on Interval(0, 1, N_INTERVAL) (131,073 dofs), -u'' = pi^2
+# sin(pi x): the JAX package's ladder on the CPU raised in the aux grid's
+# build (1-column coordinates) and took SA-AMG, 1,089 CG iterations, max
+# error 2.8e-13; its iterations grow about linearly with n (235 at 32,769
+# dofs), a fault of the reference that the port reproduces (the port's
+# ladder on the CPU: 1,075 iterations, error 2.4e-12)
+N_INTERVAL = 2 ** 17
+INTERVAL_JAX_RUNG = ("amg", 1089)
+N_IO_MESH = 256  # (d): delaunay_mesh(256), 66,049 dofs
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the vector (non-tensor
 # core) peaks of the types these kernels compute in
 HBM_BYTES_PER_S = 3.35e12
@@ -824,19 +873,37 @@ def phase_general_harmonic():
     check(err < 1e-9, "harmonic data not reproduced to 1e-9 on the general path")
 
 
-def delaunay_mesh(nx, seed=7, amp=0.35):
-    """bench.py's `general` mesh (bench.py:695-705): the (nx+1)^2 lattice
-    with interior nodes jittered by +-amp h, scipy Delaunay. Host NumPy:
-    (nodes (N, 2), cells (C, 3) int32, boundary (N,) bool)."""
-    from scipy.spatial import Delaunay
-
+def jittered_lattice(nx, seed=7, amp=0.35):
+    """The (nx+1)^2 lattice of [0, 1]^2 with interior nodes jittered by
+    +-amp h: (nodes (N, 2), boundary (N,) bool), node (i, j) at i (nx+1) + j."""
     rng = np.random.default_rng(seed)
     ii, jj = np.meshgrid(np.arange(nx + 1), np.arange(nx + 1), indexing="ij")
     pts = np.stack([ii, jj], axis=-1).reshape(-1, 2).astype(np.float64)
     interior = (pts[:, 0] > 0) & (pts[:, 0] < nx) & (pts[:, 1] > 0) & (pts[:, 1] < nx)
     pts[interior] += rng.uniform(-amp, amp, size=(interior.sum(), 2))
     pts /= nx
-    return pts, Delaunay(pts).simplices.astype(np.int32), ~interior
+    return pts, ~interior
+
+
+def delaunay_mesh(nx, seed=7, amp=0.35):
+    """bench.py's `general` mesh (bench.py:695-705): the jittered lattice,
+    scipy Delaunay. Host NumPy: (nodes (N, 2), cells (C, 3) int32,
+    boundary (N,) bool)."""
+    from scipy.spatial import Delaunay
+
+    pts, bnd = jittered_lattice(nx, seed, amp)
+    return pts, Delaunay(pts).simplices.astype(np.int32), bnd
+
+
+def street_network(nx, seed=7, amp=0.35):
+    """A grid-plan street network: the jittered lattice's nodes joined by
+    its horizontal and vertical segments; the square's boundary nodes are
+    the network's boundary. (nodes, segments (S, 2) int32, boundary)."""
+    pts, bnd = jittered_lattice(nx, seed, amp)
+    idx = np.arange((nx + 1) ** 2).reshape(nx + 1, nx + 1)
+    segs = np.concatenate([np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], 1),
+                           np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], 1)])
+    return pts, segs.astype(np.int32), bnd
 
 
 def criss_cross_cells(n):
@@ -1562,17 +1629,22 @@ def phase_parabolic(ak, gs, ls, mesh):
 class Builds:
     """Times every call of owner.name while active (by default a class's
     static build: AMG's, an aux grid's; or a classmethod, or a module's
-    function): [(result, host seconds)]."""
+    function): [(result, host seconds)]; the exceptions of calls that
+    raised in ``failed``."""
 
     def __init__(self, owner, name="build"):
         self.owner, self.name = owner, name
 
     def __enter__(self):
-        self.raw, self.builds = self.owner.__dict__[self.name], []
+        self.raw, self.builds, self.failed = self.owner.__dict__[self.name], [], []
         bound = getattr(self.owner, self.name)
 
         def timed(*args, **kwargs):
-            obj, t = synced_seconds(lambda: bound(*args, **kwargs))
+            try:
+                obj, t = synced_seconds(lambda: bound(*args, **kwargs))
+            except Exception as e:  # recorded in self.failed, then raised on
+                self.failed.append(e)
+                raise
             self.builds.append((obj, t))
             return obj
 
@@ -1612,7 +1684,9 @@ def phase_amg(ak, gs, ls, mesh, aux_run):
     """(a) PDE(..., solver_preconditioner="amg") on phase 12's problem,
     against phase 12's aux-grid solve; K2 on every level's tables; the
     same solve on the host CPU; (b) the "auto" ladder's AMG rung on a
-    lifted surface. Returns {path: (K2, K6)}."""
+    lifted surface. Returns ({path: (K2, K6)}, (a)'s hierarchy, its
+    host set-up seconds, solution and iterations, which phase 31
+    restores from a checkpoint)."""
     import fdapde_core_tpu_torch as fdt
     from fdapde_core_tpu_torch.linear_algebra.amg import AMG
 
@@ -1664,10 +1738,11 @@ def phase_amg(ak, gs, ls, mesh, aux_run):
     check(info_h.converged and abs(info_h.iterations - info.iterations) <= 1,
           f"the host AMG solve took {info_h.iterations} iterations, the card {info.iterations}")
     check(diff_h <= 1e-10, f"the host and card AMG solutions differ by {diff_h:.3e} max|x|")
-    del pde, x, mg, builds, x_h
+    amg_run = (mg, t_setup, x, info.iterations)
+    del pde, builds, x_h
 
     out.update(phase_surface(ak, gs, ls))
-    return out
+    return out, amg_run
 
 
 def phase_surface(ak, gs, ls):
@@ -2790,6 +2865,377 @@ def inverse_problem(nx, zero_counts=lambda: None):
     return res, t, rec, si.n_dofs
 
 
+def lifted_true_residual(pde, x, g):
+    """The true relative residual of a PDE's system with Dirichlet data g
+    moved to the right-hand side (DirichletSystem.rhs), recomputed on the
+    host in f64."""
+    A = pde.stiff().to_scipy()
+    bd = pde.space.boundary_dofs
+    free = ~bd
+    xh = x.cpu().numpy().reshape(-1)
+    gb = np.where(bd, g, 0.0)
+    b_mod = free * (pde.force().cpu().numpy().reshape(-1) - A @ gb) + gb
+    r = b_mod - (free * (A @ (free * xh)) + bd * xh)
+    return float(np.linalg.norm(r) / np.linalg.norm(b_mod))
+
+
+def ladder_solve(pde):
+    """pde.solve() with the "auto" ladder's rungs watched: (solution,
+    seconds, rung, aux-grid builds, AMG builds, whether the recovery step
+    ran). The rung is "auxgrid" when one aux grid was built and no AMG
+    hierarchy, "amg" when the aux grid's build raised and one hierarchy was
+    built."""
+    from fdapde_core_tpu_torch.linear_algebra.amg import AMG
+    from fdapde_core_tpu_torch.ops.auxgrid import AuxGridPreconditioner
+
+    aux = Builds(AuxGridPreconditioner)
+    with aux as aux_b, Builds(AMG) as amg_b, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        x, t = synced_seconds(pde.solve)
+    recovered = any("escalating to GMRES" in str(w.message) for w in caught)
+    rung = ("auxgrid" if len(aux_b) == 1 and not amg_b and not aux.failed else
+            "amg" if len(amg_b) == 1 and not aux_b and len(aux.failed) == 1 else "other")
+    return x, t, rung, (aux_b, aux.failed), amg_b, recovered
+
+
+def trace_kernels(trace_dir):
+    """Names of the CUDA kernels in the Chrome trace xprof_trace wrote."""
+    (path,) = Path(trace_dir).glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"], path.stat().st_size
+
+
+def phase_network(ak, gs, ls, scratch):
+    """31a: the street network of phase 12's lattice (519,841 junctions,
+    1,038,240 segments) through PDE(LinearNetwork(...)) with the default
+    ladder at NETWORK_RTOL, constant data and g = x + y, timed by utils.profiling.timer
+    against CUDA events; the same construction at NX_NETWORK_SMALL on
+    JAX's rung and count, and one of its solves traced by xprof_trace.
+    Returns ({path: (K2, K6)}, the solutions)."""
+    import shutil
+
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.utils.profiling import timer, xprof_trace
+
+    out, solutions = {}, []
+    (pts, segs, bnd), t_build = synced_seconds(lambda: street_network(NX_PDE))
+    net, t_net = synced_seconds(lambda: fdt.LinearNetwork(pts, segs, bnd))
+    check((net.n_nodes, net.n_cells) == ((NX_PDE + 1) ** 2, 2 * NX_PDE * (NX_PDE + 1)),
+          f"the network has {net.n_nodes} junctions and {net.n_cells} segments")
+    for name, g_of in (("constant 2.5", lambda c: np.full(c.shape[0], 2.5)),
+                       ("g = x + y", lambda c: c[:, 0] + c[:, 1])):
+        zero_launch_counts(ak, gs)
+        t0 = time.perf_counter()
+        pde = fdt.PDE(net, -fdt.laplacian(), order=1, solver_rtol=NETWORK_RTOL, device=DEVICE)
+        g = g_of(pde.dof_coords())
+        pde.set_dirichlet_bc(g)
+        pde.set_forcing(np.zeros(pde.quadrature_nodes().shape[0]))
+        pde.init()
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        store = {}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with timer("solve", store, sync=pde.force()):
+            start.record()
+            x, t_solve, rung, (aux_b, _), amg_b, recovered = ladder_solve(pde)
+            end.record()
+        end.synchronize()
+        t_events = start.elapsed_time(end) / 1e3
+        k2, k6 = gs.ell_spmv_launches, ls.p1_stiffness_2d_launches
+        out[f"network {name}"] = (k2, k6)
+        info = pde.solve_info
+        rel = lifted_true_residual(pde, x, g)
+        gb = g[bnd]
+        lo, hi = x.min().item(), x.max().item()
+        log(f"31a street network nx={NX_PDE} ({net.n_nodes} junctions, {net.n_cells} segments; "
+            f"lattice {t_build:.4f} s, LinearNetwork {t_net:.4f} s), {name}: host set-up (space, "
+            f"assembly) {t_setup:.4f} s; rung {rung} (aux grid {aux_b[0][0].n_grid if aux_b else None}"
+            f" built in {aux_b[0][1] if aux_b else 0:.4f} s, AMG hierarchies {len(amg_b)}), "
+            f"{info.iterations} iterations, converged {info.converged}, recovery taken {recovered}, "
+            f"solve {t_solve:.4f} s (timer {store['solve']:.4f} s, CUDA events {t_events:.4f} s); "
+            f"true rel residual (host f64) {rel:.4e}; solution in [{lo:.17g}, {hi:.17g}] against the "
+            f"data's [{gb.min():.17g}, {gb.max():.17g}]; K2 launches {k2}, K6 launches {k6}")
+        check(rung == "auxgrid", f"the network solve took the {rung} rung, JAX's takes the aux grid")
+        check(info.converged and not recovered, f"the network solve ({name}) did not converge")
+        check(rel <= 1e-8, f"network true relative residual {rel:.3e} > 1e-8")
+        check(store["solve"] >= t_events, "timer read less than the CUDA events of its block")
+        check(k2 > 0, "the network path never launched K2")
+        if name.startswith("constant"):
+            err = (x - 2.5).abs().max().item()
+            check(err <= 1e-10, f"the constant is reproduced to {err:.3e} only")
+        else:
+            check(gb.min() - 1e-8 <= lo and hi <= gb.max() + 1e-8,
+                  "the network solution leaves the boundary data's range")
+        solutions.append(x)
+    k2_table(gs, "network stiffness", pde.stiff(), race=False)
+    del pde, net
+
+    ps, ss, bs = street_network(NX_NETWORK_SMALL)
+    zero_launch_counts(ak, gs)
+    pde = fdt.PDE(fdt.LinearNetwork(ps, ss, bs), -fdt.laplacian(), order=1, device=DEVICE)
+    c = pde.dof_coords()
+    pde.set_dirichlet_bc(c[:, 0] + c[:, 1])
+    pde.set_forcing(np.zeros(pde.quadrature_nodes().shape[0]))
+    x, t_solve, rung, _, _, recovered = ladder_solve(pde)
+    its = pde.solve_info.iterations
+    out[f"network nx={NX_NETWORK_SMALL}"] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
+    log(f"31a street network nx={NX_NETWORK_SMALL} ({pde.n_dofs} junctions): rung {rung}, {its} "
+        f"iterations in {t_solve:.4f} s (the JAX package's ladder on the CPU: {NETWORK_JAX_RUNG})")
+    check(rung == NETWORK_JAX_RUNG[0] and not recovered and pde.success,
+          f"the nx={NX_NETWORK_SMALL} network took the {rung} rung")
+    check(abs(its - NETWORK_JAX_RUNG[1]) <= NETWORK_JAX_RUNG[1] // 10,
+          f"the nx={NX_NETWORK_SMALL} network took {its} iterations, JAX's {NETWORK_JAX_RUNG[1]}")
+    solutions.append(x)
+    # the trace of a network small enough for a short trace (Jacobi CG)
+    ps, ss, bs = street_network(NX_NETWORK_TRACE)
+    pde = fdt.PDE(fdt.LinearNetwork(ps, ss, bs), -fdt.laplacian(), order=1, device=DEVICE)
+    pde.set_dirichlet_bc(np.full(pde.n_dofs, 2.5))
+    pde.set_forcing(np.zeros(pde.quadrature_nodes().shape[0]))
+    pde.init()
+    trace_dir = scratch / "trace"
+    with xprof_trace(str(trace_dir)):
+        pde.solve()
+    names, size = trace_kernels(trace_dir)
+    k2_names = sorted({n for n in names if "ell_spmv_kernel" in n or "sell_" in n})
+    log(f"31e xprof_trace of one nx={NX_NETWORK_TRACE} network solve ({pde.solve_info.iterations} "
+        f"iterations): {size / 2**20:.1f} MiB, "
+        f"{len(names)} CUDA kernel events, K2's among them: {len(k2_names)} kernels "
+        f"({'; '.join(n[:60] for n in k2_names)})")
+    check(k2_names, "the trace lists no K2 kernel")
+    shutil.rmtree(trace_dir)
+    return out, solutions
+
+
+def phase_interval(ak, gs, ls):
+    """31b: 1D at N_INTERVAL cells, P1 and P2, -u'' = pi^2 sin(pi x), g = 0,
+    the default ladder: the aux grid's build raises on 1-column
+    coordinates and SA-AMG solves, as in JAX; u = x on unit_interval_mesh.
+    Returns ({path: (K2, K6)}, the solutions)."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.geometry import unit_interval_mesh
+
+    out, solutions = {}, []
+    for order in (1, 2):
+        zero_launch_counts(ak, gs)
+        pde, t_space = synced_seconds(lambda: fdt.PDE(fdt.Interval(0.0, 1.0, N_INTERVAL),
+                                                      -fdt.laplacian(), order=order, device=DEVICE))
+        q = pde.quadrature_nodes()
+        pde.set_forcing(np.pi ** 2 * np.sin(np.pi * q[:, 0]))
+        pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
+        _, t_init = synced_seconds(pde.init)
+        x, t_solve, rung, (_, failed), amg_b, recovered = ladder_solve(pde)
+        its = pde.solve_info.iterations
+        err = (x - torch.as_tensor(np.sin(np.pi * pde.dof_coords()[:, 0]), device=DEVICE)).abs().max().item()
+        out[f"1D P{order}"] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
+        mg = amg_b[0][0] if amg_b else None
+        log(f"31b Interval(0, 1, {N_INTERVAL}) P{order} ({pde.n_dofs} dofs): space {t_space:.4f} s, "
+            f"init {t_init:.4f} s; rung {rung} (aux grid raised {[type(e).__name__ for e in failed]}; "
+            f"AMG set-up {amg_b[0][1] if amg_b else 0:.4f} s, levels {mg.level_sizes() if mg else None}), "
+            f"{its} iterations, converged {pde.success}, recovery taken {recovered}, solve "
+            f"{t_solve:.4f} s; max error {err:.4e}; K2 launches {out[f'1D P{order}'][0]} (the JAX "
+            f"package's P1 on the CPU: {INTERVAL_JAX_RUNG})")
+        check(rung == "amg" and isinstance(failed[0], IndexError),
+              f"the 1D ladder took the {rung} rung, JAX's takes SA-AMG after the aux grid raises")
+        check(pde.success and not recovered, f"the 1D P{order} solve did not converge without recovery")
+        if order == 1:
+            check(err <= 1e-11, f"1D P1 max error {err:.3e} > 1e-11")
+            check(abs(its - INTERVAL_JAX_RUNG[1]) <= INTERVAL_JAX_RUNG[1] // 10,
+                  f"1D P1 took {its} iterations, JAX's {INTERVAL_JAX_RUNG[1]}")
+            k2_table(gs, "1D P1 stiffness", pde.stiff(), race=False)
+        solutions.append(x)
+    zero_launch_counts(ak, gs)
+    pde = fdt.PDE(unit_interval_mesh(N_INTERVAL), -fdt.laplacian(), order=1, device=DEVICE)
+    g = pde.dof_coords()[:, 0].copy()
+    pde.set_dirichlet_bc(g)
+    pde.set_forcing(np.zeros(pde.quadrature_nodes().shape[0]))
+    x, t_solve, rung, _, _, _ = ladder_solve(pde)
+    err = (x - torch.as_tensor(g, device=DEVICE)).abs().max().item()
+    out["1D u = x"] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
+    log(f"31b u = x on unit_interval_mesh({N_INTERVAL}): rung {rung}, {pde.solve_info.iterations} "
+        f"iterations in {t_solve:.4f} s, max|x - g| = {err:.3e}")
+    check(pde.success and err <= 1e-9, f"u = x reproduced to {err:.3e} only")
+    solutions.append(x)
+    return out, solutions
+
+
+def phase_checkpoints(ak, gs, ls, pts, cells, bnd, amg_run, scratch):
+    """31c: phase 21a's SA-AMG hierarchy saved and loaded back on the card
+    (V-cycle bitwise, and phase 21a's solve through it bitwise); phase 12's
+    P1 FEMSpace saved and loaded (assemble_matrix through K6 bitwise).
+    Returns ({path: (K2, K6)}, the solutions)."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import FEMSpace, assemble_matrix
+    from fdapde_core_tpu_torch.utils.checkpoint import load_amg, load_space, save_amg, save_space
+
+    out = {}
+    mg, t_setup, x21, its21 = amg_run
+    path = scratch / "amg.npz"
+    _, t_save = synced_seconds(lambda: save_amg(str(path), mg))
+    loaded, t_load = synced_seconds(lambda: load_amg(str(path), device=DEVICE))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    r = torch.rand(mg.As[0].shape[0], generator=gen, dtype=torch.float64, device=DEVICE) - 0.5
+    same_v = torch.equal(loaded.v_cycle(r), mg.v_cycle(r))
+    log(f"31c SA-AMG checkpoint of phase 21a ({mg.level_sizes()}): host set-up {t_setup:.4f} s, "
+        f"save {t_save:.4f} s ({path.stat().st_size / 2**20:.1f} MiB), load {t_load:.4f} s; "
+        f"restored V-cycle == original bitwise {same_v}")
+    check(same_v, "the restored V-cycle differs from the original")
+    del mg
+    zero_launch_counts(ak, gs)
+    pde = fdt.PDE(fdt.Triangulation(pts, cells, bnd), -fdt.laplacian(), order=1,
+                  solver_preconditioner=loaded.v_cycle, device=DEVICE)
+    q = pde.quadrature_nodes()
+    pde.set_forcing(2 * np.pi ** 2 * np.sin(np.pi * q[:, 0]) * np.sin(np.pi * q[:, 1]))
+    pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
+    pde.init()
+    x, t_solve = synced_seconds(pde.solve)
+    out["restored AMG PDE"] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
+    same_x = torch.equal(x, x21)
+    log(f"31c PDE(solver_preconditioner=loaded.v_cycle): {pde.solve_info.iterations} iterations "
+        f"(phase 21a: {its21}) in {t_solve:.4f} s; solution == phase 21a's bitwise {same_x}")
+    check(pde.success and pde.solve_info.iterations == its21 and same_x,
+          "the restored hierarchy does not reproduce phase 21a's solve")
+    solutions = [x]
+    del pde, loaded, x21
+
+    mesh = fdt.Triangulation(pts, cells, bnd)
+    space, t_space = synced_seconds(lambda: FEMSpace(mesh, 1))
+    _, t_scatter = synced_seconds(lambda: space.scatter)
+    path = scratch / "space.npz"
+    _, t_save = synced_seconds(lambda: save_space(str(path), space))
+    loaded, t_load = synced_seconds(lambda: load_space(str(path)))
+    A0 = assemble_matrix(space, -fdt.laplacian(), device=DEVICE)
+    zero_launch_counts(ak, gs)
+    A1, t_asm = synced_seconds(lambda: assemble_matrix(loaded, -fdt.laplacian(), device=DEVICE))
+    k6 = ls.p1_stiffness_2d_launches
+    out["loaded space assembly"] = (gs.ell_spmv_launches, k6)
+    same = (torch.equal(A1.rows, A0.rows) and torch.equal(A1.cols, A0.cols)
+            and torch.equal(A1.vals, A0.vals))
+    log(f"31c FEMSpace checkpoint of phase 12's mesh ({space.n_dofs} dofs): build {t_space:.4f} s + "
+        f"scatter tables {t_scatter:.4f} s, save {t_save:.4f} s ({path.stat().st_size / 2**20:.1f} "
+        f"MiB), load {t_load:.4f} s; assemble_matrix on the loaded space {t_asm:.4f} s (its "
+        f"segment_sum tables built there), == the original's bitwise {same}; K6 launches {k6}")
+    check(same and k6 >= 1, "assembly on the loaded space differs, or did not launch K6")
+    return out, solutions
+
+
+def write_r_csv(path, columns, names, fmt):
+    """An R-style CSV: a quoted header with an empty first field, quoted
+    row names, then the columns."""
+    table = np.column_stack([np.arange(1, len(columns[0]) + 1)] + list(columns))
+    np.savetxt(path, table, fmt=['"%d"'] + fmt, delimiter=",",
+               header=",".join(['""'] + [f'"{n}"' for n in names]), comments="")
+
+
+def phase_io(ak, gs, ls, scratch):
+    """31d: a stiffness matrix through an R-style COO CSV into a card
+    SparseMatrix (bitwise, K2 bitwise, Jacobi CG to 1e-10); the mesh
+    through load_mesh_csv; read_mtx against the dense form. Returns
+    ({path: (K2, K6)}, the solutions)."""
+    from scipy.io import mmwrite
+
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import FEMSpace, assemble_matrix, solve_elliptic
+    from fdapde_core_tpu_torch.geometry import unit_square_mesh
+    from fdapde_core_tpu_torch.utils.io import load_mesh_csv, read_csv_sparse, read_mtx
+
+    ps, cs, bs = delaunay_mesh(N_IO_MESH)
+    space = FEMSpace(fdt.Triangulation(ps, cs, bs), 1)
+    A = assemble_matrix(space, -fdt.laplacian(), device=DEVICE)
+    path = scratch / "stiffness.csv"
+    r, c, v = (t.cpu().numpy() for t in (A.rows, A.cols, A.vals))
+    _, t_write = synced_seconds(lambda: write_r_csv(path, [r + 1, c + 1, v], ["i", "j", "x"],
+                                                    ["%d", "%d", "%.17g"]))
+    zero_launch_counts(ak, gs)
+    B, t_read = synced_seconds(lambda: read_csv_sparse(str(path), shape=A.shape, device=DEVICE))
+    equal = torch.equal(B.rows, A.rows) and torch.equal(B.cols, A.cols) and torch.equal(B.vals, A.vals)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 32)
+    x = torch.rand(A.shape[1], generator=gen, dtype=torch.float64, device=DEVICE)
+    same_k2 = torch.equal(B @ x, A @ x)
+    mask = torch.as_tensor(space.boundary_dofs, device=DEVICE)
+    b = torch.where(mask, 0.0, 1.0 / A.shape[0]).to(torch.float64)
+    u, info = solve_elliptic(B, b, mask, torch.zeros_like(b), rtol=1e-10, recovery=False)
+    out = {"CSV matrix": (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)}
+    log(f"31d R-style COO CSV of delaunay_mesh({N_IO_MESH})'s stiffness ({A.shape[0]} dofs, {A.nnz} "
+        f"entries, {path.stat().st_size / 2**20:.1f} MiB): written {t_write:.4f} s, "
+        f"read_csv_sparse(device='cuda') {t_read:.4f} s; rows, cols, vals == bitwise {equal}; K2 "
+        f"on it == the original's bitwise {same_k2}; Jacobi CG to 1e-10: {info.iterations} "
+        f"iterations, converged {info.converged}; K2 launches {out['CSV matrix'][0]}")
+    check(equal and same_k2, "the CSV-read matrix differs from the original")
+    check(info.converged, "Jacobi CG on the CSV-read matrix did not converge")
+
+    mdir = scratch / "mesh"
+    mdir.mkdir()
+    write_r_csv(mdir / "points.csv", [ps[:, 0], ps[:, 1]], ["x", "y"], ["%.17g", "%.17g"])
+    write_r_csv(mdir / "elements.csv", list((cs + 1).T), ["V1", "V2", "V3"], ["%d"] * 3)
+    write_r_csv(mdir / "boundary.csv", [bs.astype(int)], ["b"], ["%d"])
+    (p2, c2, b2), t_mesh = synced_seconds(lambda: load_mesh_csv(str(mdir)))
+    mesh_equal = np.array_equal(p2, ps) and np.array_equal(c2, cs) and np.array_equal(b2.astype(bool), bs)
+    S = assemble_matrix(FEMSpace(unit_square_mesh(32), 1), -fdt.laplacian(), device=DEVICE)
+    mmwrite(str(scratch / "m.mtx"), S.to_scipy(), precision=17)
+    dense_equal = np.array_equal(read_mtx(str(scratch / "m.mtx")), S.toarray())
+    log(f"31d load_mesh_csv of the same mesh ({len(ps)} points, {len(cs)} elements): {t_mesh:.4f} s, "
+        f"equal {mesh_equal}; read_mtx of unit_square_mesh(32)'s matrix == its dense form {dense_equal}")
+    check(mesh_equal and dense_equal, "load_mesh_csv or read_mtx disagrees")
+    return out, [u]
+
+
+def phase_sanitize(solutions):
+    """31e: assert_all_finite over the phase's solutions; checked on the
+    card catches a NaN made in an intermediate and masked in the output, a
+    NaN in a SparseMatrix's values, and an infinity that K2 makes (at the
+    next torch operation, which reads it); it passes clean code."""
+    from fdapde_core_tpu_torch.linear_algebra import SparseMatrix
+    from fdapde_core_tpu_torch.utils.sanitize import assert_all_finite, checked
+
+    assert_all_finite(solutions, "phase 31")
+
+    def masked(x):
+        for _ in range(3):
+            y = torch.sqrt(x - 2.0)  # NaN in an intermediate
+            x = torch.where(y == y, y, 1.0)  # masked in the output
+        return x
+
+    one = torch.ones(4, dtype=torch.float64, device=DEVICE)
+    check(bool((masked(one) == 1.0).all()), "the masked function's output is not finite")
+    A = SparseMatrix.from_dense(np.array([[1.0, 3.0], [0.0, 2.0]]), device=DEVICE)
+    A_nan = A.with_vals(torch.tensor([1.0, float("nan"), 2.0], dtype=torch.float64, device=DEVICE))
+    A_big = A.with_vals(torch.tensor([1e308, 1e308, 2.0], dtype=torch.float64, device=DEVICE))
+    caught = []
+    for what, fn, x in (("masked intermediate", masked, one),
+                        ("NaN in a SparseMatrix's values", lambda v: (A_nan @ v).sum(), one[:2]),
+                        ("inf made by K2, read by the next op", lambda v: (A_big @ v).sum(),
+                         one[:2])):
+        try:
+            checked(fn)(x)
+        except FloatingPointError as e:
+            caught.append(f"{what}: {e}")
+    clean = float(checked(lambda v: torch.sqrt(v).sum() + 1.0)(4 * one))
+    log(f"31e assert_all_finite over {len(solutions)} solutions passed; checked caught "
+        f"{caught}; a clean function gives {clean}")
+    check(len(caught) == 3 and clean == 9.0, "checked missed a NaN or failed clean code")
+
+
+def phase_slice11(ak, gs, ls, pts, cells, bnd, amg_run):
+    """Phase 31: the slice's modules at full size. Returns {path: (K2, K6)}."""
+    import shutil
+
+    scratch = Path(__file__).resolve().parent / "fdapde_core_tpu_torch" / "_build" / "phase31"
+    shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
+    out, solutions = {}, []
+    for run in (lambda: phase_network(ak, gs, ls, scratch), lambda: phase_interval(ak, gs, ls),
+                lambda: phase_checkpoints(ak, gs, ls, pts, cells, bnd, amg_run, scratch),
+                lambda: phase_io(ak, gs, ls, scratch)):
+        (paths, xs), t = synced_seconds(run)
+        log(f"31: {', '.join(paths)} in {t:.2f} s")
+        out.update(paths)
+        solutions += xs
+        torch.cuda.empty_cache()
+    phase_sanitize(solutions)
+    shutil.rmtree(scratch)
+    return out
+
+
 def timed_phase(number, fn):
     """Run a phase, print its seconds, return its result."""
     out, t = synced_seconds(fn)
@@ -2798,6 +3244,7 @@ def timed_phase(number, fn):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -2848,9 +3295,10 @@ def main():
     mesh = pde.domain
     del pde
     torch.cuda.empty_cache()
-    new_paths = {}  # phases 20-23: {path: (K2 launches, K6 launches)}
+    new_paths = {}  # phases 20-31: {path: (K2 launches, K6 launches)}
     new_paths.update(timed_phase(20, lambda: phase_parabolic(ak, gs, ls, mesh)))
-    new_paths.update(timed_phase(21, lambda: phase_amg(ak, gs, ls, mesh, aux_run)))
+    paths_21, amg_run = timed_phase(21, lambda: phase_amg(ak, gs, ls, mesh, aux_run))
+    new_paths.update(paths_21)
     del aux_run
     torch.cuda.empty_cache()
     obs = phase_point_location(mesh)
@@ -2904,8 +3352,11 @@ def main():
     paths_30, bw30, k2_backward = timed_phase(30, lambda: phase_differentiable(ak, gs, ls, space1))
     new_paths.update(paths_30)
     del space1
+    torch.cuda.empty_cache()
+    new_paths.update(timed_phase(31, lambda: phase_slice11(ak, gs, ls, pts, cells, bnd, amg_run)))
+    del amg_run
     k2_backward_launches = bw28 + bw30
-    log("K2 / K6 launches by path of phases 20-30: " + "; ".join(
+    log("K2 / K6 launches by path of phases 20-31: " + "; ".join(
         f"{path} {k2} / {k6}" for path, (k2, k6) in new_paths.items())
         + f"; K2 backward launches {k2_backward_launches} (phase 28 {bw28}, phase 30 {bw30})")
     k2_launches += sum(k2 for k2, _ in new_paths.values())
@@ -2963,6 +3414,7 @@ def main():
         launches=k7_launches,
         **k7["DIA path"],
     )]
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)  # again beside the results, which a log cut to its end keeps
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -60,7 +60,7 @@ from . import (
     utils,
 )
 from .fem import FEMSpace
-from .geometry import Interval, Triangulation
+from .geometry import Interval, LinearNetwork, Triangulation
 from .pde import PDE, advection, bilaplacian, diffusion, dt, laplacian, reaction
 
 __version__ = "0.1.0"

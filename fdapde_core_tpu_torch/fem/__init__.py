@@ -7,10 +7,13 @@ basis evaluation at data locations (``evaluation``), Neumann boundary loads
 from . import neumann, nonlinear
 
 from .assembler import assemble_dia, assemble_forcing, assemble_matrix, local_matrices
+from .basis import LagrangeBasis, tabulate_basis
 from .evaluation import basis_expansion, eval_basis_areal, eval_basis_pointwise
+from .reference_element import reference_nodes
 from .solvers import DirichletSystem, masked_matrix, solve_elliptic, solve_parabolic
 from .space import FEMSpace
 
-__all__ = ["DirichletSystem", "FEMSpace", "assemble_dia", "assemble_forcing", "assemble_matrix",
-           "basis_expansion", "eval_basis_areal", "eval_basis_pointwise", "local_matrices",
-           "masked_matrix", "solve_elliptic", "solve_parabolic"]
+__all__ = ["DirichletSystem", "FEMSpace", "LagrangeBasis", "assemble_dia", "assemble_forcing",
+           "assemble_matrix", "basis_expansion", "eval_basis_areal", "eval_basis_pointwise",
+           "local_matrices", "masked_matrix", "reference_nodes", "solve_elliptic",
+           "solve_parabolic", "tabulate_basis"]

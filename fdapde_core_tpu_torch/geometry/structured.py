@@ -26,7 +26,8 @@ import torch
 from .triangulation import Triangulation
 
 __all__ = ["cube_mesh_device", "cube_mesh_device_soa", "irregular_mesh_device",
-           "irregular_mesh_device_soa", "unit_cube_mesh", "unit_square_mesh"]
+           "irregular_mesh_device_soa", "unit_cube_mesh", "unit_interval_mesh",
+           "unit_square_mesh"]
 
 
 def unit_square_mesh(n: int) -> Triangulation:
@@ -106,6 +107,13 @@ def irregular_mesh_device(n: int, amp=0.2, dtype=torch.float64, device="cuda"):
     (nodes (m^2, 2), cells (2 n^2, 3) int32, boundary (m^2,) bool)."""
     x, y, c0, c1, c2, on_bnd = irregular_mesh_device_soa(n, amp, dtype, device)
     return torch.stack([x, y], dim=1), torch.stack([c0, c1, c2], dim=1), on_bnd
+
+
+def unit_interval_mesh(n: int):
+    """[0, 1] split into n equal segments (an ``Interval``)."""
+    from .interval import Interval
+
+    return Interval(0.0, 1.0, n)
 
 
 def _kuhn_tets(base, step):

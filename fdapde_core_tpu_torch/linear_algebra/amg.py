@@ -17,8 +17,8 @@ simplicial mesh.
   and after the coarse correction, so the V-cycle is SPD; the coarsest
   level is one ``torch.matmul`` with the dense inverse.
 
-``checkpoint`` (the JAX package's ``utils/checkpoint.py`` round trip) is
-not ported yet (ROADMAP queue 1 item 3.8).
+``utils.checkpoint.save_amg`` / ``load_amg`` persist a hierarchy in the
+JAX package's ``.npz`` layout (either package's file loads in the other).
 """
 
 from __future__ import annotations
@@ -305,8 +305,11 @@ class AMG:
         return self._smooth(lvl, x, b)
 
     def v_cycle(self, r):
-        """One V-cycle ~ A^{-1} r (SPD)."""
-        return self._v(0, torch.as_tensor(r))
+        """One V-cycle ~ A^{-1} r (SPD). A tensor r keeps its device; host
+        input goes to the hierarchy's."""
+        if not isinstance(r, torch.Tensor):
+            r = torch.as_tensor(np.asarray(r), device=self.coarse_inv.device)
+        return self._v(0, r)
 
 
 def amg_preconditioned_cg(A, b, mg: AMG | None = None, rtol: float = 1e-10,

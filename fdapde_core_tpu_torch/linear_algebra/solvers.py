@@ -279,8 +279,11 @@ def cg_split_programs(A, b, M_inv, rtol=1e-12, maxiter=200, check_every=10,
 def dense_solve(A, b):
     """Dense solve of A x = b, b of shape (n,) or (n, k), on A's device
     and in A's dtype (for the framework's small dense systems: SMW
-    capacitance matrices, the exact GCV trace)."""
-    A = torch.as_tensor(A)
+    capacitance matrices, the exact GCV trace). A tensor A keeps its
+    device; a host matrix goes to the card, as JAX puts it on the
+    accelerator."""
+    if not isinstance(A, torch.Tensor):
+        A = torch.as_tensor(np.asarray(A), device="cuda")
     b = torch.as_tensor(b, device=A.device).to(A.dtype)
     return torch.linalg.solve(A, b)
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ..fem.solvers import DirichletSystem
@@ -623,8 +624,10 @@ class MatrixFreeParabolic:
         ``step`` for data that varies). Returns (u_final, info) with the
         per-step "iterations" and "rel_residuals" (host numbers); with
         keep_trajectory=True also "trajectory", (n, n_steps); on_step(k, u,
-        iterations, rel) is called after every step."""
-        u = torch.as_tensor(u0)
+        iterations, rel) is called after every step. A tensor u0 keeps its
+        device; host input goes to the operator's."""
+        u = u0 if isinstance(u0, torch.Tensor) else torch.as_tensor(np.asarray(u0),
+                                                                    device=self.mdiag.device)
         iters, rels, traj = [], [], []
         for k in range(n_steps):
             u, it, rel = self.step(u, f=f, g=g, rtol=rtol, maxiter=maxiter, chunk=chunk)

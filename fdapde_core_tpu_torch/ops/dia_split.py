@@ -250,14 +250,16 @@ def banded_cg(op: BandedSplit, b, n_iter: int, inv_diag=None):
     (x, |r|, ok): ok (a 0-dim bool tensor) is False after a breakdown
     (pAp <= 0, or rz <= 0 with a nonzero right-hand side), where the
     guarded loop froze the iterate instead of corrupting it. No host sync
-    inside the loop."""
+    inside the loop. A tensor b keeps its device; host input goes to the
+    operator's."""
     R, W = op.G.shape2d
     n = op.n
     H = max(max(abs(a), abs(c)) for a, c in op.G.offsets2d)
     data = op.G.data
     tail = R * W - n
 
-    b = torch.as_tensor(b)
+    if not isinstance(b, torch.Tensor):
+        b = torch.as_tensor(np.asarray(b), device=data.device)
     if inv_diag is None:
         inv_diag = 1.0 / op.diagonal()
 

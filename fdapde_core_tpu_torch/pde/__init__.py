@@ -3,7 +3,13 @@ symbolic differential operators (``operators``, a copy of the JAX
 package's)."""
 
 from .operators import (
+    Advection,
+    BiLaplacian,
     DifferentialOp,
+    Diffusion,
+    Dt,
+    Laplacian,
+    Reaction,
     advection,
     bilaplacian,
     diffusion,
@@ -13,5 +19,5 @@ from .operators import (
 )
 from .pde import PDE
 
-__all__ = ["PDE", "DifferentialOp", "advection", "bilaplacian", "diffusion", "dt",
-           "laplacian", "reaction"]
+__all__ = ["PDE", "Advection", "BiLaplacian", "DifferentialOp", "Diffusion", "Dt", "Laplacian",
+           "Reaction", "advection", "bilaplacian", "diffusion", "dt", "laplacian", "reaction"]

@@ -291,10 +291,53 @@ def _check_optimizers_match_jax():
                 run()
 
 
+def _check_host_input_goes_to_the_operators_device():
+    """Host input (NumPy) at five entry points: MatrixFreeParabolic.solve,
+    banded_cg and AMG.v_cycle put it on the operator's device, so a CPU
+    operator given NumPy equals the same call given a CPU tensor (bitwise);
+    dense_solve and lump put a host matrix on the card, so without one they
+    raise rather than compute on the host. On CPU tensors dense_solve and
+    lump match JAX's (1e-12 relative; JAX's Gauss-Jordan and row sums)."""
+    from fdapde_core_tpu.linear_algebra.lumping import lump as j_lump
+    from fdapde_core_tpu.linear_algebra.solvers import dense_solve as j_dense_solve
+    from fdapde_core_tpu_torch.geometry import irregular_mesh_device
+    from fdapde_core_tpu_torch.linear_algebra import AMG, SparseMatrix, dense_solve, lump
+    from fdapde_core_tpu_torch.models import MatrixFreeParabolic, MatrixFreePoisson
+    from fdapde_core_tpu_torch.ops.dia_split import banded_cg
+
+    rng = np.random.default_rng(12)
+    nodes, cells, bnd = irregular_mesh_device(8, 0.2, device="cpu")
+    u0 = rng.uniform(size=nodes.shape[0])
+    heat = MatrixFreeParabolic(nodes, cells, bnd, dt=1e-3, device="cpu")
+    host, tensor = (heat.solve(u, n_steps=2, rtol=1e-10) for u in (u0, torch.from_numpy(u0)))
+    assert torch.equal(host[0], tensor[0]) and host[1] == tensor[1], "MatrixFreeParabolic.solve"
+    folded = MatrixFreePoisson(nodes, cells, bnd, device="cpu").op.fold_dirichlet(bnd)
+    b = np.where(bnd.numpy(), 0.0, rng.uniform(0.5, 1.5, nodes.shape[0]))
+    got, ref = banded_cg(folded, b, 10), banded_cg(folded, torch.from_numpy(b), 10)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref)), "banded_cg"
+    n = 120
+    d = 2 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1)
+    mg = AMG.build(SparseMatrix.from_dense(d, device="cpu"), coarse_max=20)
+    r = rng.standard_normal(n)
+    assert mg.n_levels >= 2 and torch.equal(mg.v_cycle(r), mg.v_cycle(torch.from_numpy(r)))
+    sym = d + np.diag(rng.uniform(0.5, 1.0, n))
+    rhs = rng.standard_normal((n, 2))
+    x = dense_solve(torch.from_numpy(sym), torch.from_numpy(rhs)).numpy()
+    xj = np.asarray(j_dense_solve(jnp.asarray(sym), jnp.asarray(rhs)))
+    assert np.abs(x - xj).max() <= 1e-12 * np.abs(xj).max(), "dense_solve"
+    np.testing.assert_allclose(lump(torch.from_numpy(sym)).numpy(),
+                               np.asarray(j_lump(jnp.asarray(sym))), rtol=1e-12, atol=0)
+    if not torch.cuda.is_available():  # a host matrix goes to the card: no fallback
+        for run in (lambda: dense_solve(sym, rhs), lambda: lump(sym)):
+            with pytest.raises((AssertionError, RuntimeError)):
+                run()
+
+
 def test_closed_form_matches_jax():
     """The closed forms (2D and tet), and the host-side analytic layers
-    beside them: fields (``_check_fields_match_jax``) and the optimizers
-    (``_check_optimizers_match_jax``)."""
+    beside them: fields (``_check_fields_match_jax``), the optimizers
+    (``_check_optimizers_match_jax``) and host input at five entry points
+    (``_check_host_input_goes_to_the_operators_device``)."""
     rng = np.random.default_rng(3)
     coords = rng.uniform(size=(6, 50))
     ref = np.asarray(jcf.p1_stiffness_2d_sym(jnp.asarray(coords)))
@@ -317,6 +360,7 @@ def test_closed_form_matches_jax():
         tcf.pack_cell_axis(torch.zeros(9, 100))
     _check_fields_match_jax()
     _check_optimizers_match_jax()
+    _check_host_input_goes_to_the_operators_device()
 
 
 def test_port_never_imports_jax():
@@ -324,7 +368,8 @@ def test_port_never_imports_jax():
     the modules of the device-scale P2, lane aux grid and refinement paths,
     and the solver-breadth modules: fields, optimization, Neumann data,
     the semilinear solver, FSPAI, block and binary matrices, integration
-    and the native library, among them)."""
+    and the native library; the geometry host copies, io, checkpoints,
+    profiling and sanitize, among them)."""
     offenders, scanned = [], set()
     for path in sorted(PORT.rglob("*.py")):
         if "_build" in path.relative_to(PORT).parts:  # build outputs, not source
@@ -346,12 +391,19 @@ def test_port_never_imports_jax():
             "optimization/optimizers.py", "optimization/__init__.py", "fem/neumann.py",
             "fem/nonlinear.py", "linear_algebra/fspai.py", "linear_algebra/block.py",
             "linear_algebra/binary.py", "native/__init__.py", "native/build.py",
-            "native/topology.py", "utils/integration.py"} <= scanned
+            "native/topology.py", "utils/integration.py", "geometry/network.py",
+            "geometry/kd_tree.py", "geometry/projection.py", "geometry/voronoi.py",
+            "geometry/hyperplane.py", "geometry/simplex.py", "geometry/walk_search.py",
+            "utils/io.py", "utils/checkpoint.py", "utils/binary_tree.py", "utils/block_frame.py",
+            "utils/shp_reader.py", "utils/profiling.py", "utils/sanitize.py"} <= scanned
     # and at run time: importing the new modules loads neither package
     code = ("import sys\n"
             "import fdapde_core_tpu_torch.fields, fdapde_core_tpu_torch.optimization\n"
             "import fdapde_core_tpu_torch.fem.neumann, fdapde_core_tpu_torch.fem.nonlinear\n"
             "import fdapde_core_tpu_torch.linear_algebra.fspai, fdapde_core_tpu_torch.native\n"
+            "import fdapde_core_tpu_torch.geometry.walk_search, fdapde_core_tpu_torch.geometry.simplex\n"
+            "from fdapde_core_tpu_torch.utils import checkpoint, io, profiling, sanitize\n"
+            "from fdapde_core_tpu_torch.utils import binary_tree, block_frame, shp_reader\n"
             "assert not {'jax', 'fdapde_core_tpu'} & set(sys.modules), sorted(sys.modules)\n")
     done = subprocess.run([sys.executable, "-c", code], cwd=PORT.parent, capture_output=True,
                           text=True, timeout=120)

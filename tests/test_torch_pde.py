@@ -176,6 +176,132 @@ def test_local_stiffness_kernels_match_jax():
         np.testing.assert_allclose(_np(G.data), fused, rtol=0, atol=1e-12)
 
 
+def _lattice_network(nx, seed=7, amp=0.35, diagonals=0):
+    """A street network: the nodes of _delaunay's jittered (nx+1)^2
+    lattice joined by its horizontal and vertical segments, plus
+    `diagonals` seeded random diagonal segments (junctions of degree up to
+    8); the square's boundary nodes are the network's boundary."""
+    rng = np.random.default_rng(seed)
+    ii, jj = np.meshgrid(np.arange(nx + 1), np.arange(nx + 1), indexing="ij")
+    pts = np.stack([ii, jj], -1).reshape(-1, 2).astype(np.float64)
+    interior = (pts[:, 0] > 0) & (pts[:, 0] < nx) & (pts[:, 1] > 0) & (pts[:, 1] < nx)
+    pts[interior] += rng.uniform(-amp, amp, size=(interior.sum(), 2))
+    pts /= nx
+    idx = np.arange((nx + 1) ** 2).reshape(nx + 1, nx + 1)
+    segs = [np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], 1),
+            np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], 1)]
+    if diagonals:
+        a = rng.choice(nx * nx, diagonals, replace=False)
+        i, j = np.divmod(a, nx)
+        segs.append(np.stack([idx[i, j], idx[i + 1, j + 1]], 1))
+    return pts, np.concatenate(segs).astype(np.int32), ~interior
+
+
+def _same(got, ref, what, rtol=1e-13):
+    """Integer (and boolean) arrays equal; floating ones to rtol max|ref|."""
+    got, ref = _np(got), np.asarray(ref)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    if np.issubdtype(ref.dtype, np.floating):
+        assert np.abs(got - ref).max(initial=0.0) <= rtol * max(np.abs(ref).max(initial=0.0), 1e-300), what
+    else:
+        np.testing.assert_array_equal(got, ref, err_msg=what)
+
+
+def _check_geometry_and_meshes_match_jax():
+    """The geometry host copies against JAX (ids equal, coordinates to
+    1e-13): LinearNetwork on a seeded street network with diagonals
+    (node_to_cells, cell_neighbors, derived_boundary_nodes;
+    tests/test_geometry.py:89), KDTree nn_search and range_search (:99),
+    project approximate and exact (:117, :161), HyperPlane (:127), the
+    simplex helpers on 2D, surface and 1D meshes (:176), Voronoi cells,
+    edges, markers, measures and locate (:138, :251) and walk_search
+    (tests/test_utils_structures.py:37). FEM on the meshes no other port
+    test assembles on (tests/test_fem_1d.py:15,34,46,
+    tests/test_manifold_3d.py:46,60,84,97): the network, Interval P1/P2, 2D
+    P3, a 2.5D surface P1/P2 and P2 tets, -laplacian and mass: rows and
+    cols equal, values to 1e-13 max|vals|."""
+    import fdapde_core_tpu.geometry as jg
+    import fdapde_core_tpu_torch.geometry as tg
+    from fdapde_core_tpu.geometry import simplex as jsx
+    from fdapde_core_tpu.geometry.projection import nearest_on_simplex as j_nearest
+    from fdapde_core_tpu.geometry.structured import unit_cube_mesh as j_unit_cube
+    from fdapde_core_tpu.geometry.walk_search import walk_search as j_walk
+    from fdapde_core_tpu_torch.geometry import simplex as tsx
+    from fdapde_core_tpu_torch.geometry.projection import nearest_on_simplex
+    from fdapde_core_tpu_torch.geometry.walk_search import walk_search
+
+    npts, segs, nbnd = _lattice_network(6, diagonals=12)
+    nj, nt = fdm.LinearNetwork(npts, segs), fdt.LinearNetwork(npts, segs)
+    assert nt.local_dim == 1 and nt.embed_dim == 2 and not nt.derived_boundary_nodes[~nbnd].any()
+    for a, b in zip(nt.node_to_cells, nj.node_to_cells):
+        _same(a, b, "node_to_cells")
+    _same(nt.derived_boundary_nodes, nj.derived_boundary_nodes, "network boundary")
+    for c in range(nt.n_cells):
+        _same(nt.cell_neighbors(c), nj.cell_neighbors(c), f"cell_neighbors({c})")
+
+    rng = np.random.default_rng(21)
+    cloud = rng.uniform(size=(300, 2))
+    kj, kt = jg.KDTree(cloud), tg.KDTree(cloud)
+    for q in rng.uniform(size=(50, 2)):
+        assert kt.nn_search(q) == kj.nn_search(q) == np.argmin(((cloud - q) ** 2).sum(1))
+    _same(kt.range_search([0.2, 0.3], [0.6, 0.8]), kj.range_search([0.2, 0.3], [0.6, 0.8]), "range")
+    usj, ust = j_unit_square(6), unit_square_mesh(6)
+    far = np.array([[0.5, 1.7], [-0.3, 0.5], [0.5, 0.5], [1.3, -0.2]])
+    for exact in (False, True):
+        _same(tg.project(ust, far, exact=exact), jg.project(usj, far, exact=exact), f"project {exact}")
+    tri = np.array([[0, 0], [1, 0], [0, 1]], dtype=float)
+    for p in ([2.0, 2.0], [0.2, 0.3], [-1.0, -1.0]):
+        _same(nearest_on_simplex(tri, np.array(p)), j_nearest(tri, np.array(p)), "nearest_on_simplex")
+    plane = np.array([[0, 0, 0.1], [1, 0.2, 0], [0, 1, 0.3]])
+    hj, ht = jg.HyperPlane(plane), tg.HyperPlane(plane)
+    q3 = rng.uniform(size=(5, 3))
+    for name in ("project", "distance"):
+        _same(getattr(ht, name)(q3), getattr(hj, name)(q3), f"HyperPlane.{name}")
+    _same(ht.normal(), hj.normal(), "HyperPlane.normal")
+
+    pts, cells, bnd = _delaunay(8)
+    lift = np.column_stack([pts, 0.25 * np.sin(np.pi * pts[:, 0]) * np.sin(np.pi * pts[:, 1])])
+    surf_j, surf_t = fdm.Triangulation(lift, cells, bnd), fdt.Triangulation(lift, cells, bnd)
+    ids = rng.integers(0, ust.n_cells, 40)
+    inside = np.einsum("nkd,nk->nd", ust.cell_coords[ids], rng.dirichlet([1, 1, 1], size=40))
+    _same(tsx.barycentric_coords(ust, ids, inside), jsx.barycentric_coords(usj, ids, inside), "bary")
+    _same(tsx.contains(ust, ids, inside), jsx.contains(usj, ids, inside), "contains")
+    for mname, mj, mt in (("square", usj, ust), ("surface", surf_j, surf_t), ("network", nj, nt),
+                          ("interval", fdm.Interval(0.0, 2.0, 10), fdt.Interval(0.0, 2.0, 10))):
+        for name in ("circumcenters", "circumradii", "barycenters"):
+            _same(getattr(tsx, name)(mt), getattr(jsx, name)(mj), f"{mname} {name}")
+        for a, b in zip(tsx.bounding_boxes(mt), jsx.bounding_boxes(mj)):
+            _same(a, b, f"{mname} bounding_boxes")
+    _same(walk_search(ust, inside), j_walk(usj, inside), "walk_search")
+    _same(walk_search(ust, inside, start=0), ids, "walk_search from cell 0")
+
+    vj, vt = jg.Voronoi(usj), tg.Voronoi(ust)
+    for node in range(vt.n_cells):
+        cj, ct = vj.cell(node), vt.cell(node)
+        _same(ct.vertices, cj.vertices, f"Voronoi cell {node}")
+        _same(ct.vertex_on_boundary, cj.vertex_on_boundary, f"Voronoi markers {node}")
+        _same(ct.edges(), cj.edges(), f"Voronoi edges {node}")
+        assert ct.on_boundary == cj.on_boundary and ct.measure == pytest.approx(cj.measure, rel=1e-13)
+    assert vt.measure() == pytest.approx(vj.measure(), rel=1e-13)
+    _same(vt.locate(far), vj.locate(far), "Voronoi.locate")
+    _same(vt.locate(inside), vj.locate(inside), "Voronoi.locate inside")
+
+    meshes = (("network P1", nj, nt, 1),
+              ("interval P1", fdm.Interval(0.0, 2.0, 10), fdt.Interval(0.0, 2.0, 10), 1),
+              ("interval P2", fdm.Interval(0.0, 2.0, 10), fdt.Interval(0.0, 2.0, 10), 2),
+              ("square P3", usj, ust, 3),
+              ("surface P1", surf_j, surf_t, 1), ("surface P2", surf_j, surf_t, 2),
+              ("tets P2", j_unit_cube(3), tg.unit_cube_mesh(3), 2))
+    for mname, mj, mt, order in meshes:
+        sj, st = JSpace(mj, order), TSpace(mt, order)
+        for oname, op in (("-laplacian", lambda m: -m.laplacian()), ("mass", lambda m: m.reaction(1.0))):
+            A = ja.assemble_matrix(sj, op(fdm))
+            B = ta.assemble_matrix(st, op(fdt), device=CPU)
+            _same(B.rows, A.rows, f"{mname} {oname} rows")
+            _same(B.cols, A.cols, f"{mname} {oname} cols")
+            _same(B.vals, A.vals, f"{mname} {oname} vals")
+
+
 def _check_host_modules_match_jax(pts, cells, bnd):
     """The host modules of the solver-breadth slice against JAX: Neumann
     loads (P1 and P2, constant and callable data, two selectors) and
@@ -421,7 +547,9 @@ def test_affine_sparse_and_assembly_match_jax():
     and P1 on a jittered Delaunay mesh: rows and cols identical, vals to
     1e-13 max|vals| (layout="soa" the same call); assemble_forcing with
     array, multi-column and callable forcing; the host modules of the
-    solver-breadth slice (``_check_host_modules_match_jax``)."""
+    solver-breadth slice (``_check_host_modules_match_jax``); the geometry
+    host copies and FEM on networks, intervals, P3, surfaces and P2 tets
+    (``_check_geometry_and_meshes_match_jax``)."""
     pts, cells, bnd = _delaunay(24)
     meshes = (("unit square P1", j_unit_square(16), unit_square_mesh(16), 1),
               ("unit square P2", j_unit_square(16), unit_square_mesh(16), 2),
@@ -493,6 +621,7 @@ def test_affine_sparse_and_assembly_match_jax():
     np.testing.assert_array_equal(_np(Dt.rows), np.asarray(Dj.rows))
     assert np.abs(_np(Dt.vals) - np.asarray(Dj.vals)).max() <= 1e-13 * np.abs(np.asarray(Dj.vals)).max()
     _check_host_modules_match_jax(pts, cells, bnd)
+    _check_geometry_and_meshes_match_jax()
 
 
 def test_entry_step_matches_jax():
@@ -529,7 +658,8 @@ def test_pde_solve_matches_jax(monkeypatch):
     against JAX's solve_parabolic: trajectories to 1e-10 max|u|, the step
     iterations equal, the L2 functional to 1e-10 relative; the stalled-step
     rerun with GMRES(50) gives JAX's warning and trajectory (1e-10). The
-    default device is the card, and without one it raises."""
+    default device is the card, and without one it raises. Networks and the
+    1D ladder (``_check_network_and_interval_pde_match_jax``)."""
     pts, cells, bnd = _delaunay(40)
     for pre in (None, "auxgrid", "amg"):
         out = []
@@ -723,6 +853,75 @@ def test_pde_solve_matches_jax(monkeypatch):
     if not torch.cuda.is_available():  # the default device is the card: no fallback
         with pytest.raises((AssertionError, RuntimeError)):
             fdt.PDE(mt, -fdt.laplacian()).init()
+    _check_network_and_interval_pde_match_jax(monkeypatch)
+
+
+def _check_network_and_interval_pde_match_jax(monkeypatch):
+    """PDE on a seeded street network with diagonals (Jacobi below 20,000
+    dofs; tests/test_fem_1d.py:61): constant data 2.5 reproduced to 1e-10,
+    g = x + y within the data's range (the maximum principle) to 1e-12,
+    both equal to JAX's to 1e-10 with the iterations equal. The 1D PDE on
+    Interval(0, 1, 160), P1 and P2, with _AUTO_PRECOND_DOFS lowered to 100
+    in both packages: both ladders build the 2D aux grid, whose build
+    raises on 1-column coordinates, then SA-AMG (the same rung), iterations
+    within 1, solutions to 1e-10 max|x|."""
+    npts, segs, nbnd = _lattice_network(12, diagonals=30)
+    for name, g_of in (("constant", lambda c: np.full(c.shape[0], 2.5)),
+                       ("x + y", lambda c: c[:, 0] + c[:, 1])):
+        out = []
+        for mod, kw in ((fdm, {}), (fdt, {"device": CPU})):
+            pde = mod.PDE(mod.LinearNetwork(npts, segs, nbnd), -mod.laplacian(), order=1, **kw)
+            g = g_of(pde.dof_coords())
+            pde.set_dirichlet_bc(g)
+            pde.set_forcing(np.zeros(pde.quadrature_nodes().shape[0]))
+            pde.solve()
+            out.append((np.asarray(pde.solution()).reshape(-1), pde.report(), g))
+        (xj, rj, g), (xt, rt, _) = out
+        assert rt["success"] and rt["solver_iterations"] == rj["solver_iterations"], name
+        assert np.abs(xt - xj).max() <= 1e-10 * np.abs(xj).max(), name
+        if name == "constant":
+            assert np.abs(xt - 2.5).max() <= 1e-10
+        else:
+            gb = g[nbnd]
+            assert gb.min() - 1e-12 <= xt.min() and xt.max() <= gb.max() + 1e-12
+
+    import fdapde_core_tpu.pde.pde as jpde
+    import fdapde_core_tpu_torch.pde.pde as tpde
+
+    events = []
+
+    def watched(cls):
+        orig = cls.build.__func__
+
+        def build(c, *a, **k):
+            events.append(cls.__name__)
+            try:
+                return orig(c, *a, **k)
+            except Exception as e:
+                events.append(type(e).__name__)
+                raise
+
+        monkeypatch.setattr(cls, "build", classmethod(build))
+
+    for cls in (JAux, AuxGridPreconditioner, jamg.AMG, tamg.AMG):
+        watched(cls)
+    for mod in (jpde, tpde):
+        monkeypatch.setattr(mod, "_AUTO_PRECOND_DOFS", 100)
+    for order in (1, 2):
+        out = []
+        for mod, kw in ((fdm, {}), (fdt, {"device": CPU})):
+            events.clear()
+            pde = mod.PDE(mod.Interval(0.0, 1.0, 160), -mod.laplacian(), order=order, **kw)
+            q = pde.quadrature_nodes()
+            pde.set_forcing(np.pi ** 2 * np.sin(np.pi * q[:, 0]))
+            pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
+            pde.solve()
+            out.append((np.asarray(pde.solution()).reshape(-1), pde.report(), list(events)))
+        (xj, rj, ej), (xt, rt, et) = out
+        assert ej == et == ["AuxGridPreconditioner", "IndexError", "AMG"], (ej, et)
+        assert rt["success"] and abs(rt["solver_iterations"] - rj["solver_iterations"]) <= 1, order
+        assert np.abs(xt - xj).max() <= 1e-10 * np.abs(xj).max(), order
+    monkeypatch.undo()
 
 
 def test_pde_harmonic_and_l2_slope():

@@ -74,11 +74,307 @@ def _psi_equal(Pt, Pj, where):
     assert np.abs(dense_t - dense_j).max() <= 1e-14, where
 
 
-def test_regression_path_matches_jax():
+def _write_r_csv(path, table, header):
+    """An R-style CSV: quoted header with an empty first field, row names."""
+    with open(path, "w") as fh:
+        fh.write(",".join(['""'] + [f'"{h}"' for h in header]) + "\n")
+        for i, row in enumerate(table):
+            fh.write(",".join([f'"{i + 1}"'] + [repr(float(v)) if not np.isnan(v) else "NA"
+                                                for v in row]) + "\n")
+
+
+def _check_io_and_checkpoints_match_jax(tmp_path):
+    """utils.io on files written here (JAX's tests/test_utils.py:99 reads
+    the absent reference data): load_mesh_csv, read_csv with NA, the
+    1-indexed COO read_csv_sparse (rows, cols equal, vals to 1e-15, into a
+    SparseMatrix on the CPU) and read_mtx, equal to JAX's. utils.checkpoint
+    in both directions (tests/test_aux.py:66, tests/test_amg.py:139): a P2
+    space saved by JAX loads into the port with equal dofs and scatter
+    tables, its segment_sum tables equal to a fresh build's and
+    assemble_matrix on it equal to the fresh space's bitwise, and the
+    port's save loads into JAX alike; an SA-AMG hierarchy saved by JAX
+    gives the port's V-cycle of the same matrices to 1e-14 relative, the
+    port's save gives JAX's to 1e-14, and the port's own round trip repeats
+    its V-cycle bitwise and drives CG to convergence."""
+    import pytest
+    from scipy.io import mmwrite
+    from scipy.sparse import random as sprandom
+
+    from fdapde_core_tpu.fem import assembler as ja
+    from fdapde_core_tpu.fem.solvers import masked_matrix as j_masked
+    from fdapde_core_tpu.fem.space import FEMSpace as JSpace
+    from fdapde_core_tpu.linear_algebra.amg import AMG as JAMG
+    from fdapde_core_tpu.utils import checkpoint as jck
+    from fdapde_core_tpu.utils import io as jio
+    from fdapde_core_tpu_torch.fem import assembler as ta
+    from fdapde_core_tpu_torch.fem.solvers import masked_matrix
+    from fdapde_core_tpu_torch.fem.space import FEMSpace
+    from fdapde_core_tpu_torch.linear_algebra import AMG, cg
+    from fdapde_core_tpu_torch.utils import checkpoint as tck
+    from fdapde_core_tpu_torch.utils import io as tio
+
+    rng = np.random.default_rng(31)
+    mesh = unit_square_mesh(8)
+    mdir = tmp_path / "mesh"
+    mdir.mkdir()
+    _write_r_csv(mdir / "points.csv", mesh.nodes, ["x", "y"])
+    _write_r_csv(mdir / "elements.csv", mesh.cells + 1.0, ["V1", "V2", "V3"])
+    _write_r_csv(mdir / "boundary.csv", mesh.boundary_node_markers()[:, None] * 1.0, ["b"])
+    for a, b in zip(tio.load_mesh_csv(str(mdir)), jio.load_mesh_csv(str(mdir))):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(tio.load_mesh_csv(str(mdir))[1], mesh.cells)
+    table = rng.standard_normal((5, 3))
+    table[2, 1] = np.nan
+    _write_r_csv(tmp_path / "na.csv", table, ["a", "b", "c"])
+    np.testing.assert_array_equal(tio.read_csv(str(tmp_path / "na.csv")), table)
+    S = sprandom(40, 30, density=0.1, random_state=3, format="coo")
+    trip = np.column_stack([S.row + 1.0, S.col + 1.0, S.data])
+    trip = np.concatenate([trip, trip[:5]])  # duplicates are summed
+    _write_r_csv(tmp_path / "coo.csv", trip, ["i", "j", "x"])
+    Mj = jio.read_csv_sparse(str(tmp_path / "coo.csv"), shape=(40, 30))
+    Mt = tio.read_csv_sparse(str(tmp_path / "coo.csv"), shape=(40, 30), device=CPU)
+    np.testing.assert_array_equal(_np(Mt.rows), np.asarray(Mj.rows))
+    np.testing.assert_array_equal(_np(Mt.cols), np.asarray(Mj.cols))
+    assert np.abs(_np(Mt.vals) - np.asarray(Mj.vals)).max() <= 1e-15
+    assert Mt.vals.device.type == CPU
+    assert (tio.read_csv_sparse(str(tmp_path / "coo.csv"), device=CPU).shape
+            == jio.read_csv_sparse(str(tmp_path / "coo.csv")).shape)
+    if not torch.cuda.is_available():  # the default device is the card: no fallback
+        with pytest.raises((AssertionError, RuntimeError)):
+            tio.read_csv_sparse(str(tmp_path / "coo.csv"))
+    mmwrite(str(tmp_path / "m.mtx"), S)
+    np.testing.assert_array_equal(tio.read_mtx(str(tmp_path / "m.mtx")), S.toarray())
+    np.testing.assert_array_equal(tio.read_mtx(str(tmp_path / "m.mtx")),
+                                  jio.read_mtx(str(tmp_path / "m.mtx")))
+
+    tck.save_arrays(str(tmp_path / "a.npz"), t=torch.arange(4.0), a=np.eye(2))
+    got = jck.load_arrays(str(tmp_path / "a.npz"))
+    np.testing.assert_array_equal(got["t"], np.arange(4.0))
+    np.testing.assert_array_equal(tck.load_arrays(str(tmp_path / "a.npz"))["a"], np.eye(2))
+    sj, st = JSpace(j_unit_square(8), 2), FEMSpace(mesh, 2)
+    jck.save_space(str(tmp_path / "sj.npz"), sj)
+    tck.save_space(str(tmp_path / "st.npz"), st)
+    for loaded, ref in ((tck.load_space(str(tmp_path / "sj.npz")), st),
+                        (jck.load_space(str(tmp_path / "st.npz")), sj)):
+        assert loaded.n_dofs == ref.n_dofs
+        np.testing.assert_array_equal(loaded.dofs, ref.dofs)
+        for a, b in zip(loaded.scatter, ref.scatter):
+            np.testing.assert_array_equal(a, b)
+    loaded = tck.load_space(str(tmp_path / "sj.npz"))
+    fresh = FEMSpace(unit_square_mesh(8), 2)
+    for which in ("matrix", "forcing"):
+        assert torch.equal(loaded.segment_sum(which, CPU).table, fresh.segment_sum(which, CPU).table)
+    A_l = ta.assemble_matrix(loaded, -fdt.laplacian(), device=CPU)
+    A_f = ta.assemble_matrix(fresh, -fdt.laplacian(), device=CPU)
+    assert torch.equal(A_l.rows, A_f.rows) and torch.equal(A_l.vals, A_f.vals)
+
+    us = unit_square_mesh(24)
+    mask = us.boundary_node_markers()
+    Lt = masked_matrix(ta.assemble_matrix(FEMSpace(us, 1), -fdt.laplacian(), device=CPU),
+                       torch.from_numpy(mask))
+    Lj = j_masked(ja.assemble_matrix(JSpace(j_unit_square(24), 1), -fdm.laplacian()),
+                  jnp.asarray(mask))
+    r = rng.standard_normal(Lt.shape[0])
+    mgj, mgt = JAMG.build(Lj, coarse_max=40), AMG.build(Lt, coarse_max=40)
+    jck.save_amg(str(tmp_path / "hj.npz"), mgj)
+    tck.save_amg(str(tmp_path / "ht.npz"), mgt)
+    for ours, theirs in ((tck.load_amg(str(tmp_path / "hj.npz"), device=CPU), mgj),
+                         (mgt, jck.load_amg(str(tmp_path / "ht.npz")))):
+        assert ours.n_levels == theirs.n_levels >= 3
+        zj = np.asarray(theirs.v_cycle(jnp.asarray(r)))
+        assert _rel(ours.v_cycle(torch.from_numpy(r)), zj) <= 1e-14
+    mg2 = tck.load_amg(str(tmp_path / "ht.npz"), device=CPU)
+    assert all(torch.equal(a.vals, b.vals) for a, b in zip(mg2.Rs, mgt.Rs))
+    assert torch.equal(mg2.v_cycle(torch.from_numpy(r)), mgt.v_cycle(torch.from_numpy(r)))
+    b = torch.from_numpy(np.where(mask, 0.0, 1.0 / Lt.shape[0]))
+    _, info = cg(Lt, b, M_inv=mg2.v_cycle, rtol=1e-10, maxiter=60)
+    assert info.converged
+
+
+def _check_utils_match_jax(tmp_path):
+    """The remaining utils against JAX's on the same calls: binary_tree
+    (tests/test_aux.py:31), block_frame and shp_reader
+    (tests/test_utils_structures.py:11,29,72,163,196,222,387), equal
+    outputs; sanitize (tests/test_sanitize.py:12-46): checked raises on a
+    NaN made in an intermediate and masked in the output (in a loop, and
+    entering through a SparseMatrix product), as JAX's does, and passes
+    clean code; debug_nans raises in its scope only; assert_all_finite
+    names the leaf; profiling: timer accumulates, flops_bandwidth equals
+    JAX's, xprof_trace writes a trace of the block; the public names of
+    JAX's utils, fem, pde and geometry on the port, their constants and
+    helpers equal (tests/test_utils.py:107; log1pexp to 1e-12), and the
+    getattr diff over the JAX package leaves the multi-device names and
+    WindowedELL only. With io and checkpoints
+    (``_check_io_and_checkpoints_match_jax``)."""
+    import importlib
+    import json
+    import struct
+    import types
+
+    import jax
+    import pytest
+
+    import fdapde_core_tpu.utils as ju
+    import fdapde_core_tpu_torch.utils as tu
+    from fdapde_core_tpu.utils import binary_tree as jbt
+    from fdapde_core_tpu.utils import block_frame as jbf
+    from fdapde_core_tpu.utils import profiling as jprof
+    from fdapde_core_tpu.utils import sanitize as jsan
+    from fdapde_core_tpu.utils import shp_reader as jshp
+    from fdapde_core_tpu_torch.utils import binary_tree as tbt
+    from fdapde_core_tpu_torch.utils import block_frame as tbf
+    from fdapde_core_tpu_torch.utils import profiling as tprof
+    from fdapde_core_tpu_torch.utils import sanitize as tsan
+    from fdapde_core_tpu_torch.utils import shp_reader as tshp
+
+    _check_io_and_checkpoints_match_jax(tmp_path)
+
+    def structures(bt, bf, shp):
+        t = bt.BinaryTree()
+        root = t.set_root("a")
+        left = t.push_left(root, "b")
+        t.push_right(root, "c")
+        t.push_left(left, "d")
+        bst = bt.BST()
+        for v in [5, 2, 8, 1, 3, 9, 4]:
+            bst.insert(v)
+        out = [list(t.dfs()), list(t.bfs()), sorted(t.leaves()), bst.sorted(), bst.contains(3),
+               bst.contains(7)]
+        frame = bf.BlockFrame()
+        frame.insert("y", np.arange(6.0))
+        frame["X"] = np.arange(12.0).reshape(6, 2)
+        frame.clear_dirty()
+        view = frame.range(1, 4)
+        view["y"] = np.zeros((3, 1))
+        sparse = frame.sparse_view([0, 5])
+        sparse["X"] = -np.ones((2, 2))
+        bv = bf.BlockVector(np.arange(12.0), 3)
+        bv[0] = [9, 9, 9]
+        out += [frame.columns(), frame.is_dirty("y"), frame["y"].tolist(), frame["X"].tolist(),
+                view.n_rows, frame.row(2).materialize().columns(), frame.rows(slice(1, 3)).n_rows,
+                bv[2].tolist(), bv.blocks(0, 2).tolist()]
+        xy, z, m = [(0.0, 0.0), (1.0, 1.0), (2.0, 0.5)], [7.0, 8.0, 9.0], [0.1, 0.2, 0.3]
+        content = struct.pack("<i4d2ii", 13, 0, 0, 2, 1, 1, 3, 0)
+        content += b"".join(struct.pack("<2d", *p) for p in xy)
+        content += struct.pack("<5d", min(z), max(z), *z) + struct.pack("<5d", min(m), max(m), *m)
+        body = struct.pack(">2i", 1, len(content) // 2) + content
+        header = struct.pack(">i5ii", 9994, 0, 0, 0, 0, 0, (100 + len(body)) // 2)
+        header += struct.pack("<2i8d", 1000, 13, 0, 0, 10, 10, 0, 0, 0, 0)
+        base = tmp_path / f"plz_{bt.__name__.split('.')[0]}"
+        base.with_suffix(".shp").write_bytes(header + body)
+        rec = shp.ShapeFile(str(base) + ".shp")
+        r0 = rec.records[0]
+        out += [rec.shape_type_name, len(rec), r0.points.tolist(), r0.z.tolist(), r0.m.tolist(),
+                r0.z_range, r0.rings()]
+        return out
+
+    assert structures(tbt, tbf, tshp) == structures(jbt, jbf, jshp)
+
+    def masked_loop(m, x):
+        for _ in range(2):
+            y = m.sqrt(x - 2.0)  # NaN in an intermediate
+            x = m.where(y == y, y, 1.0)  # masked in the output
+        return x
+
+    with pytest.raises(Exception, match="nan"):
+        jsan.checked(jax.jit(lambda x: masked_loop(jnp, x)))(jnp.float64(1.0))
+    one = torch.tensor(1.0, dtype=torch.float64)
+    assert float(masked_loop(torch, one)) == 1.0  # the output alone is finite
+    with pytest.raises(FloatingPointError, match="nan in the output of aten.sqrt"):
+        tsan.checked(lambda x: masked_loop(torch, x))(one)
+    assert float(tsan.checked(lambda x: torch.sqrt(x) + 1.0)(4 * one)) == 3.0
+    A = SparseMatrix.from_dense(np.array([[1.0, 3.0], [0.0, 2.0]]), device=CPU)
+    A = A.with_vals(torch.tensor([1.0, float("nan"), 2.0], dtype=torch.float64))
+    with pytest.raises(FloatingPointError, match="nan"):
+        tsan.checked(lambda v: torch.nan_to_num(A @ v))(torch.ones(2, dtype=torch.float64))
+    with tsan.debug_nans():
+        with pytest.raises(FloatingPointError, match="log"):
+            torch.log(-one)
+    assert torch.isnan(torch.log(-one))
+    tsan.assert_all_finite({"a": torch.ones(3), "b": np.arange(3), "c": [np.ones(2)]})
+    with pytest.raises(FloatingPointError, match="'a'"):
+        tsan.assert_all_finite({"a": torch.tensor([1.0, float("nan")])}, "state")
+    with pytest.raises(FloatingPointError, match=r"\[1\]"):
+        tsan.assert_all_finite([np.ones(2), np.array([np.inf])])
+
+    store = {}
+    for _ in range(2):
+        with tprof.timer("block", store, sync=[torch.ones(2), {"x": one}]):
+            torch.ones(100).sum()
+    assert set(store) == {"block"} and store["block"] > 0
+    assert tprof.flops_bandwidth(2.0, 4e9, 8e9) == jprof.flops_bandwidth(2.0, 4e9, 8e9)
+    with tprof.xprof_trace(str(tmp_path / "trace")):
+        torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+    traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    assert "aten::mm" in names
+
+    for name in ("DOUBLE_TOLERANCE", "MACHINE_EPSILON"):
+        assert getattr(tu, name) == getattr(ju, name), name
+    assert [tu.binomial(7, k) for k in range(8)] == [ju.binomial(7, k) for k in range(8)]
+    assert tu.factorial(9) == ju.factorial(9)
+    np.testing.assert_array_equal(tu.combinations(2, 4), ju.combinations(2, 4))
+    for a, b in zip(tu.gauss_legendre_1d(4), ju.gauss_legendre_1d(4)):
+        np.testing.assert_array_equal(a, b)
+    for q_t, q_j in ((tu.simplex_quadrature(2, 6), ju.simplex_quadrature(2, 6)),
+                     (tu.standard_fem_quadrature(3, 2), ju.standard_fem_quadrature(3, 2))):
+        assert isinstance(q_t, tu.SimplexQuadrature)
+        np.testing.assert_array_equal(q_t.nodes, q_j.nodes)
+        np.testing.assert_array_equal(q_t.weights, q_j.weights)
+    for a, b in ((1.0, 1.0 + 1e-15), (1.0, 1.0 + 1e-10), (1e10, 1e10 * (1 + 1e-15)),
+                 (np.ones(3), np.ones(3) + 1e-15), (torch.ones(3), np.ones(3) + 1e-10)):
+        assert tu.almost_equal(a, b) == ju.almost_equal(_np(a), b)
+    xs = np.array([-100.0, -37.5, -5.0, 0.0, 10.0, 20.0, 33.0, 40.0, 700.0, 1e6])
+    got = tu.log1pexp(torch.from_numpy(xs))
+    assert np.isfinite(_np(got)).all() and _rel(got, ju.log1pexp(jnp.asarray(xs))) <= 1e-12
+    if not torch.cuda.is_available():  # host input goes to the card: no fallback
+        with pytest.raises((AssertionError, RuntimeError)):
+            tu.log1pexp(xs)
+    import fdapde_core_tpu.fem as jfem
+    from fdapde_core_tpu_torch import fem as tfem
+
+    for M, R in ((1, 2), (2, 3), (3, 2)):
+        np.testing.assert_array_equal(tfem.reference_nodes(M, R), jfem.reference_nodes(M, R))
+        assert tfem.LagrangeBasis(M, R).n_basis == jfem.LagrangeBasis(M, R).n_basis
+        for a, b in zip(tfem.tabulate_basis(M, R)[1:], jfem.tabulate_basis(M, R)[1:]):
+            np.testing.assert_array_equal(a, b)
+    for name, make in (("Laplacian", lambda m: m.laplacian()), ("Diffusion", lambda m: m.diffusion(1.0)),
+                       ("Advection", lambda m: m.advection(np.ones(2))),
+                       ("Reaction", lambda m: m.reaction(1.0)), ("Dt", lambda m: m.dt()),
+                       ("BiLaplacian", lambda m: m.bilaplacian())):
+        (_, leaf_t), = make(fdt).terms
+        (_, leaf_j), = make(fdm).terms
+        assert type(leaf_t) is getattr(fdt.pde, name) and type(leaf_j) is getattr(fdm.pde, name)
+        assert leaf_t.is_symmetric == leaf_j.is_symmetric, name
+
+    import fdapde_core_tpu as jtop
+
+    def public(mod):
+        return getattr(mod, "__all__", None) or [n for n in dir(mod) if not n.startswith("_")]
+
+    missing = {n for n in public(jtop) if not hasattr(fdt, n)}
+    for sub in ("fem", "fields", "geometry", "linear_algebra", "models", "native", "ops",
+                "optimization", "pde", "splines", "utils"):
+        jm, tm = importlib.import_module(f"fdapde_core_tpu.{sub}"), getattr(fdt, sub)
+        for n in public(jm):
+            attr = getattr(jm, n)
+            if isinstance(attr, types.ModuleType) and not attr.__name__.startswith("fdapde_core_tpu."):
+                continue  # a third-party module the JAX package imported
+            if not hasattr(tm, n):
+                missing.add(f"{sub}.{n}")
+    assert missing == {"parallel", "models.ShardedPoisson", "models.solve_elliptic_sharded",
+                       "ops.WindowedELL"}, sorted(missing)
+
+
+def test_regression_path_matches_jax(tmp_path):
     """Point location, Psi, SmoothingRegression (fit, predict, exact and
     Hutchinson GCV, select_lambda_gcv), a fitted JAX model carried across,
     SMW / dense_solve, the K2 block route, and the B-spline space,
-    assembly and PDE, each against the JAX package."""
+    assembly and PDE, each against the JAX package; the utils: io,
+    checkpoints both ways, the host structures, sanitize, profiling and
+    the public names (``_check_utils_match_jax``)."""
     rng = np.random.default_rng(0)
     n_obs = 600
     mj, mt = j_unit_square(16), unit_square_mesh(16)
@@ -171,6 +467,7 @@ def test_regression_path_matches_jax():
         sols.append(_np(Phi @ pde.solution()))
     np.testing.assert_allclose(sols[1], np.linspace(0, 1, 33), atol=1e-8)
     assert _rel(sols[1], sols[0]) <= 1e-10
+    _check_utils_match_jax(tmp_path)
 
 
 def test_space_time_matches_jax():
