@@ -151,7 +151,8 @@ Phases (each raises on failure; nothing is caught):
     (~h^2), 5 steps at rtol 1e-9, chunked == unchunked bitwise; the
     aux-grid route on the scrambled relabelling of that mesh at dt = 1e-3,
     equal to the banded route's trajectory at that dt, relabelled, and one
-    aux-grid step at dt = 1e-7 from u0, converged within 1500 iterations; at
+    aux-grid step from u0 on the scrambled n = 800 mesh at dt = 1.6e-6 (dt /
+    h^2 as at n = 3200 and 1e-7), converged within 1500 iterations; at
     n = 64 the banded trajectory equals solve_parabolic(lumped=True) to
     1e-10;
 24. (after 23) bench.py's genp2 through the model API: FEMSpace(order=2)
@@ -252,7 +253,8 @@ Phases (each raises on failure; nothing is caught):
     utils.profiling.timer(sync=) reading at least the CUDA-event time of
     the same solve; K2 on the network's stiffness (k2_table); at
     NX_NETWORK_SMALL JAX's rung and iterations within 10 % of
-    NETWORK_JAX_RUNG; (b) Interval(0, 1, 2^17) P1 and P2 through the
+    NETWORK_JAX_RUNG; (b) Interval(0, 1, 2^17) P1 and (since PR 12)
+    Interval(0, 1, 2^15) P2 through the
     default ladder: the aux grid's build raises on 1-column coordinates and
     SA-AMG converges without recovery, P1's error <= 1e-11 and iterations
     within 10 % of INTERVAL_JAX_RUNG; u = x on unit_interval_mesh(2^17) to
@@ -268,7 +270,28 @@ Phases (each raises on failure; nothing is caught):
     assert_all_finite over the phase's solutions, sanitize.checked raising
     on a masked NaN and on one out of K2 and passing clean code, and an
     xprof_trace of a network solve whose CUDA kernels include K2's.
-    Phases 20-31 print their seconds and K2 / K6 launches by path.
+    Phases 20-31 print their seconds and K2 / K6 launches by path;
+32. the multi-device layer (parallel/) in a one-rank NCCL group
+    (init_world: HashStore, rank 0 of 1, cuda:0; every psum and all_gather
+    an NCCL launch): the collectives timed against no group;
+    ShardedPoisson on phase 12's mesh (segment, ell: Jacobi at 1e-10
+    against solve_elliptic's Jacobi CG; auxgrid at 1e-12 against phase
+    12's PDE); solve_elliptic_sharded (halo_dia) and HaloGridDIASolver at
+    1e-8 on unit_square_mesh(N_DIA) against phase 16, HaloDIAParabolic
+    over PARA_STEPS steps against solve_parabolic; P2 on
+    unit_square_mesh(N_SHARDED_P2) after RCM (K and H before and after)
+    against solve_elliptic; ShardedGridMG on the n = N_MAIN operator from
+    K1 (f64) against phase 4 (<= 15 iterations); HaloELLSolver on
+    irregular_mesh_device_soa(N_HALO_ELL) against Jacobi CG on K2;
+    ShardedBandedMGSolver on gen10m's folded split against phase 22;
+    HaloLaneSolver with the distributed aux grid on genscat against phase
+    8 (iterations within 2x + 2 of its inner ones); ShardedSpaceTime on
+    phase 19's fit operator, solve_space_time_fdm(device_mesh=) against
+    phase 19's FDM (bitwise); dryrun_multichip at N = 1 (12 paths). Each
+    solution is held to 2 kappa rtol max|x| of its single-device twin
+    (kappa = 4 n^2 / pi^2, see kappa_p1) and its iterations to 10 %; K7 on
+    the halo-padded table and K2 on the halo-extended one against their
+    plain versions (per-row bound), timed; K2, K6 and K7 launches by path.
 
 Prints one JSON line of per-kernel results (each with its bound on the
 card from this run's shapes: bytes over 3.35 TB/s or operations over the
@@ -277,7 +300,8 @@ ELL of phase 7, with the sliced form on phase 18's Psi^T under "sliced",
 the 3D ELL of phase 26 under "ell_3d", the 3D aux grid's P and P^T of
 phase 27 under "aux_3d", the launches of its backward in phases 28-30
 under "launches_backward" and phase 30's backward product under
-"backward"),
+"backward"; K2, K6 and K7 carry phase 32's launches by path under
+"launches_sharded", K2 and K7 their halo forms under "halo"),
 then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device or
 without the package beside it.
@@ -325,8 +349,15 @@ N_GEN1M = 1024  # phase 22's advection-diffusion mesh (bench.py:1417-1447): 1,05
 CG_RATE_ITERS = 40  # phase 22's Jacobi CG rate runs (bench.py's ITERS)
 DT_MF, N_STEPS_MF = 1e-7, 5  # phase 23: dt ~ h^2 at n = 3200
 DT_AUX = 1e-3  # phase 23's aux-grid route, where A dominates M / dt
-# phase 23's one aux-grid step at DT_MF: its iterations grow with n at
-# dt ~ h^2 (the grid stencil is the unshifted Laplacian, as in JAX)
+# phase 23's one aux-grid step at dt ~ h^2: its iterations grow with n
+# (the grid stencil is the unshifted Laplacian, as in JAX). At n = 3200 and
+# DT_MF it took 1,114 iterations in 85.1 s, at n = 1600 and 4e-7 750 in
+# 45.4 s (~60-76 ms an iteration; NVIDIA H100 80GB HBM3, 700 W, the whole
+# script); since PR 12 it runs on the scrambled n = N_AUX_H2 mesh at the
+# same dt / h^2, to keep the script near half its time limit with the
+# multi-device phase 32 added
+N_AUX_H2 = 800
+DT_AUX_H2 = DT_MF * (N_MAIN / N_AUX_H2) ** 2
 AUX_H2_MAXITER = 1500
 P2_DOFS = 2_076_481  # phase 24: FEMSpace(order=2) on phase 12's mesh (bench.py's genp2)
 P2_MAX_DEGREE = 16
@@ -387,6 +418,10 @@ NETWORK_JAX_RUNG = ("auxgrid", 168)
 # dofs), a fault of the reference that the port reproduces (the port's
 # ladder on the CPU: 1,075 iterations, error 2.4e-12)
 N_INTERVAL = 2 ** 17
+# 1D P2 at 2^17 cells took 3,225 iterations in 21.2-28.9 s (NVIDIA H100
+# 80GB HBM3, 700 W; PR 11); since PR 12 it runs at 2^15, where phase 32 took
+# that time
+N_INTERVAL_P2 = 2 ** 15
 INTERVAL_JAX_RUNG = ("amg", 1089)
 N_IO_MESH = 256  # (d): delaunay_mesh(256), 66,049 dofs
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the vector (non-tensor
@@ -569,6 +604,7 @@ def phase_main_path(ak, gs, StructuredPoisson):
     check(rel.item() <= 1e-8 and rel_check <= 1e-8, "MG-CG did not reach 1e-8")
     check(k <= 15, f"MG-CG took {k} > 15 iterations")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    TWINS["structured"] = (x.cpu(), k)
     return model, launches
 
 
@@ -834,6 +870,7 @@ def phase_general_main_path(ak, gs):
     check(rel <= 1e-8 and rel_check <= 1e-8, "lane refined solve did not reach 1e-8")
     check(its <= 150, f"lane refined solve took {its} > 150 inner iterations")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    TWINS["genscat"] = (xs.cpu(), its)
     return launches
 
 
@@ -1072,6 +1109,7 @@ def phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh):
 
     # where the time goes: one warm solve under the profiler
     profiled("warm solve", pde.solve)
+    TWINS["general"] = (x.cpu(), info.iterations, pde.force().cpu())
     return pde, k6_launches, (x, t_solve, info.iterations)
 
 
@@ -1229,6 +1267,7 @@ def phase_dia_main_path(ak, gs, ds, ls):
     log(f"DIA path harmonic: max|x - g| = {err:.3e} ({infoh.iterations} iterations, "
         f"V-cycle preconditioner, {t_h:.4f} s)")
     check(infoh.converged and err < 1e-9, "harmonic data not reproduced to 1e-9 on the DIA path")
+    TWINS["dia"] = (x.cpu(), info.iterations)
     return D, k7
 
 
@@ -1574,6 +1613,8 @@ def phase_space_time(ak, gs, ls):
         f"{info_fdm.converged}; ||x_fdm - x_cg|| / ||x_cg|| = {rel:.3e}")
     check(info_cg.converged and info_fdm.converged, "a pencil solve did not converge")
     check(rel <= 1e-8, f"FDM and Kronecker CG differ by {rel:.3e} > 1e-8")
+    TWINS["space_time"] = dict(model=model, b=b, C=C.cpu(), its=info.iterations, T1=T1, S1=S1,
+                               x_fdm=x_fdm.cpu(), its_fdm=info_fdm.iterations)
     return k2, k6
 
 
@@ -1812,6 +1853,7 @@ def phase_banded(ak, gs):
     b = model.load_vector(torch.ones(cells.shape[0], dtype=torch.float64, device=DEVICE))
     (x, its, rel), t_solve = synced_seconds(lambda: model.solve(b, rtol=1e-9, maxiter=100))
     out["banded Poisson"] = gs.ell_spmv_launches
+    TWINS["gen10m"] = (x.cpu(), its)
     (x2, its2, _), t_solve2 = synced_seconds(lambda: model.solve(b, rtol=1e-9, maxiter=100))
     R, W = S.G.shape2d
     amax = max(abs(a) for a, _ in S.G.offsets2d)
@@ -1970,10 +2012,13 @@ def phase_matfree_parabolic(ak, gs, ls, lattice):
     check(diff <= 1e-7 * u_lat.abs().max().item(), "the aux-grid and banded routes disagree")
     # one aux-grid step at dt ~ h^2, from u0, held to converge within
     # AUX_H2_MAXITER iterations
+    del x, y, cells, bnd
+    torch.cuda.empty_cache()
+    x, y, cells, bnd = scrambled_mesh(N_AUX_H2, *SCRAMBLE)
     nodes_s = torch.stack([x, y], 1)
-    name = f"aux grid, scrambled n={N_MAIN}, dt={DT_MF:g}, one step"
+    name = f"aux grid, scrambled n={N_AUX_H2}, dt={DT_AUX_H2:g}, one step"
     zero_launch_counts(ak, gs)
-    model = MatrixFreeParabolic(nodes_s, cells, bnd, DT_MF, device=DEVICE)
+    model = MatrixFreeParabolic(nodes_s, cells, bnd, DT_AUX_H2, device=DEVICE)
     u0 = torch.sin(np.pi * x) * torch.sin(np.pi * y)
     (_, its, rel), t = synced_seconds(lambda: model.step(u0, rtol=1e-9, maxiter=AUX_H2_MAXITER))
     out[name] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
@@ -1981,7 +2026,7 @@ def phase_matfree_parabolic(ak, gs, ls, lattice):
         f"iterations (held to {AUX_H2_MAXITER}) in {t:.4f} s ({1e3 * t / max(int(its), 1):.1f} ms "
         f"an iteration), true rel residual {float(rel):.3e}; K2 launches {out[name][0]}")
     check(model.preconditioner == "auxgrid" and float(rel) <= 1e-9,
-          f"the aux-grid step at dt={DT_MF:g} did not reach 1e-9 in {AUX_H2_MAXITER} iterations")
+          f"the aux-grid step at dt={DT_AUX_H2:g} did not reach 1e-9 in {AUX_H2_MAXITER} iterations")
     del x, y, nodes_s, cells, bnd, u_lat, u_scr, model, u0
     torch.cuda.empty_cache()
 
@@ -3007,7 +3052,7 @@ def phase_network(ak, gs, ls, scratch):
 
 
 def phase_interval(ak, gs, ls):
-    """31b: 1D at N_INTERVAL cells, P1 and P2, -u'' = pi^2 sin(pi x), g = 0,
+    """31b: 1D P1 at N_INTERVAL cells and P2 at N_INTERVAL_P2, -u'' = pi^2 sin(pi x), g = 0,
     the default ladder: the aux grid's build raises on 1-column
     coordinates and SA-AMG solves, as in JAX; u = x on unit_interval_mesh.
     Returns ({path: (K2, K6)}, the solutions)."""
@@ -3015,9 +3060,9 @@ def phase_interval(ak, gs, ls):
     from fdapde_core_tpu_torch.geometry import unit_interval_mesh
 
     out, solutions = {}, []
-    for order in (1, 2):
+    for order, n_cells in ((1, N_INTERVAL), (2, N_INTERVAL_P2)):
         zero_launch_counts(ak, gs)
-        pde, t_space = synced_seconds(lambda: fdt.PDE(fdt.Interval(0.0, 1.0, N_INTERVAL),
+        pde, t_space = synced_seconds(lambda: fdt.PDE(fdt.Interval(0.0, 1.0, n_cells),
                                                       -fdt.laplacian(), order=order, device=DEVICE))
         q = pde.quadrature_nodes()
         pde.set_forcing(np.pi ** 2 * np.sin(np.pi * q[:, 0]))
@@ -3028,7 +3073,7 @@ def phase_interval(ak, gs, ls):
         err = (x - torch.as_tensor(np.sin(np.pi * pde.dof_coords()[:, 0]), device=DEVICE)).abs().max().item()
         out[f"1D P{order}"] = (gs.ell_spmv_launches, ls.p1_stiffness_2d_launches)
         mg = amg_b[0][0] if amg_b else None
-        log(f"31b Interval(0, 1, {N_INTERVAL}) P{order} ({pde.n_dofs} dofs): space {t_space:.4f} s, "
+        log(f"31b Interval(0, 1, {n_cells}) P{order} ({pde.n_dofs} dofs): space {t_space:.4f} s, "
             f"init {t_init:.4f} s; rung {rung} (aux grid raised {[type(e).__name__ for e in failed]}; "
             f"AMG set-up {amg_b[0][1] if amg_b else 0:.4f} s, levels {mg.level_sizes() if mg else None}), "
             f"{its} iterations, converged {pde.success}, recovery taken {recovered}, solve "
@@ -3236,6 +3281,451 @@ def phase_slice11(ak, gs, ls, pts, cells, bnd, amg_run):
     return out
 
 
+# phase 32: the multi-device layer in a one-rank NCCL group. Solutions of
+# earlier phases, kept on the host for phase 32's comparisons
+TWINS = {}
+N_SHARDED_P2 = 128  # RCM + HaloDIASolver on P2: 66,049 dofs, 1,035 offsets after RCM (CPU check)
+N_HALO_ELL = 1024  # HaloELLSolver on irregular_mesh_device_soa(1024, 0.2): 1,050,625 dofs
+PARA_STEPS, PARA_DT = 8, 1e-3  # HaloDIAParabolic on unit_square_mesh(N_DIA)
+
+
+def kappa_p1(n):
+    """4 n^2 / pi^2: the condition number of the P1 Laplacian with n cells a
+    side. Two solves that each stop at rtol differ by at most 2 kappa rtol
+    max|x| (each lies within kappa rtol |x| of the exact solution)."""
+    return 4.0 * n * n / np.pi ** 2
+
+
+def counted(ak, gs, fn):
+    """fn() with every launch count zeroed just before; returns (out,
+    seconds, {K1, K2, K6, K7: launches}) read just after."""
+    from fdapde_core_tpu_torch.ops import dia_spmv as ds
+    from fdapde_core_tpu_torch.ops import local_stiffness as ls
+
+    zero_launch_counts(ak, gs)
+    out, t = synced_seconds(fn)
+    return out, t, {"K1": ak.p1_stencil_launches, "K2": gs.ell_spmv_launches,
+                    "K6": ls.p1_stiffness_2d_launches, "K7": ds.dia_spmv_launches}
+
+
+def hold(name, x, twin, k, k_twin, tol, launches, t, rel=None):
+    """A sharded solution against its single-device twin: max|x - twin| <=
+    tol, iterations within 10 % (at least 1); logs and returns the row."""
+    d = (x.detach().double().cpu() - twin.double().cpu()).abs().max().item()
+    ks = list(k) if isinstance(k, (list, tuple)) else [k]
+    kt = list(k_twin) if isinstance(k_twin, (list, tuple)) else [k_twin]
+    log(f"32 {name}: {t:.4f} s, iterations {k} (single device {k_twin}), max|x - x_1dev| = "
+        f"{d:.3e} (tol {tol:.3e})" + ("" if rel is None else f", true rel residual (f64) {rel:.3e}")
+        + f"; launches {launches}")
+    check(bool(torch.isfinite(x).all()), f"{name}: non-finite solution")
+    check(d <= tol, f"{name}: max|x - x_1dev| = {d:.3e} > {tol:.3e}")
+    check(all(abs(a - b) <= max(1, 0.1 * b) for a, b in zip(ks, kt)),
+          f"{name}: iterations {k} against {k_twin} (not within 10 %)")
+    return dict(seconds=t, iterations=k, twin_iterations=k_twin, max_diff=d, tol=tol, **launches)
+
+
+def masked_rel_residual(A, mask, x, b_mod):
+    """||b~ - A~ x|| / ||b~|| of the masked system through the plain f64
+    product of a SparseMatrix."""
+    free = (~mask).to(torch.float64)
+    Ax = A.matmul_reference(x * free) * free + x * (~free.bool())
+    return (torch.linalg.norm(b_mod - Ax) / torch.linalg.norm(b_mod)).item()
+
+
+def nccl_costs(mesh, n_vec):
+    """CUDA-event times of the three collectives in the one-rank group
+    against a world of one without a group (no collective)."""
+    from fdapde_core_tpu_torch.parallel import ShardMesh
+
+    bare = ShardMesh(None, mesh.device)
+    two = torch.zeros(2, dtype=torch.float64, device=DEVICE)
+    vec = torch.zeros(n_vec, dtype=torch.float64, device=DEVICE)
+    out = {}
+    for name, fn in (("psum 2 f64", lambda m: m.psum(two)),
+                     (f"psum {n_vec} f64", lambda m: m.psum(vec)),
+                     (f"all_gather {n_vec} f64", lambda m: m.all_gather(vec))):
+        out[name] = (time_ms(lambda: fn(mesh), 200), time_ms(lambda: fn(bare), 200))
+    log("32 NCCL in a world of one (CUDA events, ms a call, group / no group): " + "; ".join(
+        f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in out.items()))
+    return {k: a for k, (a, _) in out.items()}
+
+
+def halo_kernel_checks(gs, ds, dia_solver, ell_solver):
+    """K7 on the halo-padded (K, block + 2H) table and K2 on the (K, block)
+    table over the (block + 2H) halo-extended vector, each against its
+    plain version on the card (per-row bound K eps sum|a x|), both timed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 32)
+    eps = torch.finfo(torch.float64).eps
+    out = {}
+    D, offs = dia_solver.data, dia_solver._offsets_dev
+    x = torch.rand(D.shape[1], generator=gen, dtype=torch.float64, device=DEVICE) - 0.5
+    got, ref = ds.dia_spmv(D, offs, x), ds.dia_spmv_reference(D, offs, x)
+    bound = D.shape[0] * eps * ds.dia_spmv_reference(D.abs(), offs, x.abs())
+    err = (got - ref).abs()
+    check(bool((err <= bound).all()), "K7 on the halo-padded table disagrees with its plain version")
+    ms, plain_ms = time_ms(lambda: ds.dia_spmv(D, offs, x), 50), time_ms(
+        lambda: ds.dia_spmv_reference(D, offs, x), 5)
+    out["K7 halo"] = dict(table=tuple(D.shape), max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                          **least_time(D.numel() * 8 + 2 * x.numel() * 8, 2 * D.numel(), torch.float64))
+    V, C = ell_solver.vals, ell_solver.lcols
+    x = torch.rand(V.shape[1] + 2 * ell_solver.H, generator=gen, dtype=torch.float64,
+                   device=DEVICE) - 0.5
+    got, ref = gs.ell_spmv(V, C, x), gs.ell_spmv_reference(V, C, x)
+    bound = V.shape[0] * eps * gs.ell_spmv_reference(V.abs(), C, x.abs())
+    err = (got - ref).abs()
+    check(bool((err <= bound).all()), "K2 on the halo-extended table disagrees with its plain version")
+    ms, plain_ms = time_ms(lambda: gs.ell_spmv(V, C, x), 50), time_ms(
+        lambda: gs.ell_spmv_reference(V, C, x), 5)
+    out["K2 halo"] = dict(table=f"{tuple(V.shape)} over {x.numel()}", max_abs_err=err.max().item(),
+                          ms=ms, plain_ms=plain_ms, **least_time(
+                              V.numel() * 12 + (V.shape[1] + x.numel()) * 8, 2 * V.numel(),
+                              torch.float64))
+    for k, v in out.items():
+        log(f"32 {k} {v['table']}: max|kernel - plain| {v['max_abs_err']:.3e} (within the per-row "
+            f"bound), kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
+            f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
+    return out
+
+
+def sharded_poisson_paths(ak, gs, mesh, pts, cells, bnd):
+    """ShardedPoisson on phase 12's mesh: segment and ell (Jacobi, against
+    solve_elliptic's Jacobi CG at the same rtol) and the aux grid (against
+    phase 12's PDE, rtol 1e-12)."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import assemble_matrix, solve_elliptic
+    from fdapde_core_tpu_torch.parallel import ShardedPoisson
+
+    x12, k12, F = TWINS["general"]
+    tri = fdt.Triangulation(pts, cells, bnd)
+    F = F.to(DEVICE)
+    g = torch.zeros_like(F)
+    rows, twin = {}, None
+    for name, rtol, opts in (("segment", 1e-10, {}), ("ell", 1e-10, {"spmv": "ell"}),
+                             ("auxgrid", 1e-12, {"preconditioner": "auxgrid"})):
+        sp = ShardedPoisson(tri, 1, mesh, **opts)
+        if twin is None:  # the single-device Jacobi CG on the same system
+            A = assemble_matrix(sp.space, -fdt.laplacian(), device=DEVICE)
+            mask = torch.as_tensor(sp.space.boundary_dofs, device=DEVICE)
+            (xj, info), t_twin = synced_seconds(lambda: solve_elliptic(A, F, mask, g, rtol=1e-10,
+                                                                      maxiter=20000))
+            twin = (xj.cpu(), info.iterations)
+            log(f"32 single-device Jacobi CG at 1e-10 on phase 12's system: {info.iterations} "
+                f"iterations in {t_twin:.4f} s")
+        (x, res, k), t, launches = counted(ak, gs, lambda: sp.solve(F, g, rtol=rtol, maxiter=20000))
+        ref, kref = (x12, k12) if name == "auxgrid" else twin
+        rel = masked_rel_residual(A, mask, x, F * (~mask))
+        rows[f"ShardedPoisson {name}"] = hold(
+            f"ShardedPoisson {name} ({sp.n_dofs} dofs, rtol {rtol:g})", x, ref, k, kref,
+            2 * kappa_p1(NX_PDE) * rtol * ref.abs().max().item(), launches, t, rel)
+        # the true residual drifts from CG's recurrence one to the rounding
+        # floor (4.7e-11 here, PERF.md section 2): held to 1e-10 as phase 12
+        check(launches["K6"] >= 1 and rel <= max(10 * rtol, 1e-10),
+              f"ShardedPoisson {name}: K6 launches / true residual {rel:.3e}")
+    return rows
+
+
+def dia_paths(ak, gs, mesh):
+    """solve_elliptic_sharded (halo_dia) and HaloDIAParabolic on
+    unit_square_mesh(N_DIA), HaloGridDIASolver on its grid; returns (rows,
+    the HaloDIASolver for the kernel check)."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import FEMSpace, assemble_dia, assemble_forcing, assemble_matrix
+    from fdapde_core_tpu_torch.fem.solvers import solve_parabolic
+    from fdapde_core_tpu_torch.geometry import unit_square_mesh
+    from fdapde_core_tpu_torch.linear_algebra import prune_zero_offsets
+    from fdapde_core_tpu_torch.linear_algebra.dia import dia_from_coo, unique_offsets
+    from fdapde_core_tpu_torch.models import solve_elliptic_sharded
+    from fdapde_core_tpu_torch.ops.grid_dia import GridDIAMatrix
+    from fdapde_core_tpu_torch.parallel import (HaloDIAParabolic, HaloDIASolver, HaloGridDIASolver,
+                                                ShardMesh)
+
+    x16, k16 = TWINS["dia"]
+    rows = {}
+    usm = unit_square_mesh(N_DIA)
+    space = FEMSpace(usm, 1)
+    q = space.quadrature_nodes
+    f = 2 * np.pi ** 2 * np.sin(np.pi * q[:, 0]) * np.sin(np.pi * q[:, 1])
+    (x, info), t, launches = counted(ak, gs, lambda: solve_elliptic_sharded(
+        usm, -fdt.laplacian(), f, np.zeros(space.n_dofs), device_mesh=mesh, rtol=1e-8,
+        maxiter=20000))
+    check(info["strategy"] == "halo_dia", f"the driver took {info['strategy']}")
+    rows["solve_elliptic_sharded"] = hold(
+        f"solve_elliptic_sharded halo_dia ({info['n_dofs']} dofs, {info['n_offsets']} offsets, "
+        f"rtol 1e-8)", x, x16, info["iterations"], k16, 2 * kappa_p1(N_DIA) * 1e-8 * x16.abs().max().item(),
+        launches, t)
+    check(launches["K7"] >= info["iterations"] and launches["K6"] >= 1, "driver: K7 / K6 launches")
+
+    # the cost of the one-rank group: the same system through HaloDIASolver
+    # with the group and with no group (no collective)
+    D = prune_zero_offsets(assemble_dia(space, -fdt.laplacian(), device=DEVICE))
+    mask = torch.as_tensor(space.boundary_dofs, device=DEVICE)
+    free = (~mask).to(torch.float64)
+    b_mod = assemble_forcing(space, f, device=DEVICE) * free
+    per_it = {}
+    for tag, m in (("NCCL group", mesh), ("no group", ShardMesh(None, mesh.device))):
+        solver = HaloDIASolver(D, m)
+        solver.solve(b_mod, free, rtol=1e-8, maxiter=50)  # warm
+        (xw, _, kw), t = synced_seconds(lambda: solver.solve(b_mod, free, rtol=1e-8, maxiter=20000))
+        per_it[tag] = (kw, t, 1e3 * t / kw)
+    log("32 world of one, HaloDIASolver on the driver's system (K7, Jacobi, 1e-8): " + "; ".join(
+        f"{tag} {kw} iterations in {t:.4f} s ({ms:.4f} ms an iteration)"
+        for tag, (kw, t, ms) in per_it.items()))
+    rows["world of one"] = dict(group_ms_per_iteration=per_it["NCCL group"][2],
+                                no_group_ms_per_iteration=per_it["no group"][2])
+    check(per_it["NCCL group"][0] == per_it["no group"][0], "the group changed the iterations")
+
+    # the grid form of the same system (Jacobi CG, rtol 1e-8), against phase 16
+    G = GridDIAMatrix.from_dia(D, (N_DIA + 1, N_DIA + 1))
+    solver = HaloGridDIASolver(G, free, mesh)
+    (xg, _, kg), t, launches = counted(ak, gs, lambda: solver.solve(b_mod, rtol=1e-8, maxiter=20000))
+    rows["HaloGridDIASolver"] = hold(f"HaloGridDIASolver n={N_DIA} (rtol 1e-8)", xg, x16, kg, k16,
+                                     2 * kappa_p1(N_DIA) * 1e-8 * x16.abs().max().item(), launches, t)
+    del G, solver
+
+    # implicit Euler, 8 steps from sin(pi x) sin(pi y), against solve_parabolic
+    A = assemble_matrix(space, -fdt.laplacian(), device=DEVICE)
+    M = assemble_matrix(space, fdt.reaction(1.0), device=DEVICE)
+    rows_, cols_, _ = space.scatter
+    offs = unique_offsets(space.dofs)
+    Ad = dia_from_coo(rows_, cols_, A.vals, space.n_dofs, offs)
+    Md = dia_from_coo(rows_, cols_, M.vals, space.n_dofs, offs)
+    c = torch.as_tensor(space.dof_coords, device=DEVICE)
+    u0 = torch.sin(np.pi * c[:, 0]) * torch.sin(np.pi * c[:, 1])
+    times = np.arange(PARA_STEPS + 1) * PARA_DT
+    zeros = torch.zeros((space.n_dofs, PARA_STEPS + 1), dtype=torch.float64, device=DEVICE)
+    (U, pinfo), t_twin = synced_seconds(lambda: solve_parabolic(
+        A, M, zeros, mask, zeros, u0, times, rtol=1e-10, return_info=True))
+    para = HaloDIAParabolic(Ad, Md, PARA_DT, mesh)
+    us, t, launches = counted(ak, gs, lambda: para.solve(zeros[:, 1:], zeros[:, 1:], u0, free,
+                                                         rtol=1e-10))
+    log(f"32 solve_parabolic twin: {t_twin:.4f} s, steps' iterations {pinfo['iterations'].tolist()}")
+    # each step's error is within kappa(K) rtol, K = M/dt + A far better
+    # conditioned than A; hold the trajectory to 2 kappa(A) rtol, an upper bound
+    rows["HaloDIAParabolic"] = hold(
+        f"HaloDIAParabolic {PARA_STEPS} steps dt {PARA_DT:g} (rtol 1e-10)", us, U[:, 1:].cpu(),
+        para.step_iterations, pinfo["iterations"].tolist(),
+        2 * kappa_p1(N_DIA) * 1e-10 * U.abs().max().item(), launches, t)
+    check(launches["K7"] > 0, "HaloDIAParabolic never launched K7")
+    return rows, HaloDIASolver(D, mesh)
+
+
+def rcm_p2_path(ak, gs, mesh):
+    """P2 on unit_square_mesh(N_SHARDED_P2): RCM, then HaloDIASolver against
+    solve_elliptic on the unpermuted system."""
+    import fdapde_core_tpu_torch as fdt
+    from fdapde_core_tpu_torch.fem import FEMSpace, assemble_forcing, assemble_matrix, solve_elliptic
+    from fdapde_core_tpu_torch.fem.solvers import DirichletSystem
+    from fdapde_core_tpu_torch.geometry import unit_square_mesh
+    from fdapde_core_tpu_torch.linear_algebra.dia import dia_from_coo, unique_offsets
+    from fdapde_core_tpu_torch.parallel import HaloDIASolver
+    from fdapde_core_tpu_torch.parallel.reorder import permute_system, rcm_permutation
+
+    space = FEMSpace(unit_square_mesh(N_SHARDED_P2), 2)
+    n = space.n_dofs
+    A = assemble_matrix(space, -fdt.laplacian(), device=DEVICE)
+    F = assemble_forcing(space, lambda p: 4.0, device=DEVICE)
+    xy = torch.as_tensor(space.dof_coords, device=DEVICE)
+    g = 1 - xy[:, 0] ** 2 - xy[:, 1] ** 2
+    mask = torch.as_tensor(space.boundary_dofs, device=DEVICE)
+    (xt, info), t_twin = synced_seconds(lambda: solve_elliptic(A, F, mask, g, rtol=1e-10,
+                                                               maxiter=20000))
+    rows_, cols_, _ = space.scatter
+    (perm, inv), t_rcm = synced_seconds(lambda: rcm_permutation(rows_, cols_, n))
+    o_raw, offs = unique_offsets(space.dofs), unique_offsets(inv[space.dofs])
+    log(f"32 RCM on P2 unit_square_mesh({N_SHARDED_P2}) ({n} dofs) in {t_rcm:.4f} s: K {len(o_raw)} "
+        f"-> {len(offs)} offsets, H {max(map(abs, o_raw))} -> {max(map(abs, offs))}; single-device "
+        f"Jacobi CG {info.iterations} iterations in {t_twin:.4f} s")
+    rp, cp = permute_system(perm, inv, rows_, cols_)
+    D = dia_from_coo(rp, cp, A.vals, n, offs)
+    b_mod = DirichletSystem(A, mask).rhs(F, g)
+    pt = torch.as_tensor(perm, device=DEVICE)
+    solver = HaloDIASolver(D, mesh)
+    (xp, _, k), t, launches = counted(ak, gs, lambda: solver.solve(
+        b_mod[pt], (~mask).to(torch.float64)[pt], rtol=1e-10, maxiter=20000))
+    x = xp[torch.as_tensor(inv, device=DEVICE)]
+    return {"RCM P2 HaloDIASolver": hold(
+        f"RCM P2 HaloDIASolver ({len(offs)} x {n} DIA, rtol 1e-10)", x, xt.cpu(), k, info.iterations,
+        2 * kappa_p1(2 * N_SHARDED_P2) * 1e-10 * xt.abs().max().item(), launches, t)}
+
+
+def structured_mg_path(ak, gs, mesh):
+    """ShardedGridMG on the n = N_MAIN operator from K1 (as phase 4), f64,
+    against phase 4's MG-CG."""
+    from fdapde_core_tpu_torch.models import StructuredPoisson
+    from fdapde_core_tpu_torch.ops.grid_dia import GridDIAMatrix
+    from fdapde_core_tpu_torch.parallel.mg import ShardedGridMG
+
+    x4, k4 = TWINS["structured"]
+
+    def run():
+        model = StructuredPoisson(N_MAIN, dtype=torch.float32, device=DEVICE)
+        G = model.operator()
+        smg = ShardedGridMG(GridDIAMatrix(G.data.double(), G.offsets2d, G.shape2d), mesh)
+        return smg, smg.solve(model.rhs().double(), rtol=1e-9, maxiter=60)
+
+    (smg, (x, rel, k)), t, launches = counted(ak, gs, run)
+    check(k <= 15 and rel.item() <= 1e-9 and launches["K1"] >= 1,
+          f"ShardedGridMG: {k} iterations, rel {rel.item():.3e}, K1 {launches['K1']}")
+    log(f"32 ShardedGridMG levels {smg.shapes}, sharded {smg.T} ({smg.blocks} rows), tail "
+        f"{smg.tail.shapes}")
+    return {"ShardedGridMG": hold(f"ShardedGridMG n={N_MAIN} ({x.numel()} dofs, rtol 1e-9)", x, x4,
+                                  k, k4, 2 * kappa_p1(N_MAIN) * 1e-9 * x4.abs().max().item(),
+                                  launches, t)}
+
+
+def halo_ell_path(ak, gs, mesh):
+    """HaloELLSolver on irregular_mesh_device_soa(N_HALO_ELL) f64 against the
+    single-device Jacobi CG on K2; returns (rows, the solver)."""
+    from fdapde_core_tpu_torch.fem.solvers import DirichletSystem
+    from fdapde_core_tpu_torch.geometry import irregular_mesh_device_soa
+    from fdapde_core_tpu_torch.linear_algebra import cg, jacobi_preconditioner
+    from fdapde_core_tpu_torch.ops.matfree_soa import MatrixFreeSoA
+    from fdapde_core_tpu_torch.parallel import HaloELLSolver
+
+    x, y, c0, c1, c2, bnd = irregular_mesh_device_soa(N_HALO_ELL, 0.2, dtype=torch.float64,
+                                                      device=DEVICE)
+    op, _ = MatrixFreeSoA.build(x, y, c0, c1, c2, x.shape[0], 8)
+    E, _ = op.to_ell(9)
+    del op
+    b = torch.where(bnd, 0.0, 1.0).to(torch.float64) / N_HALO_ELL ** 2
+    sys_ = DirichletSystem(E, bnd)
+    (xt, info), t_twin = synced_seconds(lambda: cg(sys_, b, M_inv=jacobi_preconditioner(
+        sys_.diagonal()), rtol=1e-8, maxiter=20000))
+    log(f"32 single-device Jacobi CG on K2 ({E.vals.shape}): {info.iterations} iterations in "
+        f"{t_twin:.4f} s")
+    solver = HaloELLSolver(E, mesh)
+    (xs, _, k), t, launches = counted(ak, gs, lambda: solver.solve(b, (~bnd).to(torch.float64),
+                                                                   rtol=1e-8, maxiter=20000))
+    check(launches["K2"] >= k, "HaloELLSolver: K2 launches")
+    return {"HaloELLSolver": hold(f"HaloELLSolver n={N_HALO_ELL} (H {solver.H}, rtol 1e-8)", xs,
+                                  xt.cpu(), k, info.iterations,
+                                  2 * kappa_p1(N_HALO_ELL) * 1e-8 * xt.abs().max().item(),
+                                  launches, t)}, solver
+
+
+def banded_mg_path(ak, gs, mesh):
+    """ShardedBandedMGSolver on gen10m's folded split against phase 22."""
+    from fdapde_core_tpu_torch.geometry import irregular_mesh_device
+    from fdapde_core_tpu_torch.models import MatrixFreePoisson
+    from fdapde_core_tpu_torch.parallel.banded import ShardedBandedMGSolver
+
+    x22, k22 = TWINS["gen10m"]
+    nodes, cells, bnd = irregular_mesh_device(N_MAIN, 0.2, dtype=torch.float64, device=DEVICE)
+    model = MatrixFreePoisson(nodes, cells, bnd, device=DEVICE)
+    check(model.preconditioner == "banded_mg" and model.op.rem is None, "gen10m: no clean split")
+    F = model.op.fold_dirichlet(bnd)
+    b = torch.where(bnd, 0.0, model.load_vector(torch.ones(cells.shape[0], dtype=torch.float64,
+                                                          device=DEVICE)))
+    del model
+    solver = ShardedBandedMGSolver(F, mesh)
+    (x, rel, k), t, launches = counted(ak, gs, lambda: solver.solve(b, rtol=1e-9, maxiter=60))
+    check(rel.item() <= 1e-9, "ShardedBandedMGSolver did not reach 1e-9")
+    return {"ShardedBandedMGSolver": hold(
+        f"ShardedBandedMGSolver gen10m n={N_MAIN} (grid {F.G.shape2d} -> {solver.m}^2, rtol 1e-9)",
+        x, x22, k, k22, 2 * kappa_p1(N_MAIN) * 1e-9 * x22.abs().max().item(), launches, t)}
+
+
+def halo_lane_path(ak, gs, mesh):
+    """HaloLaneSolver with the distributed aux grid on genscat against phase
+    8's lane solve: inner iterations within 2x + 2 (JAX's bound)."""
+    from fdapde_core_tpu_torch.models import MatrixFreeElliptic
+    from fdapde_core_tpu_torch.parallel import HaloLaneSolver
+
+    xs8, its8 = TWINS["genscat"]
+    x, y, cells, bnd = scrambled_mesh(N_MAIN, *SCRAMBLE)
+    model = MatrixFreeElliptic((x, y), cells, bnd, K=1.0, gather_kernel="lane", device=DEVICE)
+    b = torch.where(bnd, 0.0, model.load_vector(torch.ones(cells.shape[0], dtype=torch.float64,
+                                                           device=DEVICE)))
+    E, aux = model.op_ref, model.aux
+    del model
+    solver = HaloLaneSolver(E, mesh, aux=aux)
+    (xs, res, k), t, launches = counted(ak, gs, lambda: solver.solve(
+        b, (~bnd).to(torch.float64), rtol=1e-8, maxiter=400))
+    check(solver.n_remainder == 0 and k <= 2 * its8 + 2 and launches["K2"] >= 3 * k,
+          f"HaloLaneSolver: {k} iterations against phase 8's {its8} inner ones")
+    rel = (res / torch.linalg.norm(b)).item()
+    d = (xs.cpu() - xs8).abs().max().item()
+    tol = 2 * kappa_p1(N_MAIN) * 1e-8 * xs8.abs().max().item()
+    log(f"32 HaloLaneSolver genscat n={N_MAIN} (H {solver.H}, aux grid {aux.n_grid}, {aux.mg.shapes}): "
+        f"{t:.4f} s, {k} iterations (phase 8's lane solve {its8} inner), rel residual {rel:.3e}, "
+        f"max|x - x_phase8| = {d:.3e} (tol {tol:.3e}); launches {launches}")
+    check(rel <= 1e-8 and d <= tol, "HaloLaneSolver: residual / solution")
+    return {"HaloLaneSolver": dict(seconds=t, iterations=k, twin_iterations=its8, max_diff=d,
+                                   tol=tol, **launches)}
+
+
+def space_time_paths(ak, gs, mesh):
+    """ShardedSpaceTime on phase 19's fit operator (against its fit) and
+    solve_space_time_fdm(device_mesh=) on its pencil (against the
+    single-device FDM)."""
+    from fdapde_core_tpu_torch.models import solve_space_time_fdm
+    from fdapde_core_tpu_torch.parallel import ShardedSpaceTime
+
+    st = TWINS.pop("space_time")
+    model, b = st["model"], st["b"]
+    rows = {}
+    solver = ShardedSpaceTime(model._op.terms, mesh)
+    (x, res, k), t, launches = counted(ak, gs, lambda: solver.solve(b, rtol=1e-10, maxiter=20000))
+    C = st["C"].reshape(-1)
+    d = (x.cpu() - C).abs().max().item()
+    log(f"32 ShardedSpaceTime fit operator ({solver.n_t} x {solver.n_s}, H {solver.H}, rtol 1e-10 "
+        f"on r.z): {t:.4f} s, {k} iterations (the fit's CG {st['its']} on ||r||), "
+        f"max|x - fit| = {d:.3e}; launches {launches}")
+    rows["ShardedSpaceTime"] = dict(seconds=t, iterations=k, twin_iterations=st["its"], max_diff=d,
+                                    **launches)
+    check(bool(torch.isfinite(x).all()) and launches["K2"] > 0, "ShardedSpaceTime")
+    check(d <= 1e-6 * C.abs().max().item(), "ShardedSpaceTime against the fit")
+    check(abs(k - st["its"]) <= max(1, 0.1 * st["its"]),
+          f"ShardedSpaceTime: {k} iterations against the fit's {st['its']} (not within 10 %)")
+    (xf, info), t, launches = counted(ak, gs, lambda: solve_space_time_fdm(
+        model.Mt, st["T1"], model.Ms, st["S1"], b, rtol=1e-12, maxiter=20000,
+        device_mesh=mesh))
+    # the same mode solves on the same card, gathered by a copy: bitwise
+    rows["FDM device_mesh"] = hold("solve_space_time_fdm(device_mesh=) (27 modes, rtol 1e-12)", xf,
+                                   st["x_fdm"], info.iterations, st["its_fdm"], 0.0, launches, t)
+    return rows
+
+
+def phase_sharded(ak, gs, ds, pts, cells, bnd):
+    """Phase 32: every sharded path at full size in a one-rank NCCL group;
+    returns ({path: row}, kernel checks, NCCL costs)."""
+    from fdapde_core_tpu_torch.parallel import close_world, init_world
+    from fdapde_core_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    mesh = init_world(DEVICE, rank=0, world_size=1)
+    try:
+        log(f"32 world: {mesh}, backend nccl; N > 1 on one card (gloo over CUDA tensors) not attempted")
+        costs = nccl_costs(mesh, (NX_PDE + 1) ** 2)
+        rows = {}
+        rows.update(sharded_poisson_paths(ak, gs, mesh, pts, cells, bnd))
+        torch.cuda.empty_cache()
+        dia_rows, dia_solver = dia_paths(ak, gs, mesh)
+        rows.update(dia_rows)
+        rows.update(rcm_p2_path(ak, gs, mesh))
+        torch.cuda.empty_cache()
+        rows.update(structured_mg_path(ak, gs, mesh))
+        torch.cuda.empty_cache()
+        ell_rows, ell_solver = halo_ell_path(ak, gs, mesh)
+        rows.update(ell_rows)
+        kernels = halo_kernel_checks(gs, ds, dia_solver, ell_solver)
+        del dia_solver, ell_solver
+        torch.cuda.empty_cache()
+        rows.update(banded_mg_path(ak, gs, mesh))
+        torch.cuda.empty_cache()
+        rows.update(halo_lane_path(ak, gs, mesh))
+        torch.cuda.empty_cache()
+        rows.update(space_time_paths(ak, gs, mesh))
+        done, t, launches = counted(ak, gs, lambda: dryrun_multichip(mesh))
+        log(f"32 dryrun_multichip at N = 1: {len(done)} paths in {t:.4f} s, max|diff| by path "
+            + ", ".join(f"{k} {d:.1e} (rtol {r:g})" for k, (d, r) in done.items())
+            + f"; launches {launches}")
+        check(len(done) == 12, f"the dry run ran {len(done)} of 12 paths")
+        rows["dryrun_multichip"] = dict(seconds=t, **launches)
+    finally:
+        close_world()
+    return rows, kernels, costs
+
+
 def timed_phase(number, fn):
     """Run a phase, print its seconds, return its result."""
     out, t = synced_seconds(fn)
@@ -3361,6 +3851,14 @@ def main():
         + f"; K2 backward launches {k2_backward_launches} (phase 28 {bw28}, phase 30 {bw30})")
     k2_launches += sum(k2 for k2, _ in new_paths.values())
     k6_launches += sum(k6 for _, k6 in new_paths.values())
+    torch.cuda.empty_cache()
+    sharded, halo_checks, nccl = timed_phase(32, lambda: phase_sharded(ak, gs, ds, pts, cells, bnd))
+    by_kernel = {k: {path: row[k] for path, row in sharded.items() if row.get(k)}
+                 for k in ("K2", "K6", "K7")}
+    log("32 launches by path: " + "; ".join(f"{k} {v}" for k, v in by_kernel.items()))
+    k2_launches += sum(by_kernel["K2"].values())
+    k6_launches += sum(by_kernel["K6"].values())
+    k7_launches += sum(by_kernel["K7"].values())
 
     kernels = [dict(
         name="p1_stencil_layers",
@@ -3381,12 +3879,15 @@ def main():
         sliced=k2_sliced,
         ell_3d={"float64": tables_gen3d["torch.float64"], "float32": tables_gen3d["torch.float32"]},
         aux_3d=tables_aux3d,
+        launches_sharded=by_kernel["K2"],
+        halo=halo_checks["K2 halo"],
     ), dict(
         name="p1_stiffness_2d",
         route="cuda",
         source="fdapde_core_tpu_torch/csrc/p1_local_stiffness.cu",
         replaces="fdapde_core_tpu/ops/pallas_assembly.py:50",
         launches=k6_launches,
+        launches_sharded=by_kernel["K6"],
         **k456["K6"],
     ), dict(
         name="p1_stiffness_edges",
@@ -3412,8 +3913,11 @@ def main():
         source="fdapde_core_tpu_torch/csrc/dia_spmv.cu",
         replaces="fdapde_core_tpu/ops/pallas_dia.py:50",
         launches=k7_launches,
+        launches_sharded=by_kernel["K7"],
+        halo=halo_checks["K7 halo"],
         **k7["DIA path"],
     )]
+    log("32 NCCL ms a call in the one-rank group: " + json.dumps(nccl))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)  # again beside the results, which a log cut to its end keeps
     print(json.dumps({"kernels": kernels}))

@@ -42,8 +42,11 @@ solver breadth beyond the linear solve: ``fem.nonlinear.solve_semilinear``
 (``linear_algebra.cg_differentiable``; K2 products carry a backward),
 FSPAI and its recovery rung, ``fields``, ``optimization``,
 ``linear_algebra.block`` / ``binary``, ``utils.integration`` and the native
-host library (``native/``: the first-encounter hash pass and FSPAI, g++ at
-first use).
+host library (``native/``: the first-encounter hash pass, FSPAI and RCM,
+g++ at first use); and the multi-device layer (``parallel/`` over
+``torch.distributed``: ``ShardedPoisson``, the halo solvers, the sharded
+multigrid and space-time CG; ``models.solve_elliptic_sharded``), which
+runs K2, K6 and K7 inside each shard.
 """
 
 from . import (
@@ -55,6 +58,7 @@ from . import (
     native,
     ops,
     optimization,
+    parallel,
     pde,
     splines,
     utils,

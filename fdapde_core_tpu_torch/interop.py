@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .linear_algebra.dia import DIAMatrix
 from .linear_algebra.sparse import SparseMatrix
 from .ops.auxgrid import AuxGridPreconditioner3D
 from .ops.dia_split3d import BandedSplit3D
@@ -17,7 +18,8 @@ from .ops.grid_mg import GridMG
 from .ops.grid_mg3d import GridMG3D
 from .ops.matfree_soa import ELLSoA
 
-__all__ = ["aux_grid_3d_from_numpy", "banded_split_3d_from_numpy", "ell_from_numpy",
+__all__ = ["aux_grid_3d_from_numpy", "banded_split_3d_from_numpy", "dia_from_numpy",
+           "ell_from_numpy",
            "grid_dia_3d_from_numpy", "grid_dia_from_numpy", "grid_mg_3d_from_numpy",
            "grid_mg_from_numpy", "mesh_from_numpy", "smoothing_regression_from_numpy",
            "space_time_smoothing_from_numpy", "sparse_from_numpy"]
@@ -99,6 +101,13 @@ def aux_grid_3d_from_numpy(idx, w, dinv, mg_levels, omega, n_grid,
     return AuxGridPreconditioner3D(
         torch.tensor(np.ascontiguousarray(idx, dtype=np.int32), device=device),
         _tensor(w, device), _tensor(dinv, device), mg, float(omega), int(n_grid))
+
+
+def dia_from_numpy(data, offsets, device="cuda") -> DIAMatrix:
+    """DIAMatrix from a (K, n) array and its K offsets (the fields of the
+    JAX ``DIAMatrix``)."""
+    data = _tensor(data, device)
+    return DIAMatrix(data, tuple(int(d) for d in offsets), int(data.shape[1]))
 
 
 def ell_from_numpy(vals, cols, shape, device="cuda") -> ELLSoA:

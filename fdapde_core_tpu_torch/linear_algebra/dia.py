@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.dia_spmv import dia_spmv
-from .sparse import SegmentSum, SparseMatrix, _host
+from .sparse import SegmentSum, SparseMatrix, _as_device_tensor, _host
 
 __all__ = ["DIAMatrix", "dia_from_coo", "prune_zero_offsets", "unique_offsets"]
 
@@ -80,7 +80,8 @@ class DIAMatrix:
 
 
 def dia_from_coo(rows, cols, vals, n: int, offsets: tuple[int, ...]) -> DIAMatrix:
-    """DIA storage from (possibly duplicated) COO entries on vals' device.
+    """DIA storage from (possibly duplicated) COO entries on vals' device
+    (host vals go to the card).
 
     ``offsets`` is the SORTED offset set (e.g. ``unique_offsets(space.dofs)``);
     entries whose offset is not listed are dropped, so callers pass a
@@ -90,7 +91,7 @@ def dia_from_coo(rows, cols, vals, n: int, offsets: tuple[int, ...]) -> DIAMatri
     offsets = tuple(int(o) for o in offsets)
     if offsets != tuple(sorted(offsets)):
         raise ValueError("offsets must be sorted")
-    vals = torch.as_tensor(vals)
+    vals = _as_device_tensor(vals)
     r = _host(rows).astype(np.int64).reshape(-1)
     d = _host(cols).astype(np.int64).reshape(-1) - r
     off = np.asarray(offsets, dtype=np.int64)

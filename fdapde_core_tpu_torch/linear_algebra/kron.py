@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .sparse import SparseMatrix
+from .sparse import SparseMatrix, _as_device_tensor
 
 __all__ = ["KroneckerOperator", "kron", "kron_matvec", "matmul_highest"]
 
@@ -34,8 +34,10 @@ def matmul_highest(a, b):
 def kron(A, B):
     """Explicit Kronecker product.
 
-    dense x dense -> dense (torch.kron); SparseMatrix x SparseMatrix ->
-    SparseMatrix on A's device (kronecker_product.h:27-80 semantics).
+    dense x dense -> dense (torch.kron: a tensor keeps its device, a host
+    operand goes to the other's, or to the card); SparseMatrix x
+    SparseMatrix -> SparseMatrix on A's device (kronecker_product.h:27-80
+    semantics).
     """
     if isinstance(A, SparseMatrix) != isinstance(B, SparseMatrix):
         raise TypeError(
@@ -51,7 +53,8 @@ def kron(A, B):
         cols = (ca[:, None].astype(np.int64) * nb_c + cb[None, :]).reshape(-1)
         vals = (A.vals[:, None] * B.vals.to(A.vals.device)[None, :]).reshape(-1)
         return SparseMatrix.from_coo(rows, cols, vals, (A.shape[0] * nb_r, A.shape[1] * nb_c))
-    return torch.kron(torch.as_tensor(A), torch.as_tensor(B))
+    dev = next((a.device for a in (A, B) if isinstance(a, torch.Tensor)), "cuda")
+    return torch.kron(_as_device_tensor(A, dev), _as_device_tensor(B, dev))
 
 
 def kron_matvec(A, B, x):

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from .solvers import dense_solve
+from .sparse import _as_device_tensor
 
 __all__ = ["smw_solve"]
 
@@ -25,10 +26,12 @@ def smw_solve(solve_A, U, invC, V, b):
     middle factor.
 
     solve_A: callable returning A^{-1} r for a vector or (n, k) matrix r.
-    U: (n, q), invC: (q, q), V: (q, n), b: (n,) or (n, k); tensors on one
-    device.
+    U: (n, q), invC: (q, q), V: (q, n), b: (n,) or (n, k). Tensors keep
+    their device; host U, V or invC go to the first tensor's device among
+    them, else to the card.
     """
-    U, V, invC = torch.as_tensor(U), torch.as_tensor(V), torch.as_tensor(invC)
+    dev = next((a.device for a in (U, V, invC) if isinstance(a, torch.Tensor)), "cuda")
+    U, V, invC = (_as_device_tensor(a, dev) for a in (U, V, invC))
     y = solve_A(b)  # y = A^{-1} b            (smw.h:48)
     Y = solve_A(U)  # Y = A^{-1} U            (smw.h:50)
     G = invC + V @ Y  # G = C^{-1} + V A^{-1} U (smw.h:52)

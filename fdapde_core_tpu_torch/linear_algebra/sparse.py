@@ -123,8 +123,8 @@ class SparseMatrix:
     @classmethod
     def from_coo(cls, rows, cols, vals, shape) -> "SparseMatrix":
         """Build from possibly-duplicated COO triplets (duplicates summed),
-        on vals' device."""
-        vals = torch.as_tensor(vals)
+        on vals' device (host vals go to the card)."""
+        vals = _as_device_tensor(vals)
         r, c, inv = coo_sum_duplicates(_host(rows), _host(cols), *shape)
         v = SegmentSum.build(inv, r.shape[0], vals.device)(vals)
         return cls(torch.as_tensor(r, device=vals.device),
@@ -333,3 +333,10 @@ class SparseProduct(torch.autograd.Function):
 
 def _host(a) -> np.ndarray:
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _as_device_tensor(a, device="cuda") -> torch.Tensor:
+    """A tensor as it is; host input (NumPy, lists, scalars) on ``device``,
+    the card by default, as JAX's ``jnp.asarray`` puts it on the
+    accelerator."""
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a), device=device)

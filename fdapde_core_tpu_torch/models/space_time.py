@@ -21,8 +21,10 @@ Differences from the JAX module:
   where JAX vmaps them, and ``solve_space_time_fdm`` solves its mode
   systems in a loop of vector CG solves where JAX vmaps one batched CG:
   the same per-mode iterates;
-- ``solve_space_time_fdm(device_mesh=...)``, the mode-parallel multi-chip
-  form, raises NotImplementedError (ROADMAP queue 1 item 6).
+- ``solve_space_time_fdm(device_mesh=...)``, the mode-parallel
+  multi-device form (ROADMAP queue 1 item 6), gives each shard its block
+  of modes and all_gathers their solutions (``parallel/comm.py``), where
+  JAX ``shard_map``s the vmapped CG.
 """
 
 from __future__ import annotations
@@ -340,23 +342,30 @@ def solve_space_time_fdm(T0, T1, S0, S1, b, rtol: float = 1e-10, maxiter: int = 
     Requirements: T0 SPD, T1 symmetric PSD (dense or SparseMatrix, n_t
     small); S0 SPD, S1 symmetric PSD with S1 + lam_min S0 SPD (the usual
     mass/stiffness pairs qualify). Returns (x, SolveInfo) with iterations
-    the max over modes and converged the AND. ``device_mesh`` (the
-    mode-parallel multi-chip form) is not ported yet.
+    the max over modes and converged the AND.
+
+    ``device_mesh`` (a ``parallel.ShardMesh``): mode-parallel across
+    shards. The modes are independent, so shard r solves modes
+    [r B, (r+1) B) (B = ceil(n_t / shards)) with no communication during
+    the solves, and one all_gather brings every mode's solution to every
+    rank; b goes to the mesh's device.
     """
     import scipy.linalg as sla
 
-    if device_mesh is not None:
-        raise NotImplementedError(
-            "solve_space_time_fdm(device_mesh=...) is not ported yet: ROADMAP queue 1 "
-            "item 6 (the multi-device slice)")
     lam, Z = sla.eigh(_host_dense(T1), _host_dense(T0))  # Z^T T0 Z = I
     n_t = Z.shape[0]
+    if device_mesh is not None:
+        b = torch.as_tensor(b, device=device_mesh.device)
     B = b.reshape(n_t, -1)
     Zt = torch.as_tensor(Z, dtype=B.dtype, device=B.device)
     Bt = matmul_highest(Zt.T, B)  # (Z^T (x) I) b on the (t, s) row-major layout
     d0, d1 = S0.diagonal(), S1.diagonal()
+    block, start = n_t, 0
+    if device_mesh is not None:
+        block = -(-n_t // device_mesh.size)
+        start = device_mesh.rank * block
     W, iters, conv = [], [], []
-    for lam_t, rhs in zip(lam.tolist(), Bt):
+    for lam_t, rhs in zip(lam.tolist()[start:start + block], Bt[start:start + block]):
         def op(v, lam_t=lam_t):
             return (S1 @ v) + lam_t * (S0 @ v)
 
@@ -366,5 +375,15 @@ def solve_space_time_fdm(T0, T1, S0, S1, b, rtol: float = 1e-10, maxiter: int = 
         W.append(x)
         iters.append(info.iterations)
         conv.append(info.converged)
-    X = matmul_highest(Zt, torch.stack(W))
+    if device_mesh is None:
+        W = torch.stack(W)
+    else:  # this shard's modes, padded to the block, gathered on every rank
+        pad = block - len(W)
+        W = torch.cat([torch.stack(W) if W else B[:0], B.new_zeros((pad, B.shape[1]))])
+        W = device_mesh.all_gather(W)[:n_t]
+        stats = torch.tensor([iters + [0] * pad, [int(bool(c)) for c in conv] + [1] * pad],
+                             dtype=torch.int64).to(B.device)
+        stats = device_mesh.all_gather(stats.T.contiguous())
+        iters, conv = stats[:, 0].tolist(), [bool(c) for c in stats[:, 1].tolist()]
+    X = matmul_highest(Zt, W)
     return X.reshape(-1), SolveInfo(max(iters), torch.zeros((), dtype=B.dtype), all(conv))

@@ -1,5 +1,5 @@
-"""Build and load the native host library (``topology.cpp``, ``fspai.cpp``)
-at first use.
+"""Build and load the native host library (``topology.cpp``, ``fspai.cpp``,
+``rcm.cpp``) at first use.
 
 Port of ``fdapde_core_tpu/native/build.py``: one ``g++ -O3 -fPIC -shared
 -std=c++17`` over the sources into ``fdapde_core_tpu_torch/_build/``, cached
@@ -8,9 +8,7 @@ kernels), loaded with ``ctypes``. Differences from the JAX module:
 
 - a failed compile raises with g++'s output, where JAX turns every failure
   into "unavailable" and silently takes the NumPy paths;
-- ``native_available()`` is False only when no ``g++`` is on ``PATH``;
-- ``rcm.cpp`` (the reverse Cuthill-McKee ordering of the multi-device
-  partitioner) is not built here: it comes with the multi-device slice.
+- ``native_available()`` is False only when no ``g++`` is on ``PATH``.
 
 Nothing here runs at import time.
 """
@@ -30,7 +28,7 @@ __all__ = ["get_lib", "native_available"]
 
 _HERE = Path(__file__).resolve().parent
 _BUILD = _HERE.parent / "_build"
-_SOURCES = ("topology.cpp", "fspai.cpp")
+_SOURCES = ("topology.cpp", "fspai.cpp", "rcm.cpp")
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _VP, _I32, _I64, _F64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_double
@@ -41,6 +39,8 @@ _SIGNATURES = {
     # indptr (int64), indices (int32), values (f64), n, alpha, beta,
     # epsilon, rows_out, cols_out, vals_out
     "fspai_csr": (_I64, (_VP, _VP, _VP, _I64, _I32, _I32, _F64, _VP, _VP, _VP)),
+    # indptr (int64), indices (int64), n, perm_out (int64)
+    "rcm_order": (_I64, (_VP, _VP, _I64, _VP)),
 }
 
 

@@ -6,7 +6,8 @@ tets), its assembled ELL and the ELL gather SpMV kernel (K2), the banded
 splits with their multigrid (2D and 3D), and the auxiliary-grid
 preconditioners (2D and 3D), both interpolations on K2 (``LaneAuxGrid``
 is the 2D grid's name on the lane path); the element-local AoS forms
-(``ell``, ``matfree``) and the C-last assembly (``soa_assembly``).
+(``ell``, ``matfree``) and the C-last assembly (``soa_assembly``); and
+``WindowedELL``, the block-windowed ELL of scattered bands, on K2.
 
 ``ell_spmv`` here is K2's wrapper (``gather_spmv.ell_spmv``); the JAX
 package's ``ops.ell_spmv``, the element-local combine, is ``ell.ell_spmv``.
@@ -49,6 +50,7 @@ from .matfree_soa import (
     MatrixFreeSoA3D,
     ell_from_op_blocked,
 )
+from .window_spmv import WindowedELL, window_bandwidth
 
 __all__ = [
     "AuxGridPreconditioner",
@@ -71,6 +73,7 @@ __all__ = [
     "MatrixFreeSoA3D",
     "SYM4_TO_FULL",
     "SYM_TO_FULL",
+    "WindowedELL",
     "banded_cg",
     "build_banded_split",
     "build_banded_split_3d",
@@ -93,4 +96,5 @@ __all__ = [
     "prune_zero_offsets_grid",
     "prune_zero_offsets_grid3d",
     "stencil_from_coords",
+    "window_bandwidth",
 ]

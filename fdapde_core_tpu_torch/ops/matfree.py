@@ -85,10 +85,14 @@ class MatrixFreeLocal:
     def build(cls, A_loc, dofs, n_dofs: int, max_degree: int):
         """max_degree bounds the (cell, slot) incidences per dof. Returns
         (operator, overflowed): overflowed means some dof has more, and the
-        caller must rebuild with a larger bound."""
-        dofs = torch.as_tensor(dofs)
+        caller must rebuild with a larger bound. A tensor A_loc keeps its
+        device, a host one goes to the card; dofs go to A_loc's device."""
+        from ..linear_algebra.sparse import _as_device_tensor
+
+        A_loc = _as_device_tensor(A_loc)
+        dofs = torch.as_tensor(dofs, device=A_loc.device)
         adj, mask, overflowed = build_ell_adjacency(dofs, n_dofs, max_degree)
-        return cls(torch.as_tensor(A_loc), dofs, adj, mask, n_dofs), overflowed
+        return cls(A_loc, dofs, adj, mask, n_dofs), overflowed
 
     @property
     def shape(self):

@@ -331,13 +331,67 @@ def _check_host_input_goes_to_the_operators_device():
         for run in (lambda: dense_solve(sym, rhs), lambda: lump(sym)):
             with pytest.raises((AssertionError, RuntimeError)):
                 run()
+    _check_host_input_goes_to_the_card()
+
+
+def _check_host_input_goes_to_the_card():
+    """Five more entry points where JAX calls jnp.asarray: SparseMatrix.
+    from_coo and dia_from_coo (host vals), smw_solve (host U, V, invC),
+    the dense kron and MatrixFreeLocal.build (host A_loc). A tensor keeps
+    its device, so CPU tensors give CPU results equal to JAX's (1e-12
+    relative); a host operand beside a tensor takes the tensor's device;
+    host input alone goes to the card, so without one these raise rather
+    than compute on the host."""
+    from fdapde_core_tpu.linear_algebra.dia import dia_from_coo as j_dia_from_coo
+    from fdapde_core_tpu.linear_algebra.sparse import SparseMatrix as JSparse
+    from fdapde_core_tpu_torch.linear_algebra import SparseMatrix, kron, smw_solve
+    from fdapde_core_tpu_torch.linear_algebra.dia import dia_from_coo
+    from fdapde_core_tpu_torch.linear_algebra.solvers import dense_solve
+    from fdapde_core_tpu_torch.ops.matfree import MatrixFreeLocal
+
+    rng = np.random.default_rng(13)
+    n = 40
+    rows = np.concatenate([np.arange(n), np.arange(n - 1), np.arange(1, n), np.arange(n)])
+    cols = np.concatenate([np.arange(n), np.arange(1, n), np.arange(n - 1), np.arange(n)])
+    vals = rng.uniform(0.5, 1.5, rows.size)
+    S = SparseMatrix.from_coo(rows, cols, torch.from_numpy(vals), (n, n))
+    Sj = JSparse.from_coo(rows, cols, jnp.asarray(vals), (n, n))
+    assert S.vals.device.type == "cpu" and np.abs(S.vals.numpy() - np.asarray(Sj.vals)).max() <= \
+        1e-12 * np.abs(np.asarray(Sj.vals)).max()
+    D = dia_from_coo(rows, cols, torch.from_numpy(vals), n, (-1, 0, 1))
+    Dj = j_dia_from_coo(rows, cols, jnp.asarray(vals), n, (-1, 0, 1))
+    assert D.data.device.type == "cpu"
+    np.testing.assert_allclose(D.data.numpy(), np.asarray(Dj.data), rtol=1e-12, atol=0)
+    A = torch.from_numpy(np.diag(rng.uniform(2.0, 3.0, n)))
+    U, V, b = rng.standard_normal((n, 2)), rng.standard_normal((2, n)), rng.standard_normal(n)
+    x = smw_solve(lambda r: dense_solve(A, r), U, np.eye(2), torch.from_numpy(V),
+                  torch.from_numpy(b))  # host U and invC beside a CPU V: the CPU
+    ref = np.linalg.solve(A.numpy() + U @ V, b)
+    assert x.device.type == "cpu" and np.abs(x.numpy() - ref).max() <= 1e-10 * np.abs(ref).max()
+    a, c = rng.standard_normal((3, 2)), rng.standard_normal((2, 4))
+    K = kron(torch.from_numpy(a), c)  # a host operand beside a CPU tensor: the CPU
+    assert K.device.type == "cpu"
+    np.testing.assert_allclose(K.numpy(), np.asarray(jnp.kron(a, c)), rtol=1e-12, atol=0)
+    A_loc = rng.standard_normal((4, 3, 3))
+    dofs = np.array([[0, 1, 2], [1, 2, 3], [2, 3, 4], [3, 4, 5]], dtype=np.int32)
+    op, _ = MatrixFreeLocal.build(torch.from_numpy(A_loc), dofs, 6, 4)
+    assert op.A_loc.device.type == op.dofs.device.type == op.adj.device.type == "cpu"
+    if not torch.cuda.is_available():  # host input alone goes to the card: no fallback
+        for run in (lambda: SparseMatrix.from_coo(rows, cols, vals, (n, n)),
+                    lambda: dia_from_coo(rows, cols, vals, n, (-1, 0, 1)),
+                    lambda: smw_solve(lambda r: r, U, np.eye(2), V, b),
+                    lambda: kron(a, c),
+                    lambda: MatrixFreeLocal.build(A_loc, dofs, 6, 4)):
+            with pytest.raises((AssertionError, RuntimeError)):
+                run()
 
 
 def test_closed_form_matches_jax():
     """The closed forms (2D and tet), and the host-side analytic layers
     beside them: fields (``_check_fields_match_jax``), the optimizers
-    (``_check_optimizers_match_jax``) and host input at five entry points
-    (``_check_host_input_goes_to_the_operators_device``)."""
+    (``_check_optimizers_match_jax``) and host input at ten entry points
+    (``_check_host_input_goes_to_the_operators_device``,
+    ``_check_host_input_goes_to_the_card``)."""
     rng = np.random.default_rng(3)
     coords = rng.uniform(size=(6, 50))
     ref = np.asarray(jcf.p1_stiffness_2d_sym(jnp.asarray(coords)))
@@ -369,8 +423,9 @@ def test_port_never_imports_jax():
     and the solver-breadth modules: fields, optimization, Neumann data,
     the semilinear solver, FSPAI, block and binary matrices, integration
     and the native library; the geometry host copies, io, checkpoints,
-    profiling and sanitize, among them)."""
-    offenders, scanned = [], set()
+    profiling and sanitize; the multi-device layer, among them). Only
+    parallel/comm.py imports torch.distributed."""
+    offenders, scanned, distributed = [], set(), set()
     for path in sorted(PORT.rglob("*.py")):
         if "_build" in path.relative_to(PORT).parts:  # build outputs, not source
             continue
@@ -382,6 +437,8 @@ def test_port_never_imports_jax():
                 names = [node.module or ""]
             else:
                 continue
+            if any(nm.startswith("torch.distributed") for nm in names):
+                distributed.add(path.relative_to(PORT).as_posix())
             if any(nm == "jax" or nm.startswith(("jax.", "jaxlib", "fdapde_core_tpu."))
                    or nm == "fdapde_core_tpu" for nm in names):
                 offenders.append(f"{path.relative_to(PORT)}:{node.lineno}")
@@ -395,7 +452,13 @@ def test_port_never_imports_jax():
             "geometry/kd_tree.py", "geometry/projection.py", "geometry/voronoi.py",
             "geometry/hyperplane.py", "geometry/simplex.py", "geometry/walk_search.py",
             "utils/io.py", "utils/checkpoint.py", "utils/binary_tree.py", "utils/block_frame.py",
-            "utils/shp_reader.py", "utils/profiling.py", "utils/sanitize.py"} <= scanned
+            "utils/shp_reader.py", "utils/profiling.py", "utils/sanitize.py", "parallel/comm.py",
+            "parallel/cg.py", "parallel/sharded.py", "parallel/halo.py", "parallel/halo_ell.py",
+            "parallel/halo_lane.py", "parallel/halo_grid.py", "parallel/mg.py",
+            "parallel/banded.py", "parallel/space_time.py", "parallel/partition.py",
+            "parallel/reorder.py", "parallel/dryrun.py", "models/sharded_driver.py",
+            "ops/window_spmv.py"} <= scanned
+    assert not [p for p in distributed if p != "parallel/comm.py"], distributed
     # and at run time: importing the new modules loads neither package
     code = ("import sys\n"
             "import fdapde_core_tpu_torch.fields, fdapde_core_tpu_torch.optimization\n"
@@ -404,6 +467,8 @@ def test_port_never_imports_jax():
             "import fdapde_core_tpu_torch.geometry.walk_search, fdapde_core_tpu_torch.geometry.simplex\n"
             "from fdapde_core_tpu_torch.utils import checkpoint, io, profiling, sanitize\n"
             "from fdapde_core_tpu_torch.utils import binary_tree, block_frame, shp_reader\n"
+            "import fdapde_core_tpu_torch.parallel.dryrun, fdapde_core_tpu_torch.ops.window_spmv\n"
+            "import fdapde_core_tpu_torch.models.sharded_driver\n"
             "assert not {'jax', 'fdapde_core_tpu'} & set(sys.modules), sorted(sys.modules)\n")
     done = subprocess.run([sys.executable, "-c", code], cwd=PORT.parent, capture_output=True,
                           text=True, timeout=120)

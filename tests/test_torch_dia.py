@@ -71,7 +71,7 @@ def _delaunay(nx, seed=7, amp=0.35, scramble=False):
     return pts, cells, bnd
 
 
-def test_dia_path_matches_jax():
+def test_dia_path_matches_jax(tmp_path):
     """K7's plain version against JAX's dia_spmv (interpret mode) and
     DIAMatrix @ x; unique_offsets, dia_from_coo (duplicates, a dropped
     offset), prune_zero_offsets, diagonal, to_sparse and assemble_dia against
@@ -181,3 +181,87 @@ def test_dia_path_matches_jax():
     x, info = tsolvers.solve_elliptic(D, torch.zeros(space.n_dofs, dtype=torch.float64),
                                       _t(space.boundary_dofs), _t(g), rtol=1e-12)
     assert info.converged and np.abs(_np(x) - g).max() <= 1e-10
+    _check_halo_dia_matches_jax(tmp_path)
+
+
+def _check_halo_dia_matches_jax(tmp_path):
+    """The halo-exchange DIA solvers on 4 gloo CPU ranks against JAX's on 4
+    virtual devices (``torch_sharded.check_against_jax``: solutions within
+    max(rtol, 1e-12) max|x|, iterations equal within 1): HaloDIASolver on
+    unit_square_mesh(24) at 1e-12 (tests/test_parallel.py:143),
+    HaloDIAParabolic over 8 implicit-Euler steps on unit_square_mesh(12)
+    (:194; every step's iterations), and P2 on unit_square_mesh(16) after
+    RCM (:269): the permutation equal to JAX's, the native one equal to the
+    NumPy BFS (:353), the offset span cut by more than 4x."""
+    from fdapde_core_tpu.parallel import reorder as jreorder
+    from fdapde_core_tpu.parallel.halo import HaloDIAParabolic as JPara
+    from fdapde_core_tpu.parallel.halo import HaloDIASolver as JHalo
+    from fdapde_core_tpu_torch.parallel import reorder as treorder
+    from torch_sharded import check_against_jax
+
+    def dia_case(name, Dj, b, free, rtol):
+        data, offs = np.asarray(Dj.data), tuple(Dj.offsets)
+        spec = dict(kind="halo_dia", data=data, offsets=offs, b=b, free=free, rtol=rtol)
+
+        def jax_solve(dm):
+            x, _, k = JHalo(Dj, dm).solve(jnp.asarray(b), jnp.asarray(free), rtol=rtol)
+            return x, k
+        return name, spec, jax_solve, rtol, 1
+
+    def system(n, order):
+        space = JSpace(j_unit_square(n), order)
+        A = ja.assemble_matrix(space, -fdm.laplacian())
+        F = ja.assemble_forcing(space, lambda x: 4.0)
+        xy = space.dof_coords
+        g = jnp.asarray(1 - xy[:, 0] ** 2 - xy[:, 1] ** 2)
+        mask = jnp.asarray(space.boundary_dofs)
+        b = np.asarray(jsolvers.DirichletSystem(A, mask).rhs(F, g))
+        return space, A, b, (~space.boundary_dofs).astype(np.float64)
+
+    space, A, b, free = system(24, 1)
+    Dj = jdia.dia_from_coo(A.rows, A.cols, A.vals, space.n_dofs, jdia.unique_offsets(space.dofs))
+    cases = [dia_case("HaloDIASolver", Dj, b, free, 1e-12)]
+
+    # implicit Euler over 8 steps (the first instant is u0)
+    sp12 = JSpace(j_unit_square(12), 1)
+    A12 = ja.assemble_matrix(sp12, -fdm.laplacian())
+    M12 = ja.assemble_matrix(sp12, fdm.reaction(1.0))
+    offs12 = jdia.unique_offsets(sp12.dofs)
+    Ad = jdia.dia_from_coo(A12.rows, A12.cols, A12.vals, sp12.n_dofs, offs12)
+    Md = jdia.dia_from_coo(M12.rows, M12.cols, M12.vals, sp12.n_dofs, offs12)
+    times = np.linspace(0.0, 0.2, 9)
+    u = lambda x, t: np.sin(np.pi * x[..., 0]) * np.sin(np.pi * x[..., 1]) * np.exp(-t)  # noqa: E731
+    G = u(sp12.dof_coords[:, None, :], times[None, :])
+    qn = sp12.quadrature_nodes
+    F = np.asarray(ja.assemble_forcing(sp12, (2 * np.pi ** 2 - 1.0) * u(qn[:, None, :], times[None, :])))
+    free12 = (~sp12.boundary_dofs).astype(np.float64)
+    para = dict(kind="halo_dia_parabolic", A=np.asarray(Ad.data), M=np.asarray(Md.data),
+                offsets=tuple(Ad.offsets), dt=0.025, F=F[:, 1:], G=G[:, 1:], u0=G[:, 0],
+                free=free12, rtol=1e-12)
+
+    def jax_parabolic(dm):  # JAX's scan reports no iteration counts
+        return JPara(Ad, Md, 0.025, dm).solve(F[:, 1:], G[:, 1:], G[:, 0], free12, rtol=1e-12), None
+
+    # P2 after RCM: the permutation, native and NumPy, equal to JAX's
+    space2, A2, b2, free2 = system(16, 2)
+    n2 = space2.n_dofs
+    rows, cols = np.asarray(A2.rows), np.asarray(A2.cols)
+    perm, inv = treorder.rcm_permutation(rows, cols, n2)
+    pj, ij = jreorder.rcm_permutation(rows, cols, n2)
+    np.testing.assert_array_equal(perm, pj)
+    indptr, adj = treorder._adjacency_csr(rows, cols, n2)
+    np.testing.assert_array_equal(treorder._rcm_native(indptr, adj, n2), perm)
+    orig = treorder._rcm_native
+    try:
+        treorder._rcm_native = lambda *a: None
+        np.testing.assert_array_equal(treorder.rcm_permutation(rows, cols, n2)[0], perm)
+    finally:
+        treorder._rcm_native = orig
+    offs_raw, offs = jdia.unique_offsets(space2.dofs), jdia.unique_offsets(inv[space2.dofs])
+    assert max(abs(o) for o in offs) < max(abs(o) for o in offs_raw) // 4
+    rp, cp, vp = treorder.permute_system(perm, inv, rows, cols, np.asarray(A2.vals))
+    D2 = jdia.dia_from_coo(jnp.asarray(rp), jnp.asarray(cp), jnp.asarray(vp), n2, offs)
+    cases += [("HaloDIAParabolic", para, jax_parabolic, 1e-12, 1),
+              dia_case("RCM P2 HaloDIASolver", D2, b2[perm], free2[perm], 1e-12)]
+    got, _ = check_against_jax(tmp_path / "halo_dia", cases)
+    assert got[1]["N"]["k"].shape == (8,) and (got[1]["N"]["k"] > 0).all()

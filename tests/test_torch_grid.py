@@ -230,7 +230,7 @@ def test_galerkin_coarsen_matches_jax():
         np.testing.assert_allclose(zt3, zj3, rtol=0, atol=1e-12 * np.abs(zj3).max())
 
 
-def test_grid_cg_matches_jax():
+def test_grid_cg_matches_jax(tmp_path):
     """grid_cg with the stencil stored in f32 and in bf16, f64 vectors. Both
     packages round the layers to the same storage values and then run the
     same f64 arithmetic, so the iterates agree to f64 rounding even where
@@ -298,3 +298,106 @@ def test_grid_cg_matches_jax():
     assert 0.5 * float(rj) <= rt.item() <= 2 * float(rj)
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=0,
                                atol=1e-5 * np.abs(np.asarray(xj)).max())
+    _check_sharded_grid_solvers_match_jax(tmp_path)
+
+
+def _check_sharded_grid_solvers_match_jax(tmp_path):
+    """The row-sharded stencil solvers on 4 gloo CPU ranks against JAX's on 4
+    virtual devices (``torch_sharded.check_against_jax``: solutions within
+    max(rtol, 1e-12) max|x|, iterations equal within 1): HaloGridDIASolver
+    on unit_square_mesh(31) at 1e-12 (tests/test_parallel.py:240),
+    ShardedGridMG at n = 64 with two sharded levels at 1e-10 (:312),
+    ShardedBandedMGSolver on the n = 48 irregular mesh's folded split at
+    1e-10 (:552) and its two guards (:616); and the port's
+    ``dryrun_multichip`` on the 4 ranks against its 1-shard rebuilds, every
+    path within its rtol (JAX's __graft_entry__.py:60-304)."""
+    import fdapde_core_tpu as fdm
+    from fdapde_core_tpu.fem import assembler as ja
+    from fdapde_core_tpu.fem.solvers import DirichletSystem
+    from fdapde_core_tpu.fem.space import FEMSpace as JSpace
+    from fdapde_core_tpu.geometry.structured import irregular_mesh_device_soa as j_irregular
+    from fdapde_core_tpu.geometry.structured import unit_square_mesh as j_unit_square
+    from fdapde_core_tpu.linear_algebra import dia as jdia
+    from fdapde_core_tpu.ops.dia_split import build_banded_split, plan_split_width
+    from fdapde_core_tpu.ops.matfree_soa import MatrixFreeSoA
+    from fdapde_core_tpu.parallel import HaloGridDIASolver as JHaloGrid
+    from fdapde_core_tpu.parallel.banded import ShardedBandedMGSolver as JBandedMG
+    from fdapde_core_tpu.parallel.mg import ShardedGridMG as JShardedMG
+    from fdapde_core_tpu_torch.ops.dia_split import BandedSplit
+    from fdapde_core_tpu_torch.ops.matfree_soa import ELLSoA
+    from fdapde_core_tpu_torch.parallel.banded import ShardedBandedMGSolver
+    from fdapde_core_tpu_torch.parallel.comm import make_device_mesh
+    from torch_sharded import check_against_jax
+
+    def dia_of(n):
+        space = JSpace(j_unit_square(n), 1)
+        A = ja.assemble_matrix(space, -fdm.laplacian())
+        return space, A, jdia.dia_from_coo(A.rows, A.cols, A.vals, space.n_dofs,
+                                           jdia.unique_offsets(space.dofs))
+
+    def grid_spec(kind, G, **kw):
+        return dict(kind=kind, data=np.asarray(G.data), offsets2d=G.offsets2d, shape2d=G.shape2d,
+                    **kw)
+
+    # halo grid CG
+    space, A, D = dia_of(31)
+    xy = space.dof_coords
+    mask = jnp.asarray(space.boundary_dofs)
+    b = np.asarray(DirichletSystem(A, mask).rhs(ja.assemble_forcing(space, lambda x: 4.0),
+                                                jnp.asarray(1 - xy[:, 0] ** 2 - xy[:, 1] ** 2)))
+    free = (~space.boundary_dofs).astype(np.float64)
+    G31 = JGrid.from_dia(D, (32, 32))
+
+    def jax_halo_grid(dm):
+        x, _, k = JHaloGrid(G31, jnp.asarray(free), dm).solve(b, rtol=1e-12)
+        return x, k
+
+    # sharded multigrid
+    space64, _, D64 = dia_of(64)
+    free64 = (~space64.boundary_dofs).astype(np.float64)
+    G64 = j_prune(JGrid.from_dia(D64, (65, 65)).with_dirichlet_identity(jnp.asarray(free64)))
+    b64 = np.asarray(ja.assemble_forcing(space64, lambda x: 1.0)).reshape(-1) * free64
+
+    def jax_mg(dm):
+        x, _, k = JShardedMG(G64, dm, repl_rows=16, coarse_n=8).solve(b64, rtol=1e-10, maxiter=60)
+        return x, k
+
+    # sharded BandedMG on the folded split of the n = 48 irregular mesh
+    n = 48
+    x, y, c0, c1, c2, bnd = j_irregular(n, 0.2, dtype=jnp.float64)
+    op, _ = MatrixFreeSoA.build(x, y, c0, c1, c2, (n + 1) ** 2, 8)
+    E, _ = jax.jit(lambda o: o.to_ell(9))(op)
+    W, amax = plan_split_width(E)
+    S, _ = build_banded_split(E, W, amax=amax)
+    Fj = S.fold_dirichlet(bnd)
+    assert int(jnp.sum(Fj.rem.vals != 0.0)) == 0
+    Fj = Fj.drop_empty_remainder()
+    bb = np.asarray(jnp.where(bnd, 0.0, 1.0) / (n * n))
+
+    def jax_banded(dm):
+        x, _, k = JBandedMG(Fj, dm, repl_rows=16, coarse_n=8).solve(bb, rtol=1e-10, maxiter=60)
+        return x, k
+
+    cases = [("HaloGridDIASolver", grid_spec("halo_grid", G31, free=free, b=b, rtol=1e-12,
+                                             maxiter=2000), jax_halo_grid, 1e-12, 1),
+             ("ShardedGridMG", grid_spec("grid_mg", G64, b=b64, repl_rows=16, coarse_n=8,
+                                         rtol=1e-10, maxiter=60), jax_mg, 1e-10, 1),
+             ("ShardedBandedMGSolver", grid_spec("banded_mg", Fj.G, n=Fj.n, b=bb, repl_rows=16,
+                                                 coarse_n=8, rtol=1e-10, maxiter=60),
+              jax_banded, 1e-10, 1)]
+    got, dry = check_against_jax(tmp_path / "grid", cases, dryrun=True)
+    assert int(got[1]["N"]["T"]) >= 2  # two sharded levels
+    assert len(dry) == 12, sorted(dry)
+
+    # the guards: a live remainder, a window wider than 9 points
+    offs = tuple((a, b) for a in (-1, 0, 1) for b in (-1, 0, 1))
+    data = torch.zeros((9, 8, 8), dtype=torch.float64)
+    data[offs.index((0, 0))] = 1.0
+    rem = ELLSoA(torch.ones((1, 64), dtype=torch.float64), torch.zeros((1, 64), dtype=torch.int32),
+                 (64, 64))
+    m1 = make_device_mesh(1, device="cpu")
+    with pytest.raises(ValueError, match="remainder-free"):
+        ShardedBandedMGSolver(BandedSplit(GridDIAMatrix(data, offs, (8, 8)), rem, 64), m1)
+    wide = offs[:-1] + ((2, 0),)
+    with pytest.raises(ValueError, match="9-point"):
+        ShardedBandedMGSolver(BandedSplit(GridDIAMatrix(data, wide, (8, 8)), None, 64), m1)

@@ -483,7 +483,7 @@ def test_soa_pipeline_matches_jax():
             close(got, assemble_matrix(ts_, L, device="cpu").vals, f"{name}: soa vs assemble_matrix", 1e-13)
 
 
-def test_lane_routed_ell_matches_jax():
+def test_lane_routed_ell_matches_jax(tmp_path):
     """LaneRoutedELL on K2 against JAX's lane-routed Pallas kernel on the
     scrambled n_side = 64 FEM ELL: f64 to rtol 1e-13, f32 tables to 1e-5
     of max|y|, bf16 tables within the JAX bf16 test's bound (2e-2 of
@@ -675,6 +675,72 @@ def test_lane_routed_ell_matches_jax():
     jc = jnp.asarray(const)
     assert bool(jnp.isnan((jc - jc.min()) / jnp.maximum(jc.max() - jc.min(), 1e-300)).all()), \
         "JAX's float32 guard no longer underflows"
+    _check_halo_ell_and_lane_match_jax(tmp_path)
+
+
+def _check_halo_ell_and_lane_match_jax(tmp_path):
+    """The halo ELL solvers on 4 gloo CPU ranks against JAX's on 4 virtual
+    devices (``torch_sharded.check_against_jax``: solutions within
+    max(rtol, 1e-12) max|x|, iterations equal within 1): HaloELLSolver on
+    the n = 24 irregular mesh at 1e-11 (tests/test_parallel.py:464);
+    HaloLaneSolver on the n = 40 block-scrambled mesh (S = 64, G = 19) at
+    1e-11 with Jacobi and at 1e-10 with the distributed aux grid
+    (grid_n = 16; :640): no remainder in the port, and the aux grid's
+    count below Jacobi's and within 2x + 2 of the single-device aux-PCG's
+    (JAX's bound)."""
+    from fdapde_core_tpu.parallel.halo_ell import HaloELLSolver as JHaloELL
+    from fdapde_core_tpu.parallel.halo_lane import HaloLaneSolver as JHaloLane
+    from fdapde_core_tpu_torch.parallel import HaloLaneSolver, make_device_mesh
+    from torch_sharded import check_against_jax
+
+    def ell_of(n):
+        x, y, c0, c1, c2, bnd = j_mesh_soa(n, 0.2, dtype=jnp.float64)
+        soa, _ = jms.MatrixFreeSoA.build(x, y, c0, c1, c2, (n + 1) ** 2, 8)
+        E, _ = soa.to_ell(9)
+        return x, y, E, bnd
+
+    def case(name, cls, E, bnd, rtol, maxiter, aux=None, kw=None):
+        b = np.asarray(jnp.where(bnd, 0.0, 1.0)) / (n_of[name] ** 2)
+        free = (~np.asarray(bnd)).astype(np.float64)
+        kind = "halo_ell" if cls is JHaloELL else "halo_lane"
+        spec = dict(kind=kind, vals=np.asarray(E.vals), cols=np.asarray(E.cols), b=b, free=free,
+                    rtol=rtol, maxiter=maxiter, aux=aux)
+
+        def jax_solve(dm):
+            jaux = None if aux is None else JAux.build(aux[0], aux[1], grid_n=aux[2],
+                                                       dtype=jnp.float64)
+            extra = {} if cls is JHaloELL else dict(aux=jaux, rounds=12)
+            x, _, k = cls(E, dm, **extra).solve(b, free, rtol=rtol, maxiter=maxiter)
+            return x, k
+        return name, spec, jax_solve, rtol, 1
+
+    n_of = {"HaloELLSolver": 24, "HaloLaneSolver": 40, "HaloLaneSolver aux": 40}
+    _, _, E24, bnd24 = ell_of(24)
+    x, y, E0, bnd = ell_of(40)
+    nd = 41 * 41
+    S, G = 64, 19
+    GI = pow(G, -1, S)
+    i = np.arange(nd)
+    nfull = (nd // S) * S
+    pm = np.where(i < nfull, (i // S) * S + (G * (i % S)) % S, i)
+    pinv = np.where(i < nfull, (i // S) * S + (GI * (i % S)) % S, i)
+    E = jms.ELLSoA(E0.vals[:, pinv], jnp.asarray(pm)[E0.cols[:, pinv]], (nd, nd))
+    bnd_s = bnd[pinv]
+    diag = np.asarray(jax.jit(lambda s_, m: JDirichlet(s_, m).diagonal())(E, bnd_s))
+    coords = np.stack([np.asarray(x)[pinv], np.asarray(y)[pinv]], axis=1)
+    cases = [case("HaloELLSolver", JHaloELL, E24, bnd24, 1e-11, 2000),
+             case("HaloLaneSolver", JHaloLane, E, bnd_s, 1e-11, 4000),
+             case("HaloLaneSolver aux", JHaloLane, E, bnd_s, 1e-10, 500, aux=(coords, diag, 16))]
+    got, _ = check_against_jax(tmp_path / "halo_ell", cases)
+    k_jacobi, k_aux = int(got[1]["N"]["k"]), int(got[2]["N"]["k"])
+    Et = ell_from_numpy(np.asarray(E.vals), np.asarray(E.cols), (nd, nd), device="cpu")
+    mask = torch.as_tensor(np.array(bnd_s))
+    assert HaloLaneSolver(Et, make_device_mesh(1, device="cpu")).n_remainder == 0
+    aux = AuxGridPreconditioner.build(coords, torch.as_tensor(np.array(diag)), grid_n=16,
+                                      dtype=torch.float64, device="cpu")
+    b = torch.where(mask, 0.0, 1.0).double() / 1600
+    _, info = tsol.cg(DirichletSystem(Et, mask), b, M_inv=aux, rtol=1e-10, maxiter=500)
+    assert k_aux < k_jacobi and k_aux <= 2 * info.iterations + 2, (k_aux, k_jacobi, info.iterations)
 
 
 def test_auxgrid_and_solvers_match_jax():

@@ -640,7 +640,7 @@ def test_entry_step_matches_jax():
     _check_cg_differentiable_matches_jax()
 
 
-def test_pde_solve_matches_jax(monkeypatch):
+def test_pde_solve_matches_jax(monkeypatch, tmp_path):
     """PDE(...).solve() on a jittered Delaunay mesh below 20,000 dofs with
     Jacobi, solver_preconditioner="auxgrid" and "amg": iteration counts
     equal, solutions to 1e-10 max|x|. SA-AMG's hierarchy against JAX's
@@ -854,6 +854,78 @@ def test_pde_solve_matches_jax(monkeypatch):
         with pytest.raises((AssertionError, RuntimeError)):
             fdt.PDE(mt, -fdt.laplacian()).init()
     _check_network_and_interval_pde_match_jax(monkeypatch)
+    _check_sharded_poisson_matches_jax(tmp_path)
+
+
+def _check_sharded_poisson_matches_jax(tmp_path):
+    """The element-sharded path on 4 gloo CPU ranks against JAX's on 4
+    virtual devices (``torch_sharded.check_against_jax``: solutions within
+    max(rtol, 1e-12) max|x|, iterations equal within 1): ShardedPoisson
+    segment (tests/test_parallel.py:61) and ELL (:78) at rtol 1e-13, a
+    space-varying reaction coefficient (:99), the aux grid (:437, 1e-10),
+    solve_elliptic_sharded's halo_dia strategy (:171, 1e-12); the gathered
+    local matrices scatter to JAX's assembled matrix (:120, 1e-12), and the
+    Morton order and padded partition equal JAX's (:21, :27)."""
+    from fdapde_core_tpu.models import solve_elliptic_sharded as j_driver
+    from fdapde_core_tpu.parallel import ShardedPoisson as JSharded
+    from fdapde_core_tpu.parallel import morton_order as j_morton
+    from fdapde_core_tpu.parallel import partition_elements as j_partition
+    from fdapde_core_tpu_torch.parallel import morton_order, partition_elements
+    from torch_sharded import check_against_jax
+
+    m8 = unit_square_mesh(8)
+    np.testing.assert_array_equal(morton_order(m8.cell_barycenters),
+                                  j_morton(j_unit_square(8).cell_barycenters))
+    for a, b in zip(partition_elements(unit_square_mesh(5), 8),
+                    j_partition(j_unit_square(5), 8)):
+        np.testing.assert_array_equal(a, b)
+
+    def mesh_spec(n):
+        mj = j_unit_square(n)
+        return mj, dict(nodes=mj.nodes, cells=mj.cells, boundary=mj.boundary_nodes)
+
+    def poisson_case(name, n, f, rtol, **opts):
+        mj, spec = mesh_spec(n)
+        space = JSpace(mj, 1)
+        coeff = opts.pop("reaction", None)
+        op = -fdm.laplacian() if coeff is None else -fdm.laplacian() + fdm.reaction(coeff)
+        b = np.asarray(ja.assemble_forcing(space, lambda x: f))
+        g = np.zeros(space.n_dofs)
+        spec.update(kind="sharded_poisson", b=b, g=g, rtol=rtol, maxiter=3000, reaction=coeff,
+                    **opts)
+        jopts = {k: v for k, v in opts.items() if k in ("spmv", "preconditioner")}
+
+        def jax_solve(dm):
+            x, _, k = JSharded(mj, 1, dm, operator=op, **jopts).solve(b, g, rtol=rtol, maxiter=3000)
+            return x, k
+        return name, spec, jax_solve, rtol, 1
+
+    mc = j_unit_square(10)
+    qn = JSpace(mc, 1).quadrature_nodes
+    c = (1.0 + qn[:, 0] + 0.5 * qn[:, 1]).reshape(-1)  # nq * cell + q layout
+    mj20, spec20 = mesh_spec(20)
+    xy = JSpace(mj20, 1).dof_coords
+    g20 = 1 - xy[:, 0] ** 2 - xy[:, 1] ** 2
+    spec20.update(kind="elliptic_sharded", forcing=4.0, g=g20, rtol=1e-12)
+
+    def jax_driver(dm):
+        x, info = j_driver(mj20, -fdm.laplacian(), lambda p: 4.0, g20, device_mesh=dm, rtol=1e-12)
+        assert info["strategy"] == "halo_dia"
+        return x, info["iterations"]
+
+    cases = [poisson_case("segment", 16, 1.0, 1e-13),
+             poisson_case("ell", 14, 2.0, 1e-13, spmv="ell"),
+             poisson_case("varying reaction", 10, 3.0, 1e-13, reaction=c),
+             poisson_case("auxgrid", 24, 1.0, 1e-10, preconditioner="auxgrid"),
+             poisson_case("assembly", 6, 1.0, 1e-12, assemble=True),
+             ("solve_elliptic_sharded", spec20, jax_driver, 1e-12, 1)]
+    got, _ = check_against_jax(tmp_path / "sharded_poisson", cases)
+    assert str(got[5]["N"]["strategy"]) == "halo_dia"
+    A = ja.assemble_matrix(JSpace(j_unit_square(6), 1), -fdm.laplacian()).toarray()
+    A_loc, dofs = got[4]["N"]["A_loc"], got[4]["N"]["dofs"]
+    dense = np.zeros_like(A)
+    np.add.at(dense, (np.repeat(dofs, 3, axis=1), np.tile(dofs, (1, 3))), A_loc.reshape(len(dofs), 9))
+    assert np.abs(dense - A).max() < 1e-12
 
 
 def _check_network_and_interval_pde_match_jax(monkeypatch):

@@ -204,9 +204,9 @@ def _check_utils_match_jax(tmp_path):
     JAX's, xprof_trace writes a trace of the block; the public names of
     JAX's utils, fem, pde and geometry on the port, their constants and
     helpers equal (tests/test_utils.py:107; log1pexp to 1e-12), and the
-    getattr diff over the JAX package leaves the multi-device names and
-    WindowedELL only. With io and checkpoints
-    (``_check_io_and_checkpoints_match_jax``)."""
+    getattr diff over the JAX package (parallel included) finds nothing
+    missing. With io and checkpoints (``_check_io_and_checkpoints_match_jax``)
+    and WindowedELL (``_check_windowed_ell_matches_jax``)."""
     import importlib
     import json
     import struct
@@ -229,6 +229,7 @@ def _check_utils_match_jax(tmp_path):
     from fdapde_core_tpu_torch.utils import shp_reader as tshp
 
     _check_io_and_checkpoints_match_jax(tmp_path)
+    _check_windowed_ell_matches_jax()
 
     def structures(bt, bf, shp):
         t = bt.BinaryTree()
@@ -356,7 +357,7 @@ def _check_utils_match_jax(tmp_path):
 
     missing = {n for n in public(jtop) if not hasattr(fdt, n)}
     for sub in ("fem", "fields", "geometry", "linear_algebra", "models", "native", "ops",
-                "optimization", "pde", "splines", "utils"):
+                "optimization", "parallel", "pde", "splines", "utils"):
         jm, tm = importlib.import_module(f"fdapde_core_tpu.{sub}"), getattr(fdt, sub)
         for n in public(jm):
             attr = getattr(jm, n)
@@ -364,8 +365,58 @@ def _check_utils_match_jax(tmp_path):
                 continue  # a third-party module the JAX package imported
             if not hasattr(tm, n):
                 missing.add(f"{sub}.{n}")
-    assert missing == {"parallel", "models.ShardedPoisson", "models.solve_elliptic_sharded",
-                       "ops.WindowedELL"}, sorted(missing)
+    assert not missing, sorted(missing)
+
+
+def _check_windowed_ell_matches_jax():
+    """WindowedELL against JAX's on tests/test_window_spmv.py's scattered
+    SPD ELL (n = 700, K = 7, band 97; n = 300, band 40; n = 900, band 120):
+    the product equal to ELLSoA @ x bitwise and to JAX's WindowedELL to
+    1e-13 relative, the diagonal equal, the same 128-aligned halo B and
+    block layout, window_bandwidth equal; a Dirichlet CG through it to the
+    dense solution (1e-8); astype(float32) against the f32 ELL to 1e-6;
+    plan_split_width rejects the band in both packages."""
+    from test_window_spmv import _scattered_spd_ell
+    from fdapde_core_tpu.ops.dia_split import plan_split_width as j_plan
+    from fdapde_core_tpu.ops.window_spmv import WindowedELL as JWindowed
+    from fdapde_core_tpu.ops.window_spmv import window_bandwidth as j_window_bandwidth
+    from fdapde_core_tpu_torch.fem.solvers import DirichletSystem
+    from fdapde_core_tpu_torch.interop import ell_from_numpy
+    from fdapde_core_tpu_torch.linear_algebra.solvers import cg_chunked
+    from fdapde_core_tpu_torch.ops import WindowedELL, window_bandwidth
+    from fdapde_core_tpu_torch.ops.dia_split import plan_split_width
+
+    rng = np.random.default_rng(0)
+    for n, band, rows in ((700, 97, 128), (300, 40, 64), (900, 120, 128)):
+        Ej, A = _scattered_spd_ell(n, B=band)
+        E = ell_from_numpy(np.asarray(Ej.vals), np.asarray(Ej.cols), (n, n), device="cpu")
+        W, Wj = WindowedELL.from_ell(E, block_rows=rows), JWindowed.from_ell(Ej, block_rows=rows)
+        assert (W.B, W.R, W.nb) == (Wj.B, Wj.R, Wj.nb) and W.B % 128 == 0
+        assert int(window_bandwidth(E.cols)) == int(j_window_bandwidth(Ej.cols)) <= band
+        np.testing.assert_array_equal(W.idx.numpy(), np.asarray(Wj.idx))
+        v = rng.standard_normal(n)
+        assert torch.equal(W @ torch.from_numpy(v), E @ torch.from_numpy(v)), n
+        assert _rel(W @ torch.from_numpy(v), Wj @ jnp.asarray(v)) <= 1e-13
+        assert torch.equal(W.diagonal(), E.diagonal())
+        if band == 120:  # the scattered histogram the split plan rejects, in both packages
+            assert plan_split_width(E)[0] is None and j_plan(Ej)[0] is None
+    W32 = W.astype(torch.float32)
+    ones = torch.ones(n, dtype=torch.float32)
+    np.testing.assert_allclose((W32 @ ones).numpy(), (E.astype(torch.float32) @ ones).numpy(),
+                               rtol=1e-6)
+    # a Dirichlet CG through the windowed operator (n = 700)
+    Ej, A = _scattered_spd_ell(700)
+    W = WindowedELL.from_ell(ell_from_numpy(np.asarray(Ej.vals), np.asarray(Ej.cols), (700, 700),
+                                            device="cpu"), block_rows=128)
+    bnd = torch.zeros(700, dtype=torch.bool)
+    bnd[[0, 699]] = True
+    sys_w = DirichletSystem(W, bnd)
+    x, info = cg_chunked(sys_w, torch.where(bnd, 0.0, 1.0).double(), rtol=1e-12, maxiter=900,
+                         chunk=100)
+    free = ~bnd.numpy()
+    xs = np.zeros(700)
+    xs[free] = np.linalg.solve(A[np.ix_(free, free)], np.ones(free.sum()))
+    np.testing.assert_allclose(x.numpy(), xs, rtol=1e-8, atol=1e-9)
 
 
 def test_regression_path_matches_jax(tmp_path):
@@ -470,7 +521,7 @@ def test_regression_path_matches_jax(tmp_path):
     _check_utils_match_jax(tmp_path)
 
 
-def test_space_time_matches_jax():
+def test_space_time_matches_jax(tmp_path):
     """SpaceTimeSmoothing (coefficients, predictions, a fitted JAX model
     carried across), the solve_space_time escalation of
     tests/test_recovery.py on both packages, solve_space_time_fdm against
@@ -593,3 +644,59 @@ def test_space_time_matches_jax():
     K = kron(tm.Mt, tm.Ms)
     assert _rel(K.toarray(), np.kron(tm.Mt.toarray(), tm.Ms.toarray())) <= 1e-14
     assert isinstance(K, SparseMatrix)
+    _check_sharded_space_time_matches_jax(tmp_path)
+
+
+def _check_sharded_space_time_matches_jax(tmp_path):
+    """The time-sharded Kronecker CG and the mode-parallel FDM on 4 gloo CPU
+    ranks against JAX's on 4 virtual devices
+    (``torch_sharded.check_against_jax``: solutions within max(rtol, 1e-12)
+    max|x|, iterations equal within 1): ShardedSpaceTime over
+    unit_square_mesh(5) x 19 instants at 1e-12, H = 1
+    (tests/test_parallel.py:392); solve_space_time_fdm(device_mesh=) on
+    unit_square_mesh(8) x 11 instants at 1e-8 (__graft_entry__.py:288)."""
+    from fdapde_core_tpu.fem import assembler as ja
+    from fdapde_core_tpu.fem.solvers import masked_matrix as j_masked
+    from fdapde_core_tpu.fem.space import FEMSpace as JSpace
+    from fdapde_core_tpu.parallel.space_time import ShardedSpaceTime as JShardedST
+    from torch_sharded import check_against_jax
+
+    def sparse(S):
+        return (np.asarray(S.rows), np.asarray(S.cols), np.asarray(S.vals), S.shape)
+
+    def time_factors(n_t):
+        stiff = np.diag(2.0 * np.ones(n_t)) - np.diag(np.ones(n_t - 1), 1) - np.diag(
+            np.ones(n_t - 1), -1)
+        mass = (np.diag(4.0 * np.ones(n_t)) + np.diag(np.ones(n_t - 1), 1)
+                + np.diag(np.ones(n_t - 1), -1)) / 6.0
+        return mass, stiff
+
+    space5 = JSpace(j_unit_square(5), 1)
+    S_stiff = ja.assemble_matrix(space5, -fdm.laplacian())
+    S_mass = ja.assemble_matrix(space5, fdm.reaction(1.0))
+    T_mass, T_stiff = time_factors(19)
+    terms = [(T_mass, S_stiff), (T_stiff, S_mass)]
+    b = np.random.default_rng(11).normal(size=19 * space5.n_dofs)
+
+    def jax_st(dm):
+        solver = JShardedST(terms, dm)
+        assert solver.H == 1
+        x, _, k = solver.solve(jnp.asarray(b), rtol=1e-12)
+        return x, k
+
+    space8 = JSpace(j_unit_square(8), 1)
+    A8 = ja.assemble_matrix(space8, -fdm.laplacian())
+    M8 = ja.assemble_matrix(space8, fdm.reaction(1.0))
+    S1m = j_masked(A8, jnp.asarray(space8.boundary_dofs))
+    T0, T1 = time_factors(11)
+    bst = np.ones(11 * space8.n_dofs)
+
+    def jax_fdm(dm):
+        x, info = jst.solve_space_time_fdm(T0, T1, M8, S1m, bst, rtol=1e-8, device_mesh=dm)
+        return x, int(info.iterations)
+
+    cases = [("ShardedSpaceTime", dict(kind="space_time", terms=[(T, sparse(S)) for T, S in terms],
+                                       b=b, rtol=1e-12, maxiter=20000), jax_st, 1e-12, 1),
+             ("FDM mode-parallel", dict(kind="fdm", T0=T0, T1=T1, S0=sparse(M8), S1=sparse(S1m),
+                                        b=bst, rtol=1e-8), jax_fdm, 1e-8, 1)]
+    check_against_jax(tmp_path / "space_time", cases)
