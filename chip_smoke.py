@@ -25,8 +25,14 @@ Phases (each raises on failure; nothing is caught):
    on the card, on the n = 3200 P1 operator of the block-scrambled
    irregular mesh (10.25M rows, built by the port's own pipeline): float32,
    float64 and bfloat16 values, and a rectangular case (n_src != n, n not
-   a multiple of the block); per-row tolerance K eps(acc) sum_k |vals x|;
-   bitwise stable; both timed with CUDA events in float32 and float64;
+   a multiple of the block), and float32 values against a float64 x
+   (widened in the kernel: equal bitwise to the float64 launch on the
+   converted table); per-row tolerance K eps(acc) sum_k |vals x|; bitwise
+   stable; the square tables with their warp widths (warp_w: each 32 rows
+   read the slots their widest row uses), equal bitwise to the launch
+   without; timed with and without the widths with CUDA events in float32
+   and float64 beside torch.sparse CSR of the stored entries, against the
+   bound on the stored entries (and, labelled, on the slots read);
 8. drive the general-mesh main path: MatrixFreeElliptic(K=1,
    gather_kernel="lane") on the scrambled n = 3200 mesh with the default
    preconditioner="auto" (the band plan must reject the numbering, so the
@@ -164,9 +170,11 @@ Phases (each raises on failure; nothing is caught):
     plus its rounding floor, twice bitwise equal; ELL @ v equals the port's
     assembled P2 matrix of -Laplace + 1 (assemble_matrix on the card) to
     1e-12 relative with the same entry count; K2 on the (49, n) P2 ELL
-    against its plain version within the per-row bound, timed against its
-    bound, and k2_table on the assembled matrix (sliced form, the compact
-    table padded to the longest row, CSR, plain); P2 reproduces
+    with its warp widths (k2_ell_table: against its plain version within
+    the per-row bound, == the launch without the widths, timed with and
+    without them against CSR, plain and its bound), and k2_table on the
+    assembled matrix (sliced form, the compact table padded to the longest
+    row with and without its warp widths, CSR, plain); P2 reproduces
     u = x^2 + y^2 on delaunay_mesh(256) to 1e-8 max|u| at rtol 1e-10;
 25. bench.py's gendel: a jittered 284^2 Delaunay base (seed 11) refined
     three times on the card (uniform_refine_device, Euler witness) to
@@ -181,8 +189,8 @@ Phases (each raises on failure; nothing is caught):
     (float32), K2 on its P within the per-row bound, the P stage timed
     against the plain gather it replaces, a torch.sparse CSR SpMV and its
     plain version; K2 on the (13, n) P1 ELL, the f32 table of the inner CG
-    and the f64 one of the outer residuals, within the per-row bound,
-    timed against a CSR SpMV, its plain version and its bounds;
+    and the f64 one of the outer residuals, with their warp widths
+    (k2_ell_table);
     the right-hand side where(bnd, 0, 1) / n solved at rtol 1e-8 (chunk 16)
     converges with the true residual recomputed in f64, twice bitwise
     equal;
@@ -196,8 +204,8 @@ Phases (each raises on failure; nothing is caught):
     within 1e-9 plus its rounding floor, twice bitwise equal; the split
     equals the ELL within the per-row bound; Jacobi CG rates of the f32
     folded split and the f32 ELL on K2; K2 on the (16, n) ELL in f64 and
-    f32 against its plain version within the per-row bound, timed against
-    its bound, CSR and plain; u = x + 2y - z reproduced to 1e-9 max|u|;
+    f32 with its warp widths (k2_ell_table); u = x + 2y - z reproduced to
+    1e-9 max|u|;
 27. a block-scrambled relabelling of phase 26's mesh through
     MatrixFreeElliptic(K=1, gather_kernel="lane", "auto"): "auxgrid+lane"
     with an AuxGridPreconditioner3D over 128^3 cells; its apply against the
@@ -290,13 +298,20 @@ Phases (each raises on failure; nothing is caught):
     phase 19's FDM (bitwise); dryrun_multichip at N = 1 (12 paths). Each
     solution is held to 2 kappa rtol max|x| of its single-device twin
     (kappa = 4 n^2 / pi^2, see kappa_p1) and its iterations to 10 %; K7 on
-    the halo-padded table and K2 on the halo-extended one against their
-    plain versions (per-row bound), timed; K2, K6 and K7 launches by path.
+    the halo-padded table and K2 on the halo-extended one (with the
+    shard's warp widths, == the launch without) against their plain
+    versions (per-row bound), timed beside torch.sparse CSR; K2, K6 and K7
+    launches by path. The solves of phases 8, 24, 25, 26 and 32's
+    HaloELLSolver take ITERATIONS_KEPT's counts.
 
 Prints one JSON line of per-kernel results (each with its bound on the
 card from this run's shapes: bytes over 3.35 TB/s or operations over the
 type's peak, whichever is larger; K2's entry is the compact (9, 10.25M)
-ELL of phase 7, with the sliced form on phase 18's Psi^T under "sliced",
+ELL of phase 7 with its warp widths ("full_ms" without them), the P2
+and gendel ELLs with and without their widths under "compact", float32
+values against a float64 x under "mixed" (with that kernel's launches
+in phases 8-32), with the sliced form on phase
+18's Psi^T under "sliced",
 the 3D ELL of phase 26 under "ell_3d", the 3D aux grid's P and P^T of
 phase 27 under "aux_3d", the launches of its backward in phases 28-30
 under "launches_backward" and phase 30's backward product under
@@ -424,6 +439,10 @@ N_INTERVAL = 2 ** 17
 N_INTERVAL_P2 = 2 ** 15
 INTERVAL_JAX_RUNG = ("amg", 1089)
 N_IO_MESH = 256  # (d): delaunay_mesh(256), 66,049 dofs
+# the iterations these solves took on the card with K2's compact form
+# reading every slot (NVIDIA H100 80GB HBM3, 700 W): reading each warp's
+# slots only to its width changes no sum, so the counts stay
+ITERATIONS_KEPT = {"genscat": 75, "P2": 23, "gendel": 128, "gen3d": 10, "HaloELLSolver": 2920}
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the vector (non-tensor
 # core) peaks of the types these kernels compute in
 HBM_BYTES_PER_S = 3.35e12
@@ -661,28 +680,46 @@ def ell_nnz(E):
     return K * n - (int((E.cols == rows[None, :]).sum()) - n)
 
 
-def ell_csr(V, C):
-    """A torch.sparse CSR tensor of a square compact (K, n) ELL's stored
-    entries: the padding (col = row after the row's diagonal) is left out."""
+def ell_csr(V, C, pad=None, n_src=None):
+    """A torch.sparse CSR tensor of a compact (K, n) ELL's stored entries:
+    the padding (col = pad, by default the row, after the row's first entry
+    in that column) is left out. n_src: the operand's length (default n)."""
     n = V.shape[1]
-    diag = C == torch.arange(n, dtype=C.dtype, device=C.device)[None, :]
+    if pad is None:
+        pad = torch.arange(n, dtype=C.dtype, device=C.device)
+    diag = C == pad[None, :]
     keep = (~diag | (torch.cumsum(diag, 0) == 1)).T
     crow = torch.zeros(n + 1, dtype=torch.int64, device=C.device)
     crow[1:] = torch.cumsum(keep.sum(1), 0)
-    return torch.sparse_csr_tensor(crow, C.T[keep].long(), V.T[keep], (n, n), check_invariants=False)
+    return torch.sparse_csr_tensor(crow, C.T[keep].long(), V.T[keep], (n, n_src or n),
+                                   check_invariants=False)
 
 
-def k2_compact_check(gs, name, V, C, x):
-    """K2's compact form on the (K, n) table (V, C) at x against its plain
-    version within the per-row bound K eps(acc) sum_k |v x|, bitwise stable.
-    Returns (max|kernel - plain|, max err / bound)."""
-    acc = gs.accumulation_dtype(V.dtype)
-    got, ref = gs.ell_spmv(V, C, x), gs.ell_spmv_reference(V, C, x)
+def slots_read(gs, warp_w, n):
+    """The slots K2's compact form reads with these warp widths: each of
+    the n rows its warp's width."""
+    w = warp_w.long()
+    if w.numel() == 0:
+        return 0
+    return gs.WARP * int(w.sum()) - (w.numel() * gs.WARP - n) * int(w[-1])
+
+
+def k2_compact_check(gs, name, V, C, x, warp_w=None):
+    """K2's compact form on the (K, n) table (V, C) at x, with warp widths
+    where given, against its plain version (every slot) within the per-row
+    bound K eps(acc) sum_k |v x|, bitwise stable, and with widths equal
+    (torch.equal) to the launch without them. Returns (max|kernel -
+    plain|, max err / bound)."""
+    acc = x.dtype
+    got, ref = gs.ell_spmv(V, C, x, warp_w), gs.ell_spmv_reference(V, C, x)
     bound = V.shape[0] * torch.finfo(acc).eps * gs.ell_spmv_reference(V.abs(), C, x.abs())
     err = (got - ref).abs()
     check(bool((err <= bound).all()), f"K2 on {name} disagrees with its plain version")
     check(bool(torch.isfinite(got).all()), f"K2 on {name} produced non-finite values")
-    check(torch.equal(got, gs.ell_spmv(V, C, x)), f"K2 on {name} is not bitwise stable")
+    check(torch.equal(got, gs.ell_spmv(V, C, x, warp_w)), f"K2 on {name} is not bitwise stable")
+    if warp_w is not None:
+        check(torch.equal(got, gs.ell_spmv(V, C, x)),
+              f"K2 on {name} with its warp widths differs from the launch without them")
     return err.max().item(), (err / bound.clamp_min(torch.finfo(acc).tiny)).max().item()
 
 
@@ -701,47 +738,73 @@ def phase_k2_vs_plain(gs):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     K, n = E64.vals.shape
     n_rect, n_src = n - 77, n + 333  # n_rect is not a multiple of the 256-row block
+    W = E64.warp_w
+    check(W is not None, "the scrambled ELL came without its warp widths")
     cases = {
-        "float32": (E64.vals.float(), E64.cols, n),
-        "float64": (E64.vals, E64.cols, n),
-        "bfloat16": (E64.vals.bfloat16(), E64.cols, n),
+        "float32": (E64.vals.float(), E64.cols, n, torch.float32, W),
+        "float64": (E64.vals, E64.cols, n, torch.float64, W),
+        "bfloat16": (E64.vals.bfloat16(), E64.cols, n, torch.float32, W),
+        "float32 values, float64 x": (E64.vals.float(), E64.cols, n, torch.float64, W),
         "float32 rectangular": (
             E64.vals[:, :n_rect].float().contiguous(),
             ((E64.cols[:, :n_rect].long() * 7 + 3) % n_src).to(torch.int32).contiguous(),
-            n_src,
+            n_src, torch.float32, None,
         ),
     }
+    read, nnz = slots_read(gs, W, n), ell_nnz(E64)
     out = {}
-    for name, (V, C, src) in cases.items():
-        acc = gs.accumulation_dtype(V.dtype)
+    for name, (V, C, src, acc, ww) in cases.items():
         xv = torch.rand(src, generator=gen, dtype=torch.float64, device=DEVICE).to(acc) - 0.5
-        err, ratio = k2_compact_check(gs, name, V, C, xv)
-        log(f"K2 {name} ({V.shape[0]}, {V.shape[1]}) n_src={src}: max|kernel-plain| = "
+        err, ratio = k2_compact_check(gs, name, V, C, xv, ww)
+        log(f"K2 {name} ({V.shape[0]}, {V.shape[1]}) n_src={src}"
+            f"{'' if ww is None else ', with its warp widths'}: max|kernel-plain| = "
             f"{err:.3e}, max err/bound = {ratio:.3e}")
+        if name == "float32 values, float64 x":
+            # the float64 launch on the converted table, as ELLSoA @ ran
+            # before the kernel widened float32 values itself
+            convert = lambda: gs.ell_spmv(V.double(), C, xv, W)  # noqa: E731
+            same = torch.equal(gs.ell_spmv(V, C, xv, W), convert())
+            check(same, "K2 on float32 values and a float64 x differs from the converted table's")
+            m1, c1 = time_ms(lambda: gs.ell_spmv(V, C, xv, W), 50), time_ms(convert, 50)
+            m2, c2 = time_ms(lambda: gs.ell_spmv(V, C, xv, W), 50), time_ms(convert, 50)
+            log(f"K2 {name} n={N_MAIN}: == the float64 launch on the converted table: {same}; "
+                f"kernel {m1:.4f} / {m2:.4f} ms, conversion + float64 kernel {c1:.4f} / {c2:.4f} ms")
+            out[name] = dict(max_abs_err=err, ms=(m1 + m2) / 2, convert_ms=(c1 + c2) / 2)
         if name in ("float32", "float64"):
             ref = gs.ell_spmv_reference(V, C, xv)
             # the same product as one library call: a CSR SpMV through
-            # torch.sparse on the same K entries per row (timed, never used)
-            csr = torch.sparse_csr_tensor(
-                torch.arange(0, K * n + 1, K, dtype=torch.int64, device=DEVICE),
-                C.T.contiguous().reshape(-1).long(), V.T.contiguous().reshape(-1), (n, src),
-                check_invariants=False)
+            # torch.sparse on the table's stored entries (timed, never used)
+            csr = ell_csr(V, C)
             lib_err = (csr @ xv - ref).abs().max().item()
-            kernel = lambda: gs.ell_spmv(V, C, xv)  # noqa: E731
+            kernel = lambda: gs.ell_spmv(V, C, xv, W)  # noqa: E731
+            full = lambda: gs.ell_spmv(V, C, xv)  # noqa: E731
             plain = lambda: gs.ell_spmv_reference(V, C, xv)  # noqa: E731
             library = lambda: csr @ xv  # noqa: E731
-            k1, p1, l1 = time_ms(kernel, 50), time_ms(plain, 5), time_ms(library, 50)
-            k2, p2, l2 = time_ms(kernel, 50), time_ms(plain, 5), time_ms(library, 50)
+            k1, f1, p1, l1 = (time_ms(kernel, 50), time_ms(full, 50), time_ms(plain, 5),
+                              time_ms(library, 50))
+            k2, f2, p2, l2 = (time_ms(kernel, 50), time_ms(full, 50), time_ms(plain, 5),
+                              time_ms(library, 50))
             ms, plain_ms, library_ms = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
             del csr
-            nbytes = K * n * (V.element_size() + 4) + 2 * n * xv.element_size()
-            b = least_time(nbytes, 2 * K * n, V.dtype)
-            log(f"K2 {name} n={N_MAIN}: kernel {k1:.4f} / {k2:.4f} ms "
-                f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes / 1e9:.3f} GB computed), "
-                f"plain {p1:.4f} / {p2:.4f} ms, torch.sparse CSR {l1:.4f} / {l2:.4f} ms "
-                f"(max|csr-plain| {lib_err:.3e}); bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
-    return out["float32"]
+            # the bound on the entries the table stores; the slots the
+            # kernel reads (its warps' widths) give a second, labelled one
+            vb, xb = V.element_size(), xv.element_size()
+            nbytes = nnz * (vb + 4) + 2 * n * xb
+            b = least_time(nbytes, 2 * nnz, V.dtype)
+            b_read = least_time(read * (vb + 4) + 2 * n * xb, 2 * read, V.dtype)
+            log(f"K2 {name} n={N_MAIN}: kernel with warp widths {k1:.4f} / {k2:.4f} ms "
+                f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of {nbytes / 1e9:.3f} GB for its {nnz} "
+                f"stored entries; {read / nnz:.4f} slots read per entry with the widths, "
+                f"{K * n / nnz:.4f} without), without {f1:.4f} / {f2:.4f} ms, plain {p1:.4f} / "
+                f"{p2:.4f} ms, torch.sparse CSR of the stored entries {l1:.4f} / {l2:.4f} ms "
+                f"(max|csr-plain| {lib_err:.3e}); bound on the stored entries "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {100 * b['bound_ms'] / ms:.0f} %), "
+                f"on the {read} slots read {b_read['bound_ms']:.4f} ms "
+                f"({100 * b_read['bound_ms'] / ms:.0f} %)")
+            out[name] = dict(max_abs_err=err, ms=ms, full_ms=(f1 + f2) / 2, plain_ms=plain_ms,
+                             library_ms=library_ms, slots_per_entry=read / nnz,
+                             read_bound_ms=b_read["bound_ms"], **b)
+    return out["float32"], out["float32 values, float64 x"]
 
 
 def true_rel_residual(E, bnd, x, b_mod, gs):
@@ -868,7 +931,8 @@ def phase_general_main_path(ak, gs):
     rel_check = true_rel_residual(model.op_ref, bnd, xs, torch.where(bnd, 0.0, b), gs)
     log(f"general main path: recomputed true rel residual {rel_check:.4e}")
     check(rel <= 1e-8 and rel_check <= 1e-8, "lane refined solve did not reach 1e-8")
-    check(its <= 150, f"lane refined solve took {its} > 150 inner iterations")
+    check(its == ITERATIONS_KEPT["genscat"], f"lane refined solve took {its} inner iterations, "
+                                             f"not {ITERATIONS_KEPT['genscat']}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     TWINS["genscat"] = (xs.cpu(), its)
     return launches
@@ -1372,7 +1436,9 @@ def today_route(gs, S, X):
     comparison: S's (D, n) ELL, every row padded to the longest (value 0,
     column 0), and for a block the ELL of I_c (x) S (c copies of the table,
     copy j reading column j), applied to the (k, n_src) transpose of X.
-    Returns (a closure computing S @ X that way, the padding ratio)."""
+    Returns (a closure computing S @ X that way, the padding ratio, for a
+    vector a closure running the same (D, n) table with its warp widths
+    (each 32 rows read the slots their longest row fills), else None)."""
     n, n_src = S.shape
     ptr = torch.searchsorted(S.rows.long(), torch.arange(n + 1, device=DEVICE))
     lens = ptr[1:] - ptr[:-1]
@@ -1383,7 +1449,9 @@ def today_route(gs, S, X):
     cols = torch.where(live, S.cols[idx], 0).to(torch.int32).contiguous()
     D = vals.shape[0]
     if X.dim() == 1:
-        return (lambda: gs.ell_spmv(vals, cols, X)), D * n / S.nnz
+        ww = gs.warp_widths(lens)
+        return ((lambda: gs.ell_spmv(vals, cols, X)), D * n / S.nnz,
+                (lambda: gs.ell_spmv(vals, cols, X, ww)))
     k = X.shape[1]
     c = max(1, min(k, (1 << 24) // max(1, D * n), (2**31 - 1) // max(1, n_src)))
     step = torch.arange(c, dtype=torch.int32, device=DEVICE) * n_src
@@ -1400,7 +1468,7 @@ def today_route(gs, S, X):
             out.append(gs.ell_spmv(*tables[cj], xt[j:j + cj].reshape(-1)).reshape(cj, n))
         return (out[0] if len(out) == 1 else torch.cat(out)).T
 
-    return run, D * n / S.nnz
+    return run, D * n / S.nnz, None
 
 
 def k2_table(gs, name, S, k=1, transposed=False, race=True):
@@ -1411,12 +1479,13 @@ def k2_table(gs, name, S, k=1, transposed=False, race=True):
     bitwise stable; each block column equal to the vector launch on that
     column; equal to today's route (one thread per row either way); with
     ``race``, not slower than today's route (off for tables so small that
-    both are one launch's latency). Times,
-    by CUDA events, two alternating runs after a warm-up: the kernel,
-    today's route (the (D, n) ELL or the I_c (x) S copies, built here), a
-    torch.sparse CSR product (cuSPARSE SpMV or SpMM, timed, never used) and
-    the plain version; the bound counts each stored entry once (12 B), X
-    and Y once. Returns the measurements."""
+    both are one launch's latency); for a vector, that (D, n) table with its
+    warp widths equal to it too. Times, by CUDA events, two alternating runs
+    after a warm-up: the kernel, today's route (the (D, n) ELL or the I_c
+    (x) S copies, built here), for a vector the (D, n) table with its warp
+    widths on K2's compact form, a torch.sparse CSR product (cuSPARSE SpMV
+    or SpMM, timed, never used) and the plain version; the bound counts each
+    stored entry once (12 B), X and Y once. Returns the measurements."""
     A = S.sliced(torch.float64)
     n, n_src = S.shape
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
@@ -1437,17 +1506,22 @@ def k2_table(gs, name, S, k=1, transposed=False, race=True):
         columns = f"all {k} block columns == their vector launches: {torch.equal(got, per_column)}"
         check(torch.equal(got, per_column), f"K2 on {name}: a block column differs from its vector launch")
         del per_column
-    old, old_padding = today_route(gs, S, X)
+    old, old_padding, compact = today_route(gs, S, X)
     same = torch.equal(got, old())
     check(same, f"K2 on {name} differs from today's route")
+    if compact is not None:
+        check(torch.equal(compact(), got), f"K2 compact with warp widths on {name} differs")
 
     csr = csr_of(S.with_vals(S.vals.double()))
     lib_err = (csr @ X - ref).abs().max().item()
     kernel, library = (lambda: S @ X), (lambda: csr @ X)
     n1, o1, l1 = time_ms(kernel, 30), time_ms(old, 30), time_ms(library, 30)
+    w1 = None if compact is None else time_ms(compact, 30)
     n2, o2, l2 = time_ms(kernel, 30), time_ms(old, 30), time_ms(library, 30)
+    w2 = None if compact is None else time_ms(compact, 30)
     plain_ms = time_ms(lambda: gs.sliced_ell_spmm_reference(A, X), 3)
     ms, old_ms, library_ms = (n1 + n2) / 2, (o1 + o2) / 2, (l1 + l2) / 2
+    compact_ms = None if compact is None else (w1 + w2) / 2
     del csr
     check(ms <= old_ms or not race, f"K2 sliced on {name} ({ms:.4f} ms) is slower than today's "
                                     f"route ({old_ms:.4f} ms)")
@@ -1458,12 +1532,14 @@ def k2_table(gs, name, S, k=1, transposed=False, race=True):
         f"{A.padding_ratio():.3f} (width {A.width}; today's {old_padding:.3f}); max|kernel-plain| "
         f"{err.max().item():.3e} within the bound; bitwise stable {stable}; {columns}; == today's "
         f"route {same}; kernel {n1:.4f} / {n2:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of "
-        f"{nbytes / 1e9:.4f} GB), today's route {o1:.4f} / {o2:.4f} ms ({old_ms / ms:.2f}x), "
-        f"torch.sparse CSR {l1:.4f} / {l2:.4f} ms (max|csr-plain| {lib_err:.3e}), plain "
+        f"{nbytes / 1e9:.4f} GB), today's route {o1:.4f} / {o2:.4f} ms ({old_ms / ms:.2f}x)"
+        + ("" if compact is None else f", that table with its warp widths {w1:.4f} / {w2:.4f} ms "
+                                      f"({compact_ms / ms:.2f}x)")
+        + f", torch.sparse CSR {l1:.4f} / {l2:.4f} ms (max|csr-plain| {lib_err:.3e}), plain "
         f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
         f"{100 * b['bound_ms'] / ms:.0f} %)")
     return dict(table=f"{name} {tuple(S.shape)}", max_abs_err=err.max().item(), ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, today_ms=old_ms,
+                plain_ms=plain_ms, library_ms=library_ms, today_ms=old_ms, compact_ms=compact_ms,
                 padding=A.padding_ratio(), **b)
 
 
@@ -2062,7 +2138,8 @@ def phase_p2(ak, gs, pts, cells, bnd):
     c=1, max_degree=16) on the aux grid, the solve to 1e-8 twice, the ELL
     against the assembled -Laplace + 1, K2 on the P2 ELL in both forms, and
     the quadratic reproduction at nx = 256. Returns ({path: K2 launches},
-    the order-2 space, its scatter tables built, for phase 29)."""
+    the order-2 space, its scatter tables built, for phase 29, and K2's
+    compact form on the P2 ELL)."""
     import fdapde_core_tpu_torch as fdt
     from fdapde_core_tpu_torch.fem import FEMSpace, assemble_matrix
     from fdapde_core_tpu_torch.models import MatrixFreeElliptic
@@ -2103,6 +2180,8 @@ def phase_p2(ak, gs, pts, cells, bnd):
     check(float(rel) <= 1e-8 and rel_check <= 1e-8 + floor and bool(torch.isfinite(x).all()),
           "the P2 solve did not reach 1e-8")
     check(its2 == its and torch.equal(x, x2), "the repeated P2 solve differs from the first")
+    check(its == ITERATIONS_KEPT["P2"], f"the P2 solve took {its} iterations, not "
+                                        f"{ITERATIONS_KEPT['P2']}")
     check(out["P2 from_space solve"] > 0, "the P2 path never launched K2")
     del x, x2
 
@@ -2123,22 +2202,10 @@ def phase_p2(ak, gs, pts, cells, bnd):
     check(A.nnz == nnz, f"the P2 ELL holds {nnz} entries, the assembled matrix {A.nnz}")
     check(wit <= 1e-12, "the P2 ELL differs from the assembled matrix")
 
-    # K2 on the P2 ELL: the compact (49, n) table against its plain version,
-    # timed beside the same matrix in the sliced form (k2_table, whose
+    # K2 on the P2 ELL: the model's compact (49, n) table with its warp
+    # widths, beside the same matrix in the sliced form (k2_table, whose
     # "today's route" is the compact table padded to the longest row)
-    err, ratio = k2_compact_check(gs, "the P2 ELL", E.vals, E.cols, v)
-    kernel = lambda: gs.ell_spmv(E.vals, E.cols, v)  # noqa: E731
-    plain = lambda: gs.ell_spmv_reference(E.vals, E.cols, v)  # noqa: E731
-    c1, p1 = time_ms(kernel, 20), time_ms(plain, 3)
-    c2, p2 = time_ms(kernel, 20), time_ms(plain, 3)
-    ms = (c1 + c2) / 2
-    b_nnz = least_time(nnz * 12 + 2 * n * 8, 2 * nnz, torch.float64)
-    b_read = least_time(K * n * 12 + 2 * n * 8, 2 * K * n, torch.float64)
-    log(f"24 K2 compact on the P2 ELL ({K}, {n}) f64: max|kernel-plain| {err:.3e} (max err/bound "
-        f"{ratio:.3e}), bitwise stable; kernel {c1:.4f} / {c2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
-        f"bound on its {nnz} entries {b_nnz['bound_ms']:.4f} ms ({b_nnz['bound_by']}, "
-        f"{100 * b_nnz['bound_ms'] / ms:.0f} %), on the {K * n} slots it reads "
-        f"{b_read['bound_ms']:.4f} ms ({100 * b_read['bound_ms'] / ms:.0f} %)")
+    table = k2_ell_table(gs, "24 the P2 ELL", E, v)
     k2_table(gs, "the assembled P2 matrix", A, race=False)
     del A, E, model, v, ya, ye
     torch.cuda.empty_cache()
@@ -2157,7 +2224,7 @@ def phase_p2(ak, gs, pts, cells, bnd):
         f"max|x - u| / max|u| = {errq:.3e} ({itq} iterations, rel {float(relq):.3e}, "
         f"{mq.preconditioner}); K2 launches {out['P2 quadratic']}")
     check(errq <= 1e-8, "P2 does not reproduce x^2 + y^2 to 1e-8")
-    return out, space
+    return out, space, table
 
 
 def phase_lane_aux(ak, gs):
@@ -2165,8 +2232,8 @@ def phase_lane_aux(ak, gs):
     Delaunay base red-refined on the card, strip-renumbered, then
     MatrixFreeElliptic(gather_kernel="lane", aux_kernel="lane") with its
     LaneAuxGrid: the apply against the plain one, K2 on P and on the P1
-    ELL (f32 and f64), the refined solve to 1e-8 twice. Returns {path: K2
-    launches}."""
+    ELL (f32 and f64), the refined solve to 1e-8 twice. Returns ({path: K2
+    launches}, K2's compact form on the P1 ELL by dtype)."""
     from fdapde_core_tpu_torch.geometry import strip_order_binned, uniform_refine_device
     from fdapde_core_tpu_torch.models import MatrixFreeElliptic
     from fdapde_core_tpu_torch.ops.dia_split import plan_split_width
@@ -2221,9 +2288,11 @@ def phase_lane_aux(ak, gs):
 
     # K2 on the grown mesh's P1 ELL: the f32 table of the inner CG and the
     # f64 one of the outer residuals
+    tables = {}
     for Ek in (model.op, E):
         v = torch.rand(n, generator=gen, dtype=Ek.vals.dtype, device=DEVICE) - 0.5
-        k2_ell_table(gs, "25 the grown mesh's P1 ELL", Ek, v)
+        tables[str(Ek.vals.dtype).removeprefix("torch.")] = k2_ell_table(
+            gs, "25 the grown mesh's P1 ELL", Ek, v)
         del v
 
     rhs = torch.where(bnd, 0.0, 1.0).to(torch.float64) / n
@@ -2241,8 +2310,10 @@ def phase_lane_aux(ak, gs):
     check(rel <= 1e-8 and rel_check <= 1e-8 and bool(torch.isfinite(xs).all()),
           "the gendel lane solve did not reach 1e-8")
     check(its2 == its and torch.equal(xs, xs2), "the repeated gendel solve differs from the first")
+    check(its == ITERATIONS_KEPT["gendel"], f"the gendel solve took {its} inner iterations, not "
+                                            f"{ITERATIONS_KEPT['gendel']}")
     check(out["lane aux solve"] > 0, "the gendel path never launched K2")
-    return out
+    return out, tables
 
 
 def rounding_floor(gs, E, bnd, x, b_mod, its):
@@ -2255,33 +2326,41 @@ def rounding_floor(gs, E, bnd, x, b_mod, its):
 
 
 def k2_ell_table(gs, name, E, v):
-    """K2's compact form on a square (K, n) ELL E at v: against its plain
-    version within the per-row bound, bitwise stable; timed against a
-    cuSPARSE CSR SpMV of its stored entries (timed, never used), its plain
-    version and its bounds on the entries stored and the slots read.
-    Returns the measurements."""
-    V, C = E.vals, E.cols
+    """K2's compact form on a square (K, n) ELL E at v with E's warp
+    widths: against its plain version within the per-row bound, bitwise
+    stable, equal to the launch without the widths; timed with and without
+    them against a cuSPARSE CSR SpMV of its stored entries (timed, never
+    used) and its plain version, with its bounds on the entries stored and
+    on the slots it reads. Returns the measurements."""
+    V, C, W = E.vals, E.cols, E.warp_w
+    check(W is not None, f"the {name} ELL came without its warp widths")
     Kp, n = V.shape
     nnz = ell_nnz(E)
-    vb = V.element_size()
-    err, ratio = k2_compact_check(gs, name, V, C, v)
+    vb, xb = V.element_size(), v.element_size()
+    err, ratio = k2_compact_check(gs, name, V, C, v, W)
     csr = ell_csr(V, C)
     lib_err = (csr @ v - gs.ell_spmv_reference(V, C, v)).abs().max().item()
-    ka, ca = time_ms(lambda: gs.ell_spmv(V, C, v), 20), time_ms(lambda: csr @ v, 20)
-    kb, cb = time_ms(lambda: gs.ell_spmv(V, C, v), 20), time_ms(lambda: csr @ v, 20)
+    kernel, full, library = (lambda: gs.ell_spmv(V, C, v, W)), (lambda: gs.ell_spmv(V, C, v)), \
+        (lambda: csr @ v)
+    ka, fa, ca = time_ms(kernel, 20), time_ms(full, 20), time_ms(library, 20)
+    kb, fb, cb = time_ms(kernel, 20), time_ms(full, 20), time_ms(library, 20)
     p_ms = time_ms(lambda: gs.ell_spmv_reference(V, C, v), 3)
     del csr
     ms = (ka + kb) / 2
-    b_nnz = least_time(nnz * (vb + 4) + 2 * n * vb, 2 * nnz, V.dtype)
-    b_read = least_time(Kp * n * (vb + 4) + 2 * n * vb, 2 * Kp * n, V.dtype)
+    read = slots_read(gs, W, n)
+    b_nnz = least_time(nnz * (vb + 4) + 2 * n * xb, 2 * nnz, V.dtype)
+    b_read = least_time(read * (vb + 4) + 2 * n * xb, 2 * read, V.dtype)
     log(f"K2 compact on {name} ({Kp}, {n}) {V.dtype}: max|kernel-plain| {err:.3e} "
-        f"(max err/bound {ratio:.3e}), bitwise stable; kernel {ka:.4f} / {kb:.4f} ms, torch.sparse "
-        f"CSR {ca:.4f} / {cb:.4f} ms (max|csr-plain| {lib_err:.3e}), plain {p_ms:.4f} ms; padding "
-        f"{Kp * n / nnz:.3f} slots read per entry; bound on its {nnz} entries "
-        f"{b_nnz['bound_ms']:.4f} ms ({b_nnz['bound_by']}, {100 * b_nnz['bound_ms'] / ms:.0f} %), "
-        f"on the {Kp * n} slots it reads {b_read['bound_ms']:.4f} ms "
-        f"({100 * b_read['bound_ms'] / ms:.0f} %)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=p_ms, library_ms=(ca + cb) / 2, **b_nnz)
+        f"(max err/bound {ratio:.3e}), bitwise stable, == the launch without warp widths; kernel "
+        f"with warp widths {ka:.4f} / {kb:.4f} ms, without {fa:.4f} / {fb:.4f} ms, torch.sparse "
+        f"CSR {ca:.4f} / {cb:.4f} ms (max|csr-plain| {lib_err:.3e}), plain {p_ms:.4f} ms; slots "
+        f"read per entry {read / nnz:.3f} with the widths, {Kp * n / nnz:.3f} without; bound on "
+        f"its {nnz} entries {b_nnz['bound_ms']:.4f} ms ({b_nnz['bound_by']}, "
+        f"{100 * b_nnz['bound_ms'] / ms:.0f} %), on the {read} slots it reads "
+        f"{b_read['bound_ms']:.4f} ms ({100 * b_read['bound_ms'] / ms:.0f} %)")
+    return dict(max_abs_err=err, ms=ms, full_ms=(fa + fb) / 2, plain_ms=p_ms,
+                library_ms=(ca + cb) / 2, slots_per_entry=read / nnz,
+                full_slots_per_entry=Kp * n / nnz, **b_nnz)
 
 
 def phase_gen3d(ak, gs):
@@ -2364,6 +2443,8 @@ def phase_gen3d(ak, gs):
     check(float(rel) <= 1e-9 and rel_check <= 1e-9 + floor and bool(torch.isfinite(xs).all()),
           "the gen3d banded solve did not reach 1e-9")
     check(its2 == its and torch.equal(xs, xs2), "the repeated gen3d solve differs from the first")
+    check(its == ITERATIONS_KEPT["gen3d"], f"the gen3d solve took {its} iterations, not "
+                                           f"{ITERATIONS_KEPT['gen3d']}")
     check(bool((split_err <= bound).all()), "the 3D split differs from the ELL")
     del xs, xs2, v, ref, bound, split_err
 
@@ -3352,8 +3433,12 @@ def nccl_costs(mesh, n_vec):
 
 def halo_kernel_checks(gs, ds, dia_solver, ell_solver):
     """K7 on the halo-padded (K, block + 2H) table and K2 on the (K, block)
-    table over the (block + 2H) halo-extended vector, each against its
-    plain version on the card (per-row bound K eps sum|a x|), both timed."""
+    table over the (block + 2H) halo-extended vector with the shard's warp
+    widths, each against its plain version on the card (per-row bound K eps
+    sum|a x|), K2 equal to its launch without the widths; both timed beside
+    a torch.sparse CSR SpMV of the same entries (timed, never used)."""
+    from fdapde_core_tpu_torch.linear_algebra import DIAMatrix
+
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 32)
     eps = torch.finfo(torch.float64).eps
     out = {}
@@ -3363,26 +3448,41 @@ def halo_kernel_checks(gs, ds, dia_solver, ell_solver):
     bound = D.shape[0] * eps * ds.dia_spmv_reference(D.abs(), offs, x.abs())
     err = (got - ref).abs()
     check(bool((err <= bound).all()), "K7 on the halo-padded table disagrees with its plain version")
-    ms, plain_ms = time_ms(lambda: ds.dia_spmv(D, offs, x), 50), time_ms(
-        lambda: ds.dia_spmv_reference(D, offs, x), 5)
+    csr = csr_of(DIAMatrix(D, tuple(offs.tolist()), D.shape[1]).to_sparse())
+    lib_err = (csr @ x - ref).abs().max().item()
+    ms, plain_ms, lib_ms = (time_ms(lambda: ds.dia_spmv(D, offs, x), 50),
+                            time_ms(lambda: ds.dia_spmv_reference(D, offs, x), 5),
+                            time_ms(lambda: csr @ x, 50))
+    del csr
     out["K7 halo"] = dict(table=tuple(D.shape), max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, library_err=lib_err,
                           **least_time(D.numel() * 8 + 2 * x.numel() * 8, 2 * D.numel(), torch.float64))
-    V, C = ell_solver.vals, ell_solver.lcols
-    x = torch.rand(V.shape[1] + 2 * ell_solver.H, generator=gen, dtype=torch.float64,
-                   device=DEVICE) - 0.5
-    got, ref = gs.ell_spmv(V, C, x), gs.ell_spmv_reference(V, C, x)
-    bound = V.shape[0] * eps * gs.ell_spmv_reference(V.abs(), C, x.abs())
-    err = (got - ref).abs()
-    check(bool((err <= bound).all()), "K2 on the halo-extended table disagrees with its plain version")
-    ms, plain_ms = time_ms(lambda: gs.ell_spmv(V, C, x), 50), time_ms(
-        lambda: gs.ell_spmv_reference(V, C, x), 5)
-    out["K2 halo"] = dict(table=f"{tuple(V.shape)} over {x.numel()}", max_abs_err=err.max().item(),
-                          ms=ms, plain_ms=plain_ms, **least_time(
-                              V.numel() * 12 + (V.shape[1] + x.numel()) * 8, 2 * V.numel(),
-                              torch.float64))
+    V, C, W, H = ell_solver.vals, ell_solver.lcols, ell_solver.warp_w, ell_solver.H
+    n_loc = V.shape[1]
+    x = torch.rand(n_loc + 2 * H, generator=gen, dtype=torch.float64, device=DEVICE) - 0.5
+    err, _ = k2_compact_check(gs, "the halo-extended table", V, C, x, W)
+    # the shard's padding column is local row + H
+    pad = torch.arange(n_loc, dtype=C.dtype, device=DEVICE) + H
+    csr = ell_csr(V, C, pad, x.numel())
+    lib_err = (csr @ x - gs.ell_spmv_reference(V, C, x)).abs().max().item()
+    ms, full_ms, plain_ms, lib_ms = (time_ms(lambda: gs.ell_spmv(V, C, x, W), 50),
+                                     time_ms(lambda: gs.ell_spmv(V, C, x), 50),
+                                     time_ms(lambda: gs.ell_spmv_reference(V, C, x), 5),
+                                     time_ms(lambda: csr @ x, 50))
+    nnz = csr.values().numel()
+    del csr
+    out["K2 halo"] = dict(table=f"{tuple(V.shape)} over {x.numel()}", max_abs_err=err, ms=ms,
+                          full_ms=full_ms, plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
+                          slots_per_entry=slots_read(gs, W, n_loc) / nnz,
+                          full_slots_per_entry=V.numel() / nnz,
+                          **least_time(nnz * 12 + (n_loc + x.numel()) * 8, 2 * nnz, torch.float64))
     for k, v in out.items():
+        widths = ("" if "full_ms" not in v else
+                  f" with the warp widths ({v['slots_per_entry']:.3f} slots read per entry), "
+                  f"{v['full_ms']:.4f} ms without ({v['full_slots_per_entry']:.3f})")
         log(f"32 {k} {v['table']}: max|kernel - plain| {v['max_abs_err']:.3e} (within the per-row "
-            f"bound), kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
+            f"bound), kernel {v['ms']:.4f} ms{widths}, torch.sparse CSR {v['library_ms']:.4f} ms "
+            f"(max|csr-plain| {v['library_err']:.3e}), plain {v['plain_ms']:.4f} ms, bound "
             f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
     return out
 
@@ -3597,6 +3697,8 @@ def halo_ell_path(ak, gs, mesh):
     (xs, _, k), t, launches = counted(ak, gs, lambda: solver.solve(b, (~bnd).to(torch.float64),
                                                                    rtol=1e-8, maxiter=20000))
     check(launches["K2"] >= k, "HaloELLSolver: K2 launches")
+    check(k == ITERATIONS_KEPT["HaloELLSolver"], f"HaloELLSolver took {k} iterations, not "
+                                                 f"{ITERATIONS_KEPT['HaloELLSolver']}")
     return {"HaloELLSolver": hold(f"HaloELLSolver n={N_HALO_ELL} (H {solver.H}, rtol 1e-8)", xs,
                                   xt.cpu(), k, info.iterations,
                                   2 * kappa_p1(N_HALO_ELL) * 1e-8 * xt.abs().max().item(),
@@ -3768,7 +3870,8 @@ def main():
     del model
     torch.cuda.empty_cache()
 
-    k2 = phase_k2_vs_plain(gs)
+    k2, k2_mixed = phase_k2_vs_plain(gs)
+    gs.ell_spmv_widened_launches = 0  # from here on, the paths' own
     torch.cuda.empty_cache()
     k2_launches = phase_general_main_path(ak, gs)
     torch.cuda.empty_cache()
@@ -3820,11 +3923,11 @@ def main():
     new_paths.update(timed_phase(23, lambda: phase_matfree_parabolic(ak, gs, ls, lattice)))
     del lattice
     torch.cuda.empty_cache()
-    k2_p2, space2 = timed_phase(24, lambda: phase_p2(ak, gs, pts, cells, bnd))
+    k2_p2, space2, compact_p2 = timed_phase(24, lambda: phase_p2(ak, gs, pts, cells, bnd))
     new_paths.update({path: (k2, 0) for path, k2 in k2_p2.items()})
     torch.cuda.empty_cache()
-    new_paths.update({path: (k2, 0) for path, k2 in
-                      timed_phase(25, lambda: phase_lane_aux(ak, gs)).items()})
+    k2_gendel, compact_gendel = timed_phase(25, lambda: phase_lane_aux(ak, gs))
+    new_paths.update({path: (k2, 0) for path, k2 in k2_gendel.items()})
     torch.cuda.empty_cache()
     mesh3d, k2_gen3d, tables_gen3d = timed_phase(26, lambda: phase_gen3d(ak, gs))
     new_paths.update({path: (k2, 0) for path, k2 in k2_gen3d.items()})
@@ -3859,6 +3962,8 @@ def main():
     k2_launches += sum(by_kernel["K2"].values())
     k6_launches += sum(by_kernel["K6"].values())
     k7_launches += sum(by_kernel["K7"].values())
+    log(f"K2 launches on float32 values with a float64 x in phases 8-32: "
+        f"{gs.ell_spmv_widened_launches}")
 
     kernels = [dict(
         name="p1_stencil_layers",
@@ -3875,6 +3980,8 @@ def main():
         launches=k2_launches,
         launches_backward=k2_backward_launches,
         **k2,
+        compact={"P2": compact_p2, "gendel": compact_gendel},
+        mixed=dict(k2_mixed, launches=gs.ell_spmv_widened_launches),
         backward=k2_backward,
         sliced=k2_sliced,
         ell_3d={"float64": tables_gen3d["torch.float64"], "float32": tables_gen3d["torch.float32"]},

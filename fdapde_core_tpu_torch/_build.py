@@ -41,9 +41,10 @@ _SIGNATURES = {
     "p1_offdiag_planes_f64": (_VP, _VP, _I64, _I64, _I64, _VP, _VP),
     "dia_spmv_f32": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
     "dia_spmv_f64": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
-    "ell_spmv_f32": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
-    "ell_spmv_f64": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
-    "ell_spmv_bf16": (_VP, _VP, _VP, _VP, _I64, _I64, _VP),
+    "ell_spmv_f32": (_VP, _VP, _VP, _VP, _VP, _I64, _I64, _VP),
+    "ell_spmv_f64": (_VP, _VP, _VP, _VP, _VP, _I64, _I64, _VP),
+    "ell_spmv_bf16": (_VP, _VP, _VP, _VP, _VP, _I64, _I64, _VP),
+    "ell_spmv_f32_f64": (_VP, _VP, _VP, _VP, _VP, _I64, _I64, _VP),
     "sell_spmm_f32": (_VP, _VP, _VP, _VP, _VP, _I64, _VP, _I64, _I64, _VP, _I64, _I64, _I64, _VP),
     "sell_spmm_f64": (_VP, _VP, _VP, _VP, _VP, _I64, _VP, _I64, _I64, _VP, _I64, _I64, _I64, _VP),
     "p1_stiffness_2d_f32": (_VP, _VP, _I64, _VP),

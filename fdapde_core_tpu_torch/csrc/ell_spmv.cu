@@ -8,30 +8,53 @@
 // |col - row| <= 16384. A Hopper thread reads any address of device memory,
 // so this kernel reads the assembled ELL directly and takes any numbering:
 //
-//   y[i] = sum_k vals[k, i] * x[cols[k, i]],  k = 0 .. K-1, i in [0, n)
+//   y[i] = sum_k vals[k, i] * x[cols[k, i]],  k = 0 .. w(i) - 1, i in [0, n)
 //
-// with int32 cols in [0, n_src) (rectangular operators allowed) and padded
-// slots holding val = 0.
+// with int32 cols in [0, n_src) (rectangular operators allowed). The table
+// keeps JAX's layout, slot for slot: a row's real entries come first and
+// its padding is (col = row, val = 0) up to K, the table's widest row.
 //
-// Design: one thread per row, the row on threadIdx.x, so consecutive
-// threads read consecutive vals and cols of one slot (coalesced 128-byte
-// transactions per warp). The K loop runs in registers; x is read through
-// the read-only path (__ldg). Each y[i] is written exactly once by one
-// thread: no atomics, so the result is bitwise stable from run to run.
-// Accumulation is in the value type for float32 and float64; bfloat16
-// values are widened per product and summed in float32 with a float32
-// result (as _spmv_kernel does).
-//
-// What bounds it on an H100: memory. Per row and slot it streams
+// What bounds it on an H100: memory. Per row and slot read it streams
 // sizeof(val) + 4 bytes of table and gathers one x; per row it writes one
-// y. At n = 10.25M, K = 9 in float32 that is about 0.82 GB per call
-// (0.74 GB of tables), 0.25 ms at 3.35 TB/s. The x gathers are scattered,
-// but x (41 MB in float32, 82 MB in float64) mostly stays in the 50 MB L2,
-// so they cost L2 bandwidth rather than device-memory bandwidth. Tensor
-// cores and TMA have no part in it.
+// y. x (8-82 MB) mostly stays in the 50 MB L2, so the gathers cost L2
+// rather than device-memory bandwidth; the table is the device-memory
+// stream. A table padded to its widest row makes most of that stream
+// padding: the P2 table is allocated at 49 slots for rows of at most ~28
+// and reads 4.3 slots per stored entry, the `gendel` P1 table 1.9.
 //
-// C interface (bound with ctypes): pointers and the stream are void*, K and
-// n int64; returns cudaGetLastError() after the launch, 0 on success.
+// Design: SELL-32 with no sort, in place. warp_w[g] is the width of the
+// widest of rows 32 g .. 32 g + 31 (the caller's, computed once per
+// pattern from cols alone, ops/gather_spmv.ell_warp_widths); each warp of
+// one thread per row runs its slot loop to that width, so it reads only the
+// slots its own rows use (1.13 slots per entry on P2), with no divergence
+// and no second copy of the table. A slot past a row's own width but inside
+// its warp's is padding and adds 0 x[row]. Consecutive threads read
+// consecutive vals and cols of one slot (coalesced 128/256-byte
+// transactions a warp). The slot loop is unrolled by 4: nothing in it
+// stores, so the compiler issues four slots' table loads and their x
+// gathers before the four multiply-adds (cuobjdump -sass shows it), and
+// several gathers are in flight.
+// Written out by hand with predicated loads (sell_rows_kernel's form) the
+// same loop ran slower on the scrambled, P2 and gendel tables, and as
+// unpredicated chunks of 4 plus a tail no faster overall (a sweep of loop
+// forms on an H100). The table, read once, is read with streaming loads
+// that leave L2 to x (the P2 table runs slower through the read-only
+// path); x through the read-only path.
+//
+// Products are added in slot order with fused multiply-adds, and each y[i]
+// is written once by one thread: no atomics, so the result is bitwise
+// stable, and on finite x it equals the full-K loop (warp_w null) bitwise,
+// since the slots it skips only add 0 x[row]. Accumulation is in the value
+// type for float32 and float64; bfloat16 values are widened per product and
+// summed in float32 with a float32 result (as _spmv_kernel does); float32
+// values against a float64 x are widened per product and summed in float64
+// (exactly the float64 product of the widened table, with no converted
+// copy of it).
+//
+// C interface (bound with ctypes): ell_spmv_{f32,f64,bf16,f32_f64}(vals,
+// cols, warp_w int32 or null (every row reads all K slots), x, y, K, n,
+// stream); pointers and the stream are void*, K and n int64; returns
+// cudaGetLastError() after the launch, 0 on success.
 //
 // ---------------------------------------------------------------------------
 // Sliced ELL (SELL-C-sigma): y = A x and Y = A X under every SparseMatrix
@@ -63,9 +86,9 @@
 // - rows on lanes (sell_rows_kernel): a warp per slice, each lane its row,
 //   J columns per thread. kUnroll slots' values and columns, then their
 //   kUnroll x J gathers of x, are issued before any multiply-add, so the
-//   short, scattered rows of Psi (3 entries) keep many loads in flight where
-//   the (K, n) kernel waits on one. Vectors take J = 1 and read the table
-//   with streaming loads, which leave L2 to x; blocks take J = kJ.
+//   short, scattered rows of Psi (3 entries) keep many loads in flight.
+//   Vectors take J = 1 and read the table with streaming loads, which leave
+//   L2 to x; blocks take J = kJ.
 // - columns on lanes (sell_cols_kernel), for blocks whose columns are X's
 //   unit-stride axis and at least 16 wide (a time factor on the (27, 66,049)
 //   block, Psi^T on the (2,000, 27) one): a warp per (row, 32 consecutive
@@ -90,7 +113,7 @@
 namespace {
 
 constexpr int kBlock = 256;  // rows per block (threadIdx.x)
-constexpr int kC = 32;       // sliced ELL: rows per slice, the lanes of a warp
+constexpr int kC = 32;       // rows per warp_w entry / slice: the lanes of a warp
 constexpr int kWarps = 8;    // sliced ELL: warps per block
 constexpr int kUnroll = 4;   // sliced ELL: slots whose loads are issued together
 constexpr int kJ = 4;        // rows mapping: columns per thread of a block product
@@ -102,37 +125,6 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// V: stored value type; A: accumulation, x and y type
-template <typename V, typename A>
-__global__ void __launch_bounds__(kBlock)
-ell_spmv_kernel(const V* __restrict__ vals, const int32_t* __restrict__ cols,
-                const A* __restrict__ x, A* __restrict__ y, int64_t K,
-                int64_t n) {
-  const int64_t row = int64_t(blockIdx.x) * kBlock + threadIdx.x;
-  if (row >= n) return;
-  const V* v = vals + row;
-  const int32_t* c = cols + row;
-  A acc = A(0);
-#pragma unroll 4
-  for (int64_t k = 0; k < K; ++k) {
-    const A a = widen(v[k * n]);
-    const int32_t j = c[k * n];
-    acc += a * __ldg(x + j);
-  }
-  y[row] = acc;
-}
-
-template <typename V, typename A>
-int launch(const void* vals, const void* cols, const void* x, void* y,
-           int64_t K, int64_t n, void* stream) {
-  const int64_t blocks = (n + kBlock - 1) / kBlock;
-  ell_spmv_kernel<V, A><<<static_cast<unsigned int>(blocks), kBlock, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const V*>(vals), static_cast<const int32_t*>(cols),
-      static_cast<const A*>(x), static_cast<A*>(y), K, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // A slot of the table: streaming loads for a vector product (read once),
 // read-only cached loads for a block (read again by the other column tiles)
 template <bool kStream, typename T>
@@ -142,6 +134,48 @@ __device__ __forceinline__ T table_load(const T* p) {
   } else {
     return __ldg(p);
   }
+}
+
+template <bool kStream>
+__device__ __forceinline__ __nv_bfloat16 table_load(const __nv_bfloat16* p) {
+  const auto* raw = reinterpret_cast<const unsigned short*>(p);
+  return __ushort_as_bfloat16(kStream ? __ldcs(raw) : __ldg(raw));
+}
+
+// V: stored value type; A: accumulation, x and y type. Block b covers rows
+// b kBlock .. + kBlock - 1, thread t row b kBlock + t, so warp g of the
+// table is one warp of the block.
+template <typename V, typename A>
+__global__ void __launch_bounds__(kBlock)
+ell_spmv_kernel(const V* __restrict__ vals, const int32_t* __restrict__ cols,
+                const int32_t* __restrict__ warp_w, const A* __restrict__ x,
+                A* __restrict__ y, int64_t K, int64_t n) {
+  const int64_t row = int64_t(blockIdx.x) * kBlock + threadIdx.x;
+  if (row >= n) return;
+  const int64_t wk = warp_w == nullptr ? K : warp_w[row / kC];
+  const int w = static_cast<int>(wk < K ? wk : K);
+  const V* v = vals + row;
+  const int32_t* c = cols + row;
+  A acc = A(0);
+#pragma unroll 4
+  for (int k = 0; k < w; ++k) {
+    const int64_t e = int64_t(k) * n;
+    const A a = widen(table_load<true>(v + e));
+    acc = fma(a, __ldg(x + table_load<true>(c + e)), acc);
+  }
+  y[row] = acc;
+}
+
+template <typename V, typename A>
+int launch(const void* vals, const void* cols, const void* warp_w,
+           const void* x, void* y, int64_t K, int64_t n, void* stream) {
+  const int64_t blocks = (n + kBlock - 1) / kBlock;
+  ell_spmv_kernel<V, A><<<static_cast<unsigned int>(blocks), kBlock, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(vals), static_cast<const int32_t*>(cols),
+      static_cast<const int32_t*>(warp_w), static_cast<const A*>(x),
+      static_cast<A*>(y), K, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // rows on lanes: block b covers column tile b % n_tiles of slices
@@ -283,19 +317,25 @@ int launch_sell(const void* vals, const void* cols, const void* slice_off,
 
 extern "C" {
 
-int ell_spmv_f32(const void* vals, const void* cols, const void* x, void* y,
-                 int64_t K, int64_t n, void* stream) {
-  return launch<float, float>(vals, cols, x, y, K, n, stream);
+int ell_spmv_f32(const void* vals, const void* cols, const void* warp_w,
+                 const void* x, void* y, int64_t K, int64_t n, void* stream) {
+  return launch<float, float>(vals, cols, warp_w, x, y, K, n, stream);
 }
 
-int ell_spmv_f64(const void* vals, const void* cols, const void* x, void* y,
-                 int64_t K, int64_t n, void* stream) {
-  return launch<double, double>(vals, cols, x, y, K, n, stream);
+int ell_spmv_f64(const void* vals, const void* cols, const void* warp_w,
+                 const void* x, void* y, int64_t K, int64_t n, void* stream) {
+  return launch<double, double>(vals, cols, warp_w, x, y, K, n, stream);
 }
 
-int ell_spmv_bf16(const void* vals, const void* cols, const void* x, void* y,
-                  int64_t K, int64_t n, void* stream) {
-  return launch<__nv_bfloat16, float>(vals, cols, x, y, K, n, stream);
+int ell_spmv_bf16(const void* vals, const void* cols, const void* warp_w,
+                  const void* x, void* y, int64_t K, int64_t n, void* stream) {
+  return launch<__nv_bfloat16, float>(vals, cols, warp_w, x, y, K, n, stream);
+}
+
+int ell_spmv_f32_f64(const void* vals, const void* cols, const void* warp_w,
+                     const void* x, void* y, int64_t K, int64_t n,
+                     void* stream) {
+  return launch<float, double>(vals, cols, warp_w, x, y, K, n, stream);
 }
 
 int sell_spmm_f32(const void* vals, const void* cols, const void* slice_off,

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from .gather_spmv import ell_warp_widths
 from .matfree_soa import ELLSoA, _compact_sorted
 
 __all__ = ["ELLMatrix", "build_ell_adjacency", "ell_spmv", "local_matvec"]
@@ -68,13 +69,19 @@ class ELLMatrix:
     """Assembled row-ELL sparse matrix: vals/cols (n, K), padded rows carry
     col = row and val = 0 (no mask in the SpMV), no duplicate (row, col)
     pairs (``from_local`` merges them). The product is K2 on the
-    slot-major (K, n) copy of the tables."""
+    slot-major (K, n) copy of the tables, with its warp widths (``warp_w``:
+    given by ``from_local``, shared by the matrices ``astype`` and
+    ``with_added_diagonal`` make; None reads all K slots)."""
 
-    def __init__(self, vals, cols, shape):
+    def __init__(self, vals, cols, shape, warp_w=None):
         self.vals = vals  # (n, K)
         self.cols = cols  # (n, K) int32
         self.shape = tuple(shape)
-        self._slot_major = ELLSoA(vals.T.contiguous(), cols.T.contiguous(), self.shape)
+        self._slot_major = ELLSoA(vals.T.contiguous(), cols.T.contiguous(), self.shape, warp_w)
+
+    @property
+    def warp_w(self):
+        return self._slot_major.warp_w
 
     def __matmul__(self, x):
         return self._slot_major @ x
@@ -84,7 +91,7 @@ class ELLMatrix:
         return torch.where(self.cols == rows[:, None], self.vals, 0.0).sum(dim=1)
 
     def astype(self, dtype):
-        return ELLMatrix(self.vals.to(dtype), self.cols, self.shape)
+        return ELLMatrix(self.vals.to(dtype), self.cols, self.shape, self.warp_w)
 
     def with_added_diagonal(self, d):
         """A + diag(d): only the first (row == col) slot of each row changes
@@ -93,7 +100,8 @@ class ELLMatrix:
         isdiag = self.cols == rows[:, None]
         first = isdiag & (torch.cumsum(isdiag, dim=1) == 1)
         d = torch.as_tensor(d, device=self.vals.device)
-        return ELLMatrix(self.vals + torch.where(first, d[:, None], 0.0), self.cols, self.shape)
+        return ELLMatrix(self.vals + torch.where(first, d[:, None], 0.0), self.cols, self.shape,
+                         self.warp_w)
 
     @classmethod
     def from_local(cls, A_loc, dofs, adj, adj_mask, max_cols: int):
@@ -119,4 +127,5 @@ class ELLMatrix:
         vals_all = vals_all.reshape(n, D * nb).T
         row_ids = torch.arange(n, dtype=torch.int32, device=adj.device)
         vals, cols, overflowed = _compact_sorted(cols_all, vals_all, row_ids, n, max_cols)
-        return cls(vals.T.contiguous(), cols.T.contiguous(), (n, n)), overflowed
+        E = cls(vals.T.contiguous(), cols.T.contiguous(), (n, n), ell_warp_widths(cols))
+        return E, overflowed

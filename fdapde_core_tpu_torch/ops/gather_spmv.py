@@ -8,10 +8,17 @@ precomputed routing tables (``schedule_lane_routed``), with a COO
 remainder and a 16384-wide band limit. A GPU thread gathers from anywhere,
 so the port keeps what ``_spmv`` computes and drops the routing:
 
-- ``ell_spmv(vals, cols, x)`` is the kernel wrapper. On a CUDA tensor it
-  launches the hand-written kernel ``csrc/ell_spmv.cu`` (built at first
-  use, see ``_build.py``) and counts the launch in ``ell_spmv_launches``;
-  on a CPU tensor it runs the plain version ``ell_spmv_reference``.
+- ``ell_spmv(vals, cols, x, warp_w)`` is the kernel wrapper. On a CUDA
+  tensor it launches the hand-written kernel ``csrc/ell_spmv.cu`` (built
+  at first use, see ``_build.py``) and counts the launch in
+  ``ell_spmv_launches``; on a CPU tensor it runs the plain version
+  ``ell_spmv_reference``. ``warp_w`` (``ell_warp_widths``) gives each
+  group of 32 rows the slots its widest row uses, so the kernel reads the
+  table in place without its padding (SELL-32 with no sort); the table
+  tables built with at most one entry per (row, col) carry them
+  (``ELLSoA`` from ``to_ell``, ``ELLMatrix.from_local``), computed once
+  per pattern and passed on by ``LaneRoutedELL`` and
+  ``parallel.HaloELLSolver``; any other table reads all K slots.
 - ``LaneRoutedELL`` keeps the JAX class's contract (``from_ell``, ``@``,
   ``diagonal``, ``astype``, ``shape``, ``with_vals``, ``n_src``,
   ``n_remainder``) over the assembled (K, n) table itself. The routing
@@ -34,8 +41,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["LaneRoutedELL", "SlicedELL", "ell_spmv", "ell_spmv_reference", "sliced_ell_spmm",
-           "sliced_ell_spmm_reference"]
+__all__ = ["LaneRoutedELL", "SlicedELL", "ell_row_widths", "ell_spmv", "ell_spmv_reference",
+           "ell_warp_widths", "sliced_ell_spmm", "sliced_ell_spmm_reference", "warp_widths"]
 
 # kernel launches of either form since import (or since a caller last reset
 # it to 0)
@@ -43,8 +50,12 @@ ell_spmv_launches = 0
 # those of them made for the backward of a differentiable SparseMatrix
 # product (linear_algebra.sparse.SparseProduct: ``backward=True``)
 ell_spmv_backward_launches = 0
+# compact launches with float32 values on a float64 x (widened per product)
+ell_spmv_widened_launches = 0
 
-SLICE = 32  # rows per slice of a SlicedELL: the lanes of a warp (kC in the source)
+# the lanes of a warp (kC in the source): the rows of each entry of a
+# compact table's warp widths, and of each slice of a SlicedELL
+WARP = SLICE = 32
 # rows are sorted by length within windows of this many positions before
 # they are cut into slices (1: no sort)
 SLICE_SORT_WINDOW = 256
@@ -66,9 +77,41 @@ def accumulation_dtype(vals_dtype, x_dtype=None):
     return acc if x_dtype is None else torch.promote_types(acc, x_dtype)
 
 
+def ell_row_widths(cols):
+    """Each row's width in a compact (K, n) table whose padding is (col =
+    row, val = 0) after the row's entries: 1 + max(the last slot whose col
+    != row, the first slot whose col == row), as (n,) int32. It reads cols
+    only, so tables that keep cols (new values, another dtype, an added
+    diagonal) share it, and a real diagonal whose value is 0 is never cut
+    off. It holds for a table with at most one entry per (row, col), as
+    every merged table is."""
+    K, n = cols.shape
+    rows = torch.arange(n, dtype=cols.dtype, device=cols.device)
+    last_off = torch.zeros(n, dtype=torch.int32, device=cols.device)
+    first_on = torch.zeros_like(last_off)
+    for k in range(K):
+        on = cols[k] == rows
+        last_off = torch.where(on, last_off, k + 1)
+        first_on = torch.where(on & (first_on == 0), k + 1, first_on)
+    return torch.maximum(last_off, first_on)
+
+
+def warp_widths(row_w):
+    """(ceil(n / 32),) int32: the widest of each 32 consecutive rows of the
+    (n,) row widths, the kernel's slot count for that warp."""
+    padded = torch.nn.functional.pad(row_w, (0, -row_w.shape[0] % WARP))
+    return padded.reshape(-1, WARP).amax(1).to(torch.int32).contiguous()
+
+
+def ell_warp_widths(cols):
+    """The warp widths of a compact table's pattern (``ell_row_widths``)."""
+    return warp_widths(ell_row_widths(cols))
+
+
 def ell_spmv_reference(vals, cols, x):
-    """Plain PyTorch version: y = sum_k vals[k] * x[cols[k]], one gather per
-    slot, accumulated in x's dtype (bfloat16 values widened per product)."""
+    """Plain PyTorch version: y = sum_k vals[k] * x[cols[k]] over all K
+    slots, one gather per slot, accumulated in x's dtype (bfloat16 and
+    float32 values widened per product)."""
     K, n = vals.shape
     acc = None
     for k in range(K):
@@ -79,10 +122,12 @@ def ell_spmv_reference(vals, cols, x):
     return acc
 
 
-def _check(vals, cols, x):
+def _check(vals, cols, x, warp_w):
     if vals.dim() != 2:
         raise ValueError(f"vals must be (K, n), got shape {tuple(vals.shape)}")
     acc = accumulation_dtype(vals.dtype)
+    if vals.dtype == torch.float32 and x.dtype == torch.float64:
+        acc = torch.float64  # widened per product, summed in float64
     if cols.dtype != torch.int32 or tuple(cols.shape) != tuple(vals.shape):
         raise ValueError(
             f"cols must be int32 of vals' shape {tuple(vals.shape)}, got "
@@ -96,16 +141,28 @@ def _check(vals, cols, x):
         raise ValueError("vals, cols and x must share a device")
     if vals.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {vals.device}")
+    if warp_w is not None:
+        n_warps = -(-vals.shape[1] // WARP)
+        if warp_w.dtype != torch.int32 or tuple(warp_w.shape) != (n_warps,):
+            raise ValueError(f"warp_w must be int32 of shape ({n_warps},), got {warp_w.dtype} "
+                             f"{tuple(warp_w.shape)}")
+        if warp_w.device != vals.device or not warp_w.is_contiguous():
+            raise ValueError("warp_w must be contiguous on vals' device")
     return acc
 
 
-def ell_spmv(vals, cols, x):
+def ell_spmv(vals, cols, x, warp_w=None):
     """y = A x for a slot-major (K, n) ELL: ``vals`` float32, float64 or
     bfloat16; ``cols`` int32, every entry in [0, len(x)); ``x`` contiguous
     in the accumulation dtype (float32 for float32 and bfloat16 values,
-    float64 for float64). Returns a new (n,) tensor of x's dtype."""
-    global ell_spmv_launches
-    acc = _check(vals, cols, x)
+    float64 for float64), or float64 for float32 values (widened per
+    product). ``warp_w``: None (every row reads all K slots) or
+    ``ell_warp_widths(cols)``-like (ceil(n / 32),) int32 widths, every slot
+    at or past its warp's width holding value 0; the kernel then reads each
+    warp's slots only up to its width, with the same result on finite x.
+    Returns a new (n,) tensor of x's dtype."""
+    global ell_spmv_launches, ell_spmv_widened_launches
+    acc = _check(vals, cols, x, warp_w)
     K, n = vals.shape
     if vals.device.type == "cpu":
         return ell_spmv_reference(vals, cols, x)
@@ -117,16 +174,20 @@ def ell_spmv(vals, cols, x):
         return y
     lib = library()
     fn = {
-        torch.float32: lib.ell_spmv_f32,
-        torch.float64: lib.ell_spmv_f64,
-        torch.bfloat16: lib.ell_spmv_bf16,
-    }[vals.dtype]
+        (torch.float32, torch.float32): lib.ell_spmv_f32,
+        (torch.float64, torch.float64): lib.ell_spmv_f64,
+        (torch.bfloat16, torch.float32): lib.ell_spmv_bf16,
+        (torch.float32, torch.float64): lib.ell_spmv_f32_f64,
+    }[vals.dtype, acc]
+    widths = None if warp_w is None else warp_w.data_ptr()
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
-        err = fn(vals.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(), K, n, stream)
+        err = fn(vals.data_ptr(), cols.data_ptr(), widths, x.data_ptr(), y.data_ptr(), K, n,
+                 stream)
     if err != 0:
         raise RuntimeError(f"ell_spmv kernel launch failed: cudaError {err}")
     ell_spmv_launches += 1
+    ell_spmv_widened_launches += acc != accumulation_dtype(vals.dtype)
     return y
 
 
@@ -171,17 +232,11 @@ class SlicedELL:
         ptr = torch.searchsorted(rows, torch.arange(n + 1, device=dev))
         lens = ptr[1:] - ptr[:-1]
         n_slices = -(-n // SLICE)
-
-        def widths(pos_lens):
-            padded = torch.zeros(n_slices * SLICE, dtype=torch.int64, device=dev)
-            padded[:n] = pos_lens
-            return padded.reshape(n_slices, SLICE).amax(1)
-
-        perm, slice_w = None, widths(lens)
+        perm, slice_w = None, warp_widths(lens)
         if sigma > 1 and n > 0:
             key = torch.arange(n, device=dev) // sigma * (n + 1) + (n - lens)
             order = torch.sort(key, stable=True).indices
-            sorted_w = widths(lens[order])
+            sorted_w = warp_widths(lens[order])
             if 8 * int(sorted_w.sum()) <= 7 * int(slice_w.sum()):
                 perm, slice_w = order, sorted_w
         slice_off = torch.zeros(n_slices + 1, dtype=torch.int64, device=dev)
@@ -195,7 +250,7 @@ class SlicedELL:
         dest = slice_off[p // SLICE] + q * SLICE + p % SLICE
         scols = torch.zeros(n_slots, dtype=torch.int32, device=dev).index_put_(
             (dest,), cols.to(device=dev, dtype=torch.int32))
-        A = cls(None, scols, slice_off, slice_w.to(torch.int32),
+        A = cls(None, scols, slice_off, slice_w,
                 None if perm is None else perm.to(torch.int32), dest, (n, n_src),
                 int(lens.max()) if n else 0)
         return A.with_vals(vals)
@@ -323,12 +378,16 @@ def _square_diagonal(E):
 
 class LaneRoutedELL:
     """Operator protocol (@, diagonal, astype, shape) over an assembled
-    (K, n) ELL, applied by the K2 kernel. Build with ``from_ell``."""
+    (K, n) ELL, applied by the K2 kernel with the table's warp widths.
+    Build with ``from_ell``."""
 
     def __init__(self, vals, cols, diag, n: int, n_src: int | None = None,
-                 keep_remap: bool = False):
+                 keep_remap: bool = False, warp_w=None):
         self.vals = vals  # (K, n) float32, float64 or bfloat16
         self.cols = cols  # (K, n) int32
+        # (ceil(n / 32),) int32 shared by every operator on these cols, or
+        # None: all K slots
+        self.warp_w = warp_w
         self._diag = diag
         self.n = n
         self.n_src = n if n_src is None else n_src
@@ -342,22 +401,23 @@ class LaneRoutedELL:
     @classmethod
     def from_ell(cls, E, p_max=None, rounds: int = 16, bandwidth=None,
                  keep_remap: bool = False, fuse=None):
-        """Operator over E's table (no copy). ``p_max``, ``rounds``,
-        ``bandwidth`` and ``fuse`` tune the TPU routing schedule and are
-        ignored. ``keep_remap`` enables ``with_vals``. Raises ValueError
-        when a column lies outside [0, n_src)."""
+        """Operator over E's table (no copy) and E's warp widths (None:
+        all K slots). ``p_max``, ``rounds``, ``bandwidth`` and
+        ``fuse`` tune the TPU routing schedule and are ignored.
+        ``keep_remap`` enables ``with_vals``. Raises ValueError when a
+        column lies outside [0, n_src)."""
         n_rows, n_src = E.shape
         accumulation_dtype(E.vals.dtype)
         if E.cols.numel() and (int(E.cols.min()) < 0 or int(E.cols.max()) >= n_src):
             raise ValueError(f"ELL columns must lie in [0, {n_src})")
         return cls(E.vals.contiguous(), E.cols.contiguous(), _square_diagonal(E), n_rows,
-                   n_src=n_src, keep_remap=keep_remap)
+                   n_src=n_src, keep_remap=keep_remap, warp_w=getattr(E, "warp_w", None))
 
     def __matmul__(self, v):
         if v.shape != (self.n_src,):
             raise ValueError(f"operand must be ({self.n_src},), got {tuple(v.shape)}")
         acc = accumulation_dtype(self.vals.dtype)
-        return ell_spmv(self.vals, self.cols, v.to(acc).contiguous())
+        return ell_spmv(self.vals, self.cols, v.to(acc).contiguous(), self.warp_w)
 
     def with_vals(self, E):
         """The operator with E's values on this operator's sparsity (E must
@@ -372,11 +432,11 @@ class LaneRoutedELL:
         if tuple(E.shape) != self.shape or not torch.equal(E.cols, self.cols):
             raise ValueError("E must have this operator's shape and cols")
         return LaneRoutedELL(E.vals.contiguous(), self.cols, _square_diagonal(E), self.n,
-                             n_src=self.n_src, keep_remap=True)
+                             n_src=self.n_src, keep_remap=True, warp_w=self.warp_w)
 
     def diagonal(self):
         return self._diag
 
     def astype(self, dtype):
         return LaneRoutedELL(self.vals.to(dtype), self.cols, self._diag.to(dtype),
-                             self.n, n_src=self.n_src)
+                             self.n, n_src=self.n_src, warp_w=self.warp_w)

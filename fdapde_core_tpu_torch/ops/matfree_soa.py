@@ -23,7 +23,7 @@ from math import factorial
 import numpy as np
 import torch
 
-from .gather_spmv import accumulation_dtype, ell_spmv
+from .gather_spmv import accumulation_dtype, ell_spmv, ell_warp_widths
 
 __all__ = [
     "p1_offdiag_soa",
@@ -303,34 +303,42 @@ def _ell_from_entries(A, dofs, adj, adj_mask, n_dofs: int, max_cols: int):
     del vals_b
     row_ids = torch.arange(n, dtype=torch.int32, device=adj.device)
     vals, cols, overflowed = _compact_sorted(cols_all, vals_all, row_ids, n, max_cols)
-    return ELLSoA(vals, cols, (n, n)), overflowed
+    return ELLSoA(vals, cols, (n, n), ell_warp_widths(cols)), overflowed
 
 
 class ELLSoA:
     """Assembled row-ELL in SoA layout: vals/cols (K, n); padded entries
-    carry col = row id and val = 0 (no mask in the SpMV). The SpMV is the
-    K2 kernel (``ops/gather_spmv.ell_spmv``)."""
+    carry col = row id and val = 0 after the row's entries (no mask in the
+    SpMV). The SpMV is the K2 kernel (``ops/gather_spmv.ell_spmv``).
+    ``warp_w``: the pattern's warp widths (``ell_warp_widths``), given only
+    by a builder whose table holds at most one entry per (row, col)
+    (``_ell_from_entries``, ``ELLMatrix.from_local``) and shared by the
+    tables ``astype`` and ``with_added_diagonal`` make; None (any other
+    table) reads all K slots."""
 
-    def __init__(self, vals, cols, shape):
+    def __init__(self, vals, cols, shape, warp_w=None):
         self.vals = vals
         self.cols = cols
         self.shape = tuple(shape)
+        self.warp_w = warp_w
 
     def __matmul__(self, v):
         if v.shape != (self.shape[1],):
             raise ValueError(f"operand must be ({self.shape[1]},), got {tuple(v.shape)}")
         acc = accumulation_dtype(self.vals.dtype, v.dtype)
         vals = self.vals
-        if accumulation_dtype(vals.dtype) != acc:  # e.g. float32 values, float64 v
+        # float32 values against a float64 v are widened in the kernel
+        if accumulation_dtype(vals.dtype) != acc and vals.dtype != torch.float32:
             vals = vals.to(acc)
-        return ell_spmv(vals.contiguous(), self.cols.contiguous(), v.to(acc).contiguous())
+        return ell_spmv(vals.contiguous(), self.cols.contiguous(), v.to(acc).contiguous(),
+                        self.warp_w)
 
     def diagonal(self):
         rows = torch.arange(self.shape[0], dtype=self.cols.dtype, device=self.cols.device)
         return torch.where(self.cols == rows[None, :], self.vals, 0.0).sum(dim=0)
 
     def astype(self, dtype):
-        return ELLSoA(self.vals.to(dtype), self.cols, self.shape)
+        return ELLSoA(self.vals.to(dtype), self.cols, self.shape, self.warp_w)
 
     def with_added_diagonal(self, d):
         """A + diag(d): only the first (row == col) slot of each row changes
@@ -342,7 +350,7 @@ class ELLSoA:
         first = isdiag & (torch.cumsum(isdiag, dim=0) == 1)
         d = torch.as_tensor(d, device=self.vals.device)
         vals = self.vals + torch.where(first, d[None, :], 0.0)
-        return ELLSoA(vals, self.cols, self.shape)
+        return ELLSoA(vals, self.cols, self.shape, self.warp_w)
 
 
 # P2: on an affine triangle every P2 weak-form integral is a per-cell scalar

@@ -8,7 +8,9 @@ H-wide edge strips of the neighbouring blocks (``ShardMesh.halo``).
 Columns are rebased to halo-local indices at set-up, so the local product
 is K2's compact form (``ops/gather_spmv.ell_spmv``) on the shard's (K,
 block) table over the (block + 2H) halo-extended vector; K2 takes any
-operand length.
+operand length. The halo-local columns move the padding column to local
+row + H, so where E carries warp widths the shard's come from the global
+pattern's row widths, cut to the shard's rows.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.gather_spmv import accumulation_dtype, ell_spmv
+from ..ops.gather_spmv import accumulation_dtype, ell_row_widths, ell_spmv, warp_widths
 from .cg import sharded_cg
 from .comm import ShardMesh
 from .halo import _inv_diag, _maybe_escalate
@@ -58,6 +60,12 @@ class HaloELLSolver:
         # halo-local columns in [0, block + 2H)
         self.lcols = torch.clamp(c - start + H, 0, block + 2 * H - 1).to(torch.int32).contiguous()
         self.diag = torch.where(c == lrows[None, :], self.vals, 0.0).sum(dim=0).to(self.dtype)
+        # the global rows' widths where E's builder vouches for them (None:
+        # all K slots); the pad rows past n hold only padding
+        self.warp_w = None
+        if getattr(E, "warp_w", None) is not None:
+            row_w = ell_row_widths(cols)[start:start + block]
+            self.warp_w = warp_widths(F.pad(row_w, (0, block - row_w.shape[0])))
 
     def _pad_local(self, v):
         v = torch.as_tensor(v, device=self.device_mesh.device).to(self.dtype)
@@ -68,7 +76,7 @@ class HaloELLSolver:
     def _spmv(self, x):
         """This shard's rows of A x: K2 on the halo-extended vector."""
         ext = self.device_mesh.halo_extend(x, self.H)
-        return ell_spmv(self.vals, self.lcols, ext)
+        return ell_spmv(self.vals, self.lcols, ext, self.warp_w)
 
     def _prec(self, free):
         inv_diag = _inv_diag(self.diag, free)

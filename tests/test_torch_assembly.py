@@ -481,8 +481,10 @@ def test_kernel_matches_plain_version_on_card():
     stable from run to run. K1, K3-K6: perturbed geometry, junk-padded
     planes, n not a multiple of 128, cell counts not a multiple of the
     block, f32 and f64 (tolerance 8 eps max|out|: nvcc contracts products
-    into FMAs). K2 (float32, float64 and bfloat16 values, a rectangular
-    operator; its sliced form in f32 and f64 at sigma 1 and 256 on a
+    into FMAs). K2 (float32, float64 and bfloat16 values, float32 values
+    on a float64 x, a rectangular operator; the square tables also with
+    their warp widths, bitwise the launch without; its sliced form in f32
+    and f64 at sigma 1 and 256 on a
     skewed table, vectors and strided blocks, each block column bitwise
     its vector product) and K7 (f32 and f64, offsets past either end, n
     not a multiple of the block): per-row bound K eps(acc) sum_k |a x|."""
@@ -496,13 +498,14 @@ def test_kernel_matches_plain_version_on_card():
 
     vals, cols, nd = _scrambled_fem_ell()
     rng = np.random.default_rng(2)
-    cases = [(vals, cols, nd, dt) for dt in (torch.float32, torch.float64, torch.bfloat16)]
+    cases = [(vals, cols, nd, dt, gs.accumulation_dtype(dt))
+             for dt in (torch.float32, torch.float64, torch.bfloat16)]
+    cases.append((vals, cols, nd, torch.float32, torch.float64))
     rcols = rng.integers(0, nd + 333, size=(5, nd - 77)).astype(np.int32)
-    cases.append((rng.standard_normal((5, nd - 77)), rcols, nd + 333, torch.float32))
-    for v_np, c_np, n_src, dt in cases:
+    cases.append((rng.standard_normal((5, nd - 77)), rcols, nd + 333, torch.float32, torch.float32))
+    for v_np, c_np, n_src, dt, acc in cases:
         V = torch.from_numpy(np.ascontiguousarray(v_np)).to("cuda", dt)
         Cc = torch.from_numpy(np.ascontiguousarray(c_np)).cuda()
-        acc = gs.accumulation_dtype(dt)
         x = torch.from_numpy(rng.standard_normal(n_src)).to("cuda", acc)
         before = gs.ell_spmv_launches
         got = gs.ell_spmv(V, Cc, x)
@@ -510,8 +513,15 @@ def test_kernel_matches_plain_version_on_card():
         assert gs.ell_spmv_launches == before + 1
         ref = gs.ell_spmv_reference(V, Cc, x)
         bound = V.shape[0] * torch.finfo(acc).eps * gs.ell_spmv_reference(V.abs(), Cc, x.abs())
-        assert bool(((got - ref).abs() <= bound).all()), f"K2 {dt} n_src={n_src}"
+        assert bool(((got - ref).abs() <= bound).all()), f"K2 {dt} x {acc} n_src={n_src}"
         assert torch.equal(got, gs.ell_spmv(V, Cc, x)), "K2 is not bitwise stable"
+        if n_src == V.shape[1]:  # the square FEM table: with its warp widths
+            W = gs.ell_warp_widths(Cc)
+            assert torch.equal(gs.ell_spmv(V, Cc, x, W), got), f"K2 {dt} x {acc} warp widths"
+            torch.cuda.synchronize()
+            assert gs.ell_spmv_launches == before + 3
+        if acc != gs.accumulation_dtype(dt):  # widened per product
+            assert torch.equal(got, gs.ell_spmv(V.to(acc), Cc, x)), "K2 float32 values, float64 x"
     # K2's sliced form: a skewed table (row lengths 0-40, n not a multiple
     # of the slice), vector and block products, the block as a transposed
     # view and row-major 9 wide (rows mapping) and row-major 70 wide

@@ -131,6 +131,47 @@ def _p2_spaces(nx):
     return jspace, tspace
 
 
+def _masked_reference(vals, cols, x, warp_w):
+    """K2's plain version summing each row's slots only up to its warp's
+    width (the slots the kernel reads with ``warp_w``), in slot order."""
+    n = vals.shape[1]
+    w = warp_w.long().repeat_interleave(gs.WARP)[:n]
+    acc = torch.zeros(n, dtype=x.dtype)
+    for k in range(int(w.max()) if n else 0):
+        acc = torch.where(k < w, acc + vals[k].to(x.dtype) * x[cols[k].long()], acc)
+    return acc
+
+
+def _check_warp_widths(E, v, what, jref=None):
+    """K2's warp widths of a compact (K, n) table E (an ELLSoA or a
+    LaneRoutedELL): (ceil(n / 32),) int32; every slot at or past its warp's
+    width is padding (col = row, val = 0); the plain version masked to the
+    widths equals the full plain version (torch.equal) and ``jref``, JAX's
+    product on the same table (1e-13 of scale); the CPU wrapper takes the
+    widths, returns the plain version and counts no launch."""
+    W = E.warp_w
+    K, n = E.vals.shape
+    assert W.dtype == torch.int32 and tuple(W.shape) == (-(-n // 32),), what
+    past = torch.arange(K)[:, None] >= W.long().repeat_interleave(32)[:n][None, :]
+    rows = torch.arange(n, dtype=E.cols.dtype).expand(K, n)
+    assert torch.equal(E.cols[past], rows[past]) and not bool(E.vals[past].any()), \
+        f"{what}: a slot past its warp's width is not padding"
+    x = _t(v).to(gs.accumulation_dtype(E.vals.dtype))
+    full = gs.ell_spmv_reference(E.vals, E.cols, x)
+    masked = _masked_reference(E.vals, E.cols, x, W)
+    assert torch.equal(masked, full), f"{what}: the widths skip a nonzero term"
+    if jref is not None:
+        jref = np.asarray(jref)
+        assert np.abs(_np(masked) - jref).max() <= 1e-13 * np.abs(jref).max(), f"{what}: vs JAX"
+    launches = gs.ell_spmv_launches
+    assert torch.equal(gs.ell_spmv(E.vals, E.cols, x, W), full), what
+    with pytest.raises(ValueError):  # widths of another length
+        gs.ell_spmv(E.vals, E.cols, x, torch.cat([W, W[:1]]))
+    with pytest.raises(ValueError):  # int64 widths
+        gs.ell_spmv(E.vals, E.cols, x, W.long())
+    assert gs.ell_spmv_launches == launches, f"{what}: a CPU product counted a launch"
+
+
 def _assert_ell_close(got, ref, name):
     """cols exact, vals to 1e-13 of the largest |val|."""
     np.testing.assert_array_equal(_np(got.cols), np.asarray(ref.cols), err_msg=f"{name}: cols")
@@ -231,6 +272,19 @@ def test_soa_pipeline_matches_jax():
         y32 = _np(tE.astype(torch.float32) @ _t(v).float())
         assert y32.dtype == np.float32
         assert np.abs(y32 - y_ref).max() <= 1e-5 * scale, f"ELLSoA float32 @ ({kind})"
+        # K2's warp widths: JAX's interpret-mode _spmv on the same table,
+        # the widths shared by the tables that keep cols, and float32
+        # values against a float64 v widened per product (no converted copy)
+        _check_warp_widths(tE, v, f"warp widths ({kind})",
+                           JLane.from_ell(jE, p_max=12, rounds=12) @ jnp.asarray(v))
+        t32 = tE.astype(torch.float32)
+        assert t32.warp_w is tE.warp_w and tE.with_added_diagonal(_t(dd)).warp_w is tE.warp_w
+        lane = LaneRoutedELL.from_ell(t32, keep_remap=True)
+        assert lane.warp_w is tE.warp_w and lane.with_vals(t32).warp_w is tE.warp_w
+        assert lane.astype(torch.bfloat16).warp_w is tE.warp_w, f"widths lost ({kind})"
+        y_mixed = t32 @ _t(v)
+        assert y_mixed.dtype == torch.float64, f"float32 ELLSoA @ float64 v ({kind})"
+        assert torch.equal(y_mixed, t32.astype(torch.float64) @ _t(v)), f"mixed @ ({kind})"
 
         # band plan: the lattice numbering is banded, the scrambled one not
         assert plan_split_width(tE) == j_plan(jE), f"plan_split_width ({kind})"
@@ -336,6 +390,8 @@ def test_soa_pipeline_matches_jax():
         _assert_ell_close(tE2, jE2, f"{what}: to_ell")
         np.testing.assert_allclose(_np(tE2 @ _t(v2)), ref, rtol=1e-11, atol=1e-12,
                                    err_msg=f"{what}: ELL @ vs assembled")
+        _check_warp_widths(tE2, v2, f"{what}: warp widths",
+                           JLane.from_ell(jE2) @ jnp.asarray(v2) if kind == "diffusion" else None)
     assert bool(top.to_ell(12)[1]), "P2 to_ell(12) must overflow"
 
     # 3D: the cube meshes (topology exact, nodes to 1e-12, the boundary
@@ -397,6 +453,8 @@ def test_soa_pipeline_matches_jax():
         assert not bool(to3) and not bool(jo3) and tuple(tE3.vals.shape) == (16, nd3), what
         _assert_ell_close(tE3, jE3, f"{what}: to_ell")
         close(tE3 @ _t(v3), jE3 @ jnp.asarray(v3), f"{what}: ELL @", 1e-13)
+        _check_warp_widths(tE3, v3, f"{what}: warp widths",
+                           JLane.from_ell(jE3) @ jnp.asarray(v3) if kind == "poisson" else None)
         assert bool(top.to_ell(12)[1]), f"{what}: to_ell(12) must overflow"
 
     nodes3 = np.stack([x3, y3, z3], 1)
@@ -433,6 +491,9 @@ def test_soa_pipeline_matches_jax():
         dd = rng.uniform(0.5, 2.0, nd_)
         close(Et.with_added_diagonal(_t(dd)).vals, Ej.with_added_diagonal(jnp.asarray(dd)).vals,
               f"{name}: ELLMatrix with_added_diagonal", 1e-13)
+        _check_warp_widths(Et._slot_major, vv, f"{name}: ELLMatrix warp widths")
+        assert Et.astype(torch.float32).warp_w is Et.warp_w
+        assert Et.with_added_diagonal(_t(dd)).warp_w is Et.warp_w, f"{name}: ELLMatrix widths"
         close(tell.ell_spmv(mft.A_loc, mft.dofs.long(), mft.adj, mft.adj_mask, _t(vv)),
               jell.ell_spmv(mfj.A_loc, mfj.dofs, mfj.adj, mfj.adj_mask, jnp.asarray(vv)),
               f"{name}: the element-local combine", 1e-13)
@@ -497,6 +558,9 @@ def test_lane_routed_ell_matches_jax(tmp_path):
     vals, cols, nd = _scrambled_fem_ell()
     jE = jms.ELLSoA(jnp.asarray(vals), jnp.asarray(cols), (nd, nd))
     E = ell_from_numpy(vals, cols, (nd, nd), device="cpu")
+    assert E.warp_w is None and LaneRoutedELL.from_ell(E).warp_w is None, "unvouched widths"
+    # JAX's assembled table holds one entry per (row, col): its widths hold
+    E = tms.ELLSoA(E.vals, E.cols, E.shape, gs.ell_warp_widths(E.cols))
     jop = JLane.from_ell(jE, p_max=12, rounds=12)
     launches = gs.ell_spmv_launches
     op = LaneRoutedELL.from_ell(E, p_max=12, rounds=12)
@@ -507,6 +571,8 @@ def test_lane_routed_ell_matches_jax(tmp_path):
     ref = np.asarray(jop @ jnp.asarray(v))
     got = _np(op @ _t(v))
     np.testing.assert_allclose(got, ref, rtol=1e-13, atol=1e-13, err_msg="float64 @")
+    _check_warp_widths(op, v, "LaneRoutedELL warp widths", ref)
+    assert op.warp_w is E.warp_w and op.astype(torch.float32).warp_w is E.warp_w
     np.testing.assert_allclose(_np(op.diagonal()), np.asarray(jop.diagonal()),
                                rtol=1e-14, atol=0, err_msg="diagonal")
 
@@ -550,6 +616,7 @@ def test_lane_routed_ell_matches_jax(tmp_path):
                                rtol=1e-13, atol=1e-13, err_msg="with_vals @")
     np.testing.assert_allclose(_np(opS.diagonal()), np.asarray(jopS.diagonal()),
                                rtol=1e-14, err_msg="with_vals diagonal")
+    assert opS.warp_w is E.warp_w, "with_vals keeps the warp widths"
     with pytest.raises(ValueError, match="remap"):
         op.with_vals(S_ell)
     with pytest.raises(ValueError):  # other sparsity
@@ -732,6 +799,29 @@ def _check_halo_ell_and_lane_match_jax(tmp_path):
              case("HaloLaneSolver", JHaloLane, E, bnd_s, 1e-11, 4000),
              case("HaloLaneSolver aux", JHaloLane, E, bnd_s, 1e-10, 500, aux=(coords, diag, 16))]
     got, _ = check_against_jax(tmp_path / "halo_ell", cases)
+    # each of 4 shards' (K, block) tables of the n = 24 ELL: its warp
+    # widths (the global rows', cut to the shard's) leave only padding
+    # (halo-local col = local row + H, val = 0) past each warp's width; the
+    # masked plain product over the halo-extended vector equals the full one
+    from types import SimpleNamespace
+    from fdapde_core_tpu_torch.parallel import HaloELLSolver
+
+    E24t = ell_from_numpy(np.asarray(E24.vals), np.asarray(E24.cols), E24.shape, device="cpu")
+    mesh0 = SimpleNamespace(rank=0, size=4, device=torch.device("cpu"))
+    assert HaloELLSolver(E24t, mesh0).warp_w is None, "a table without widths reads all K slots"
+    E24t = tms.ELLSoA(E24t.vals, E24t.cols, E24t.shape, gs.ell_warp_widths(E24t.cols))
+    rng = np.random.default_rng(3)
+    for rank in range(4):
+        sh = HaloELLSolver(E24t, SimpleNamespace(rank=rank, size=4, device=torch.device("cpu")))
+        K, block = sh.vals.shape
+        W = sh.warp_w
+        assert W.dtype == torch.int32 and tuple(W.shape) == (-(-block // 32),), rank
+        past = torch.arange(K)[:, None] >= W.long().repeat_interleave(32)[:block][None, :]
+        pad = (torch.arange(block, dtype=sh.lcols.dtype) + sh.H).expand(K, block)
+        assert torch.equal(sh.lcols[past], pad[past]) and not bool(sh.vals[past].any()), rank
+        ext = torch.from_numpy(rng.standard_normal(block + 2 * sh.H))
+        assert torch.equal(_masked_reference(sh.vals, sh.lcols, ext, W),
+                           gs.ell_spmv_reference(sh.vals, sh.lcols, ext)), f"shard {rank}"
     k_jacobi, k_aux = int(got[1]["N"]["k"]), int(got[2]["N"]["k"])
     Et = ell_from_numpy(np.asarray(E.vals), np.asarray(E.cols), (nd, nd), device="cpu")
     mask = torch.as_tensor(np.array(bnd_s))
