@@ -11,7 +11,11 @@ finite_elements/basis/lagrangian_basis.h:203-283):
   binary incidence matrix over cells; D holds the subdomain measures.
 
 Psi is the port's ``SparseMatrix`` on ``device``; its products run on K2.
-The entries are computed on the host, as in JAX. A pointwise row holds the
+The entries are computed on the host, as in JAX. A pointwise build is an
+``evaluation.basis`` span (``utils.profiling``; its value the points) made
+of ``evaluation.locate`` (the point location and its read on the host) and
+``evaluation.host``, whose stages are ``evaluation.affine_maps``,
+``evaluation.basis_values`` and ``evaluation.upload``. A pointwise row holds the
 distinct dofs of one cell, so it has no duplicates: its entries are put in
 column order directly, where JAX's ``from_coo`` sorts and deduplicates all
 of them (same pattern and values).
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from ..linear_algebra.sparse import SparseMatrix
+from ..utils.profiling import span
 
 __all__ = ["basis_expansion", "eval_basis_areal", "eval_basis_pointwise"]
 
@@ -39,26 +44,32 @@ def eval_basis_pointwise(space, locs, device_locate: bool = False, dtype=torch.f
 
     mesh = space.mesh
     locs = np.atleast_2d(np.asarray(locs, dtype=np.float64))
-    if device_locate:
-        ids = mesh.locate_device(locs, device=device).cpu().numpy()
-    else:
-        ids = mesh.locate(locs)
-    inside = np.nonzero(ids >= 0)[0]
-    e = ids[inside]
-    _, invJ, _ = affine_maps_np(mesh.nodes, mesh.cells)
-    v0 = mesh.nodes[mesh.cells[e, 0]]
-    ref_pts = np.einsum("kmn,kn->km", invJ[e], locs[inside] - v0)
-    vals = space.ref_basis.eval(ref_pts)  # (k, nb)
-    nb = space.n_basis_per_cell
-    dofs = space.dofs[e]  # (k, nb), distinct within a row
-    order = np.argsort(dofs, axis=1, kind="stable")
-    rows = np.repeat(inside, nb).astype(np.int32)
-    cols = np.take_along_axis(dofs, order, axis=1).reshape(-1).astype(np.int32)
-    vals = np.take_along_axis(vals, order, axis=1).reshape(-1)
-    Psi = SparseMatrix(
-        torch.as_tensor(rows, device=device), torch.as_tensor(cols, device=device),
-        torch.as_tensor(vals, device=device).to(dtype), (locs.shape[0], space.n_dofs),
-    )
+    with span("evaluation.basis", locs.shape[0]):
+        with span("evaluation.locate"):
+            if device_locate:
+                ids = mesh.locate_device(locs, device=device).cpu().numpy()
+            else:
+                ids = mesh.locate(locs)
+        with span("evaluation.host"):
+            inside = np.nonzero(ids >= 0)[0]
+            e = ids[inside]
+            with span("evaluation.affine_maps"):
+                _, invJ, _ = affine_maps_np(mesh.nodes, mesh.cells)
+            with span("evaluation.basis_values"):
+                v0 = mesh.nodes[mesh.cells[e, 0]]
+                ref_pts = np.einsum("kmn,kn->km", invJ[e], locs[inside] - v0)
+                vals = space.ref_basis.eval(ref_pts)  # (k, nb)
+                nb = space.n_basis_per_cell
+                dofs = space.dofs[e]  # (k, nb), distinct within a row
+                order = np.argsort(dofs, axis=1, kind="stable")
+                rows = np.repeat(inside, nb).astype(np.int32)
+                cols = np.take_along_axis(dofs, order, axis=1).reshape(-1).astype(np.int32)
+                vals = np.take_along_axis(vals, order, axis=1).reshape(-1)
+            with span("evaluation.upload"):
+                Psi = SparseMatrix(
+                    torch.as_tensor(rows, device=device), torch.as_tensor(cols, device=device),
+                    torch.as_tensor(vals, device=device).to(dtype), (locs.shape[0], space.n_dofs),
+                )
     return Psi, np.ones(locs.shape[0])
 
 

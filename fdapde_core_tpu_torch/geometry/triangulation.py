@@ -10,7 +10,8 @@ Sub-simplex numbering takes the native C++ hash pass
 (`native/topology.cpp`, built with g++ at first use) wherever a g++ is on
 PATH, as the JAX package does, and the NumPy sort otherwise; both give the
 same ids. Point location (`locate` on the host, `locate_device` in torch)
-is `geometry/point_location.py`.
+is `geometry/point_location.py`. The constructor is the span `build.mesh`
+(`utils.profiling`); the topology it derives lazily is not in it.
 
 Numbering parity with the reference (required so P2 degrees of freedom and
 golden matrices match bit-for-bit):
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from ..utils.combinatorics import combinations
+from ..utils.profiling import span
 
 __all__ = ["Triangulation", "first_encounter_unique", "first_encounter_unique_numpy"]
 
@@ -76,22 +78,23 @@ class Triangulation:
         cells: np.ndarray,
         boundary: np.ndarray | None = None,
     ):
-        nodes = np.asarray(nodes, dtype=np.float64)
-        if nodes.ndim == 1:
-            nodes = nodes[:, None]
-        cells = np.asarray(cells, dtype=np.int32)
-        self.nodes = nodes
-        self.cells = cells
-        self.local_dim = cells.shape[1] - 1
-        self.embed_dim = nodes.shape[1]
-        self.n_nodes = nodes.shape[0]
-        self.n_cells = cells.shape[0]
-        if boundary is not None:
-            self.boundary_nodes = np.asarray(boundary).reshape(-1).astype(bool)
-        else:
-            self.boundary_nodes = None  # derived lazily from boundary facets
-        # mesh bounding box (triangulation.h:54-55)
-        self.range = np.stack([nodes.min(axis=0), nodes.max(axis=0)])
+        with span("build.mesh"):
+            nodes = np.asarray(nodes, dtype=np.float64)
+            if nodes.ndim == 1:
+                nodes = nodes[:, None]
+            cells = np.asarray(cells, dtype=np.int32)
+            self.nodes = nodes
+            self.cells = cells
+            self.local_dim = cells.shape[1] - 1
+            self.embed_dim = nodes.shape[1]
+            self.n_nodes = nodes.shape[0]
+            self.n_cells = cells.shape[0]
+            if boundary is not None:
+                self.boundary_nodes = np.asarray(boundary).reshape(-1).astype(bool)
+            else:
+                self.boundary_nodes = None  # derived lazily from boundary facets
+            # mesh bounding box (triangulation.h:54-55)
+            self.range = np.stack([nodes.min(axis=0), nodes.max(axis=0)])
 
     # -- topology ------------------------------------------------------------
     @property

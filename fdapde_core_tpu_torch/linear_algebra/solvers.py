@@ -18,15 +18,24 @@ Operators are callables or objects with ``@``. Convergence is
 ``||r|| <= max(rtol*||b||, atol)`` with an iteration cap; a non-finite
 residual stops the loop with ``converged=False``. The loops read one scalar
 per iteration on the host.
+
+Spans (``utils.profiling``): each solve of ``cg``, ``bicgstab``, their
+chunked forms and ``cg_split_programs`` is a ``krylov.solve`` span whose
+value is its iterations; inside it, each operator product is
+``krylov.operator``, each preconditioner apply ``precond.apply`` and each
+host read of the residual ``krylov.read``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 __all__ = ["SolveInfo", "cg", "cg_chunked", "cg_differentiable", "cg_split_programs", "bicgstab",
            "bicgstab_chunked", "dense_solve", "gmres", "iterative_refinement",
@@ -43,6 +52,34 @@ def _as_operator(A) -> Callable:
     return A if callable(A) else (lambda x: A @ x)
 
 
+def _spanned(name, fn):
+    """``fn`` with each call inside a span ``name``."""
+    def apply(x):
+        with span(name):
+            return fn(x)
+
+    return apply
+
+
+def _read(t) -> float:
+    """A device scalar on the host: the loop's wait for the device."""
+    with span("krylov.read"):
+        return float(t)
+
+
+def _solve_span(solve):
+    """``solve`` inside a ``krylov.solve`` span valued by its iterations."""
+
+    @functools.wraps(solve)
+    def spanned(*args, **kwargs):
+        with span("krylov.solve") as sp:
+            x, info = solve(*args, **kwargs)
+            sp.value = info.iterations
+        return x, info
+
+    return spanned
+
+
 def _identity(x):
     return x
 
@@ -57,17 +94,17 @@ def _run_chunks(step, state, rnorm_of, tol, maxiter, chunk, on_chunk):
     finite and k < maxiter, in chunks of ``chunk`` iterations (the whole
     run when chunk is None), calling on_chunk(k, rnorm) after each chunk.
     Returns (state, k, rnorm)."""
-    tolf = float(tol)
+    tolf = _read(tol)
     k = 0
     rnorm = rnorm_of(state)
-    rn = float(rnorm)
+    rn = _read(rnorm)
     while True:
         k_before = k
         stop = maxiter if chunk is None else k_before + chunk
         while k < stop and k < maxiter and rn > tolf and math.isfinite(rn):
             state = step(state)
             rnorm = rnorm_of(state)
-            rn = float(rnorm)
+            rn = _read(rnorm)
             k += 1
         if on_chunk is not None:
             on_chunk(k, rn)
@@ -75,9 +112,10 @@ def _run_chunks(step, state, rnorm_of, tol, maxiter, chunk, on_chunk):
             return state, k, rnorm
 
 
+@_solve_span
 def _cg(A, b, M_inv, x0, rtol, atol, maxiter, chunk, on_chunk):
-    op = _as_operator(A)
-    pre = _as_operator(M_inv) if M_inv is not None else _identity
+    op = _spanned("krylov.operator", _as_operator(A))
+    pre = _spanned("precond.apply", _as_operator(M_inv) if M_inv is not None else _identity)
     if maxiter is None:
         maxiter = 10 * b.shape[0]
     x = torch.zeros_like(b) if x0 is None else x0
@@ -114,9 +152,10 @@ def cg_chunked(A, b, M_inv=None, x0=None, rtol=1e-12, atol=0.0,
     return _cg(A, b, M_inv, x0, rtol, atol, maxiter, int(chunk), on_chunk)
 
 
+@_solve_span
 def _bicgstab(A, b, M_inv, x0, rtol, atol, maxiter, chunk, on_chunk):
-    op = _as_operator(A)
-    pre = _as_operator(M_inv) if M_inv is not None else _identity
+    op = _spanned("krylov.operator", _as_operator(A))
+    pre = _spanned("precond.apply", _as_operator(M_inv) if M_inv is not None else _identity)
     if maxiter is None:
         maxiter = 20 * b.shape[0]
     x = torch.zeros_like(b) if x0 is None else x0
@@ -236,21 +275,22 @@ def _guarded_div(num, den):
     return torch.where(den == 0, 0.0, num / torch.where(den == 0, 1.0, den))
 
 
+@_solve_span
 def cg_split_programs(A, b, M_inv, rtol=1e-12, maxiter=200, check_every=10,
                       on_check=None):
     """Preconditioned CG from x0 = 0 whose stop test is read on the host
     only every ``check_every`` iterations (and at maxiter); on_check(k,
     ||r||^2) is called at each read. Iterations past convergence are exact
     no-ops (guarded divisions). Returns (x, SolveInfo)."""
-    op = _as_operator(A)
-    pre = _as_operator(M_inv)
+    op = _spanned("krylov.operator", _as_operator(A))
+    pre = _spanned("precond.apply", _as_operator(M_inv))
 
     def apply_pre(r, p, rz):
         z = pre(r)
         rz_new = torch.dot(r, z)
         return z + _guarded_div(rz_new, rz) * p, rz_new
 
-    bn2 = float(torch.dot(b, b))
+    bn2 = _read(torch.dot(b, b))
     tol2 = (rtol * rtol) * bn2
     one = torch.ones((), dtype=b.dtype, device=b.device)
     # r0 = b (x0 = 0); z0 and p0 from apply_pre with p = 0, rz = 1
@@ -268,7 +308,7 @@ def cg_split_programs(A, b, M_inv, rtol=1e-12, maxiter=200, check_every=10,
         p, rz = apply_pre(r, p, rz)
         k += 1
         if k % check_every == 0 or k == maxiter:
-            v = float(rn2)
+            v = _read(rn2)
             if on_check is not None:
                 on_check(k, v)
             if not v > tol2:  # converged or non-finite: stop

@@ -29,6 +29,9 @@ Euler with the lumped mass on the same operator stack.
 ``MatrixFreeParabolic``'s aux-grid route takes the unit box as the grid's
 box when ``bbox`` is not given, in 2D and 3D; JAX passes None there, which
 its ``build_device`` does not take.
+
+``MatrixFreeElliptic.solve`` and ``load_vector`` are the root spans
+``matfree.solve`` and ``matfree.load_vector`` (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from ..ops.dia_split3d import (
 from ..ops.gather_spmv import LaneRoutedELL
 from ..ops.lane_aux import LaneAuxGrid, lane_friendly_grid_n
 from ..ops.matfree_soa import MatrixFreeP2SoA, MatrixFreeSoA, MatrixFreeSoA3D
+from ..utils.profiling import span
 
 __all__ = ["MatrixFreePoisson", "MatrixFreeElliptic", "MatrixFreeParabolic"]
 
@@ -507,10 +511,11 @@ class MatrixFreeElliptic:
         """Load vector from per-cell forcing values (centroid rule): P1
         b_a = sum_T |T|/(d+1) f over the cells incident to a; P2 |T|/3 on
         the edge dofs, 0 on the vertex dofs."""
-        return _load_vector(
-            self._coords, self.dofs, self.adj, self.adj_mask,
-            torch.as_tensor(f_cells, device=self.dof_x.device), self.order,
-        )
+        with span("matfree.load_vector"):
+            return _load_vector(
+                self._coords, self.dofs, self.adj, self.adj_mask,
+                torch.as_tensor(f_cells, device=self.dof_x.device), self.order,
+            )
 
     def solve(self, b, g=None, rtol: float = 1e-9, maxiter: int = 200,
               chunk: int | None = None, on_chunk=None):
@@ -518,16 +523,18 @@ class MatrixFreeElliptic:
         CG when symmetric, BiCGStab otherwise, float32 aux V-cycle; on the
         lane path, refinement with float32 inner CG (``chunk`` sets its
         check cadence, chunk // 2, default 50)."""
-        if self.preconditioner == "auxgrid+lane":
-            return _lane_refined_solve(
-                self.op_ref, self.op, self.boundary, self.aux, b, g,
-                rtol, maxiter, chunk or 50, on_chunk)
-        if g is None:
-            g = torch.zeros_like(b)
-        if chunk is not None:
-            return _solve_chunked(self.op, self.boundary, self.aux, b, g,
-                                  self.is_symmetric, rtol, maxiter, chunk, on_chunk)
-        return _solve(self.op, self.boundary, self.aux, b, g, self.is_symmetric, rtol, maxiter)
+        with span("matfree.solve"):
+            if self.preconditioner == "auxgrid+lane":
+                return _lane_refined_solve(
+                    self.op_ref, self.op, self.boundary, self.aux, b, g,
+                    rtol, maxiter, chunk or 50, on_chunk)
+            if g is None:
+                g = torch.zeros_like(b)
+            if chunk is not None:
+                return _solve_chunked(self.op, self.boundary, self.aux, b, g,
+                                      self.is_symmetric, rtol, maxiter, chunk, on_chunk)
+            return _solve(self.op, self.boundary, self.aux, b, g, self.is_symmetric, rtol,
+                          maxiter)
 
 
 def _lane_refined_solve(op_ref, lane, bnd, aux, b, g, rtol, maxiter, chunk,

@@ -21,6 +21,10 @@ Differences from the JAX module:
   same from run to run on CUDA;
 - the Hutchinson probes, vmapped in JAX, are a loop of vector CG solves
   with the same seeded Rademacher probes, so the estimates agree.
+
+Spans (``utils.profiling``): ``fit`` and ``gcv`` are the roots
+``regression.fit`` and ``regression.gcv``; the constructor's stages are
+``build.space`` (``FEMSpace``) and ``build.assembly`` (the penalty).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from ..fem.assembler import assemble_matrix
 from ..fem.evaluation import eval_basis_pointwise
 from ..fem.space import FEMSpace
 from ..linear_algebra.solvers import cg, dense_solve, jacobi_preconditioner
+from ..utils.profiling import span
 
 __all__ = ["SmoothingRegression"]
 
@@ -43,8 +48,10 @@ class SmoothingRegression:
     def __init__(self, mesh, penalty_op, order: int = 1, dtype=torch.float64, device="cuda"):
         self.device = torch.device(device)
         self.dtype = dtype
-        self.space = FEMSpace(mesh, order)
-        self.P = assemble_matrix(self.space, penalty_op, dtype=dtype, device=self.device)
+        with span("build.space"):
+            self.space = FEMSpace(mesh, order)
+        with span("build.assembly"):
+            self.P = assemble_matrix(self.space, penalty_op, dtype=dtype, device=self.device)
 
     def _basis(self, locs):
         """Psi at ``locs`` (a SparseMatrix on the model's device)."""
@@ -57,7 +64,8 @@ class SmoothingRegression:
 
     def fit(self, locs, y, lam: float, rtol: float = 1e-10, maxiter=2000):
         """Solve (Psi^T Psi + lam P) c = Psi^T y; returns coefficients c."""
-        return self._fit_psi(self._basis(locs), y, lam, rtol=rtol, maxiter=maxiter)
+        with span("regression.fit"):
+            return self._fit_psi(self._basis(locs), y, lam, rtol=rtol, maxiter=maxiter)
 
     def _fit_psi(self, Psi, y, lam: float, rtol: float = 1e-10, maxiter=2000):
         op, pre = self._normal_op(Psi, lam)
@@ -110,8 +118,9 @@ class SmoothingRegression:
     def gcv(self, locs, y, lam: float, n_probes: int = 16, seed: int = 0, exact: bool = False,
             rtol: float = 1e-10, maxiter: int = 2000) -> float:
         """Generalized cross-validation score at one lambda."""
-        return self._gcv_psi(self._basis(locs), y, lam, n_probes=n_probes, seed=seed,
-                             exact=exact, rtol=rtol, maxiter=maxiter)
+        with span("regression.gcv"):
+            return self._gcv_psi(self._basis(locs), y, lam, n_probes=n_probes, seed=seed,
+                                 exact=exact, rtol=rtol, maxiter=maxiter)
 
     def _gcv_psi(self, Psi, y, lam, n_probes, seed, exact, rtol, maxiter):
         y = self._tensor(y)

@@ -21,6 +21,10 @@ the flattened (4, n) table, the order ``segment_sum`` adds them in on the
 CPU, with no atomics, so the apply is bitwise the same from run to run.
 P z_g, which JAX gathers, is the (4, n) (in 3D (8, n)) table read as a
 rectangular (n, m^d) ELL on K2's compact form (``ell_spmv``).
+
+An apply's two grid transfers are spans (``utils.profiling``):
+``auxgrid.restrict`` (P^T r) and ``auxgrid.interpolate`` (the smoother
+term and P z_g); the V-cycle between them records its own.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .gather_spmv import SlicedELL, ell_spmv
 from .grid_dia import GridDIAMatrix
 from .grid_mg import GridMG
@@ -183,9 +188,11 @@ class AuxGridPreconditioner:
         return ell_spmv(self.w, self.idx, z_g)
 
     def __call__(self, r):
-        rc = self.PT @ r  # P^T r: the 4 bilinear weights per node onto the grid
+        with span("auxgrid.restrict"):
+            rc = self.PT @ r  # P^T r: the 4 bilinear weights per node onto the grid
         z_g = self.mg.v_cycle(rc)
-        return self.omega * self.dinv * r + self.interpolate(z_g)
+        with span("auxgrid.interpolate"):
+            return self.omega * self.dinv * r + self.interpolate(z_g)
 
 
 def _grid_stencil3(free, h):

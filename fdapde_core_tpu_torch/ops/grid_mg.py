@@ -16,6 +16,11 @@ strided slices and elementwise work:
 
 Each level needs an odd node count m = n+1; coarsening stops when n goes
 odd or n // 2 < coarse_n.
+
+A V-cycle's stages are spans (``utils.profiling``) valued by their level
+(0 the finest): ``mg.smooth`` (pre and post), ``mg.residual``,
+``mg.restrict`` (from the level), ``mg.prolong`` (onto it) and
+``mg.coarse``.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.profiling import span
 from .grid_cg import _safe_div
 from .grid_dia import GridDIAMatrix, _pad2
 
@@ -164,28 +170,35 @@ class GridMG:
     def _coarse_solve(self, b):
         lvl = self.n_levels - 1
         data, offs, m = self.datas[lvl], self.offsets[lvl], self.shapes[lvl]
-        x, r, p, rr = torch.zeros_like(b), b, b, torch.sum(b * b)
-        for _ in range(self.coarse_iters):
-            Ap = _stencil(data, offs, p, m)
-            pAp = torch.sum(p * Ap)
-            alpha = _safe_div(rr, pAp, pAp > 0)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            rr_new = torch.sum(r * r)
-            beta = _safe_div(rr_new, rr, rr > 0)
-            p = p * beta + r
-            rr = rr_new
+        with span("mg.coarse", lvl):
+            x, r, p, rr = torch.zeros_like(b), b, b, torch.sum(b * b)
+            for _ in range(self.coarse_iters):
+                Ap = _stencil(data, offs, p, m)
+                pAp = torch.sum(p * Ap)
+                alpha = _safe_div(rr, pAp, pAp > 0)
+                x = x + alpha * p
+                r = r - alpha * Ap
+                rr_new = torch.sum(r * r)
+                beta = _safe_div(rr_new, rr, rr > 0)
+                p = p * beta + r
+                rr = rr_new
         return x
 
     def _v(self, lvl, b):
         if lvl == self.n_levels - 1:
             return self._coarse_solve(b)
         data, offs, m = self.datas[lvl], self.offsets[lvl], self.shapes[lvl]
-        x = self._smooth(lvl, torch.zeros_like(b), b)
-        r = b - _stencil(data, offs, x, m)
-        e = self._v(lvl + 1, _restrict(r, self.shapes[lvl + 1]))
-        x = x + _prolong(e, m)
-        return self._smooth(lvl, x, b)
+        with span("mg.smooth", lvl):
+            x = self._smooth(lvl, torch.zeros_like(b), b)
+        with span("mg.residual", lvl):
+            r = b - _stencil(data, offs, x, m)
+        with span("mg.restrict", lvl):
+            rc = _restrict(r, self.shapes[lvl + 1])
+        e = self._v(lvl + 1, rc)
+        with span("mg.prolong", lvl):
+            x = x + _prolong(e, m)
+        with span("mg.smooth", lvl):
+            return self._smooth(lvl, x, b)
 
     def v_cycle(self, r):
         """One V-cycle on a flat or (m, m) residual; returns the same shape

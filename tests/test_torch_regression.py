@@ -200,8 +200,8 @@ def _check_utils_match_jax(tmp_path):
     NaN made in an intermediate and masked in the output (in a loop, and
     entering through a SparseMatrix product), as JAX's does, and passes
     clean code; debug_nans raises in its scope only; assert_all_finite
-    names the leaf; profiling: timer accumulates, flops_bandwidth equals
-    JAX's, xprof_trace writes a trace of the block; the public names of
+    names the leaf; profiling: timer accumulates, xprof_trace writes a
+    trace of the block; the public names of
     JAX's utils, fem, pde and geometry on the port, their constants and
     helpers equal (tests/test_utils.py:107; log1pexp to 1e-12), and the
     getattr diff over the JAX package (parallel included) finds nothing
@@ -219,7 +219,6 @@ def _check_utils_match_jax(tmp_path):
     import fdapde_core_tpu_torch.utils as tu
     from fdapde_core_tpu.utils import binary_tree as jbt
     from fdapde_core_tpu.utils import block_frame as jbf
-    from fdapde_core_tpu.utils import profiling as jprof
     from fdapde_core_tpu.utils import sanitize as jsan
     from fdapde_core_tpu.utils import shp_reader as jshp
     from fdapde_core_tpu_torch.utils import binary_tree as tbt
@@ -304,7 +303,6 @@ def _check_utils_match_jax(tmp_path):
         with tprof.timer("block", store, sync=[torch.ones(2), {"x": one}]):
             torch.ones(100).sum()
     assert set(store) == {"block"} and store["block"] > 0
-    assert tprof.flops_bandwidth(2.0, 4e9, 8e9) == jprof.flops_bandwidth(2.0, 4e9, 8e9)
     with tprof.xprof_trace(str(tmp_path / "trace")):
         torch.mm(torch.ones(8, 8), torch.ones(8, 8))
     traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
