@@ -303,10 +303,21 @@ Phases (each raises on failure; nothing is caught):
     versions (per-row bound), timed beside torch.sparse CSR; K2, K6 and K7
     launches by path. The solves of phases 8, 24, 25, 26 and 32's
     HaloELLSolver take ITERATIONS_KEPT's counts.
+33. hold the V-cycle's coarse-solve kernel KC (64 CG iterations in one
+    launch) against the plain loop on the main path's coarsest level (m =
+    51, K = 9) in f32 and f64 (relative gap 1e-5 / 1e-12, also after one
+    iteration; a zero right-hand side gives x = 0; bitwise stable), its
+    launch count zeroed just before, and time both with CUDA events.
+
+Phases 4-32 count their V-cycle coarse solves: KC's launches, and those
+of card vectors that took the plain loop. Phases 4, 5, 8, 9, 10, 12, 22
+and 32 run a 2D GridMG on the card, so each must launch KC and take the
+plain loop for none; checked after the last phase.
 
 Prints one JSON line of per-kernel results (each with its bound on the
 card from this run's shapes: bytes over 3.35 TB/s or operations over the
-type's peak, whichever is larger; K2's entry is the compact (9, 10.25M)
+type's peak, whichever is larger, but KC's, a latency bound, kc_bound_ms;
+KC's launches by phase under "launches_by_phase"; K2's entry is the compact (9, 10.25M)
 ELL of phase 7 with its warp widths ("full_ms" without them), the P2
 and gendel ELLs with and without their widths under "compact", float32
 values against a float64 x under "mixed" (with that kernel's launches
@@ -315,7 +326,7 @@ in phases 8-32), with the sliced form on phase
 the 3D ELL of phase 26 under "ell_3d", the 3D aux grid's P and P^T of
 phase 27 under "aux_3d", the launches of its backward in phases 28-30
 under "launches_backward" and phase 30's backward product under
-"backward"; K2, K6 and K7 carry phase 32's launches by path under
+"backward"; K2, K6, K7 and KC carry phase 32's launches by path under
 "launches_sharded", K2 and K7 their halo forms under "halo"),
 then, as the last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device or
@@ -352,6 +363,7 @@ N_PROBES = 8
 N_ST_MESH, N_SITES, N_DAYS = 256, 2000, 365  # phase 19's monitoring design
 LAM_S, LAM_T = 1.0, 0.1
 SLEEP_CYCLES = 20_000_000  # time_ms's head start for the host: ~10 ms at the H100's clock
+KC_THREADS = 512  # kThreads of csrc/grid_coarse_cg.cu
 SIGMAS = (1, 256, 1024, 4096)  # the sort windows phase 18 times K2's sliced form at
 N_DIA = 1024  # the DIA path's unit_square_mesh: 1,050,625 dofs, 2,097,152 cells
 T_HEAT = np.linspace(0.0, 0.1, 11)  # phase 20's instants
@@ -3379,14 +3391,19 @@ def kappa_p1(n):
 
 def counted(ak, gs, fn):
     """fn() with every launch count zeroed just before; returns (out,
-    seconds, {K1, K2, K6, K7: launches}) read just after."""
+    seconds, {K1, K2, K6, K7, KC: launches}) read just after (KC's as the
+    count's rise over fn, since main's totals by phase read it whole)."""
     from fdapde_core_tpu_torch.ops import dia_spmv as ds
     from fdapde_core_tpu_torch.ops import local_stiffness as ls
 
+    from fdapde_core_tpu_torch.ops import grid_mg
+
     zero_launch_counts(ak, gs)
+    kc = grid_mg.grid_coarse_cg_launches
     out, t = synced_seconds(fn)
     return out, t, {"K1": ak.p1_stencil_launches, "K2": gs.ell_spmv_launches,
-                    "K6": ls.p1_stiffness_2d_launches, "K7": ds.dia_spmv_launches}
+                    "K6": ls.p1_stiffness_2d_launches, "K7": ds.dia_spmv_launches,
+                    "KC": grid_mg.grid_coarse_cg_launches - kc}
 
 
 def hold(name, x, twin, k, k_twin, tol, launches, t, rel=None):
@@ -3828,11 +3845,108 @@ def phase_sharded(ak, gs, ds, pts, cells, bnd):
     return rows, kernels, costs
 
 
-def timed_phase(number, fn):
-    """Run a phase, print its seconds, return its result."""
-    out, t = synced_seconds(fn)
+def timed_phase(number, fn, runs_grid_mg=False):
+    """Run a phase, its V-cycle coarse solves counted (``coarse_counted``),
+    print its seconds, return its result."""
+    out, t = synced_seconds(lambda: coarse_counted(number, fn, runs_grid_mg))
     log(f"phase {number}: {t:.2f} s")
     return out
+
+
+# phase -> (KC launches, coarse solves of card vectors that took the plain loop)
+COARSE_BY_PHASE = {}
+PLAIN_COARSE_ON_CARD = [0]
+COARSE_FAULTS = []  # checked once every phase has run, so one run names them all
+
+
+def count_plain_coarse_solves(grid_mg):
+    """Count the V-cycle coarse solves of card vectors that take the plain
+    loop (``grid_mg._coarse_cg``, which ``GridMG._coarse_solve`` calls where
+    KC does not apply) from here on; returns the plain loop itself."""
+    plain = grid_mg._coarse_cg
+
+    def counting(data, offsets2d, m, b, n_iter):
+        PLAIN_COARSE_ON_CARD[0] += b.is_cuda
+        return plain(data, offsets2d, m, b, n_iter)
+
+    grid_mg._coarse_cg = counting
+    return plain
+
+
+def coarse_counted(phase, fn, runs_grid_mg=False):
+    """fn() with its V-cycle coarse solves counted by phase: KC's launches
+    and the card's solves on the plain loop. A phase that runs a 2D GridMG
+    on the card (``runs_grid_mg``) must launch KC and take the plain loop
+    for none of them; main checks that after the last phase."""
+    from fdapde_core_tpu_torch.ops import grid_mg
+
+    kc, plain = grid_mg.grid_coarse_cg_launches, PLAIN_COARSE_ON_CARD[0]
+    out = fn()
+    kc, plain = grid_mg.grid_coarse_cg_launches - kc, PLAIN_COARSE_ON_CARD[0] - plain
+    COARSE_BY_PHASE[phase] = (kc, plain)
+    log(f"phase {phase}: KC launches {kc}, card coarse solves on the plain loop {plain}")
+    if runs_grid_mg and kc == 0:
+        COARSE_FAULTS.append(f"phase {phase} runs a 2D GridMG on the card but never launched KC")
+    if runs_grid_mg and plain:
+        COARSE_FAULTS.append(f"phase {phase}: {plain} card coarse solves took the plain loop")
+    return out
+
+
+def kc_bound_ms(dtype, K, m, n_iter):
+    """KC's least time from latency, not bytes or operations (one block on
+    one SM; its bytes take 0.06 us at 3.35 TB/s): n_iter times the
+    dependent chain of one CG iteration, in assumed cycle counts (rounded
+    low) at the H100 SXM's 1,980 MHz boost clock: an L1 read of the layers,
+    the stencil's K ordered adds, the thread's P-point partial of p.Ap, two
+    block sums (5 shuffle-adds, a shared store, a barrier, a shared load, 5
+    shuffle-adds), two divisions, the P-point partial of r.r, and p's
+    update, store and barrier. P: the points a thread owns."""
+    shfl, smem, barrier, l1 = 20, 20, 20, 30
+    add, div = {torch.float32: (4, 20), torch.float64: (8, 40)}[dtype]
+    P = -(-m * m // KC_THREADS)
+    block_sum = 10 * (shfl + add) + smem + barrier + smem
+    chain = l1 + K * add + P * add + 2 * block_sum + 2 * div + P * add + 2 * add + smem + barrier
+    return n_iter * chain / 1.98e9 * 1e3
+
+
+def phase_coarse_cg(grid_mg, plain_coarse_cg, StructuredPoisson):
+    """Phase 33: KC, the V-cycle's coarse solve in one launch, against the
+    plain loop on the main path's coarsest level (StructuredPoisson(N_MAIN,
+    float32): m = 51, K = 9), float32 and float64 vectors; returns the
+    float32 measurements with the float64 ones under "float64"."""
+    grid_mg.grid_coarse_cg_launches = 0
+    mg = StructuredPoisson(N_MAIN, dtype=torch.float32, device=DEVICE).multigrid()
+    data, offs, m, n_iter = mg.datas[-1], mg.offsets[-1], mg.shapes[-1], mg.coarse_iters
+    check((m, len(offs), n_iter) == (51, 9, 64),
+          f"coarsest level m={m}, K={len(offs)}, {n_iter} iterations")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 33)
+    out = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        layers = mg._coarse_layers(dtype)
+        b = torch.randn((m, m), generator=gen, dtype=torch.float64, device=DEVICE).to(dtype)
+        kernel = lambda: grid_mg.grid_coarse_cg(layers, offs, b, n_iter)  # noqa: E731
+        plain = lambda: plain_coarse_cg(data, offs, m, b, n_iter)  # noqa: E731
+        got, want = kernel(), plain()
+        gap = ((got - want).norm() / want.norm()).item()
+        want1 = plain_coarse_cg(data, offs, m, b, 1)
+        one = ((grid_mg.grid_coarse_cg(layers, offs, b, 1) - want1).norm() / want1.norm()).item()
+        zero = grid_mg.grid_coarse_cg(layers, offs, torch.zeros_like(b), n_iter)
+        log(f"KC m={m} K={len(offs)} {dtype}: relative gap to the plain loop {gap:.3e} after "
+            f"{n_iter} it., {one:.3e} after 1 (tol {tol:g})")
+        check(gap <= tol and one <= tol, f"KC {dtype} disagrees with the plain loop")
+        check(torch.equal(got, kernel()), f"KC {dtype} is not bitwise stable from run to run")
+        check(not zero.any(), f"KC {dtype}: a zero right-hand side gave a nonzero x")
+        k1, p1 = time_ms(kernel, 200), time_ms(plain, 5)
+        k2, p2 = time_ms(kernel, 200), time_ms(plain, 5)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        bound = kc_bound_ms(dtype, len(offs), m, n_iter)
+        log(f"KC m={m} {dtype}: kernel {k1:.4f} / {k2:.4f} ms ({1e3 * ms / n_iter:.2f} us an "
+            f"iteration), plain loop {p1:.4f} / {p2:.4f} ms; bound {bound:.4f} ms (latency, "
+            f"{100 * bound / ms:.0f} %)")
+        out[str(dtype).split(".")[-1]] = dict(max_rel_err=gap, ms=ms, plain_ms=plain_ms,
+                                             library_ms=None, bound_ms=bound, bound_by="latency")
+    check(grid_mg.grid_coarse_cg_launches > 0, "KC's launch count did not rise")
+    return dict(out["float32"], float64=out["float64"])
 
 
 def main():
@@ -3846,6 +3960,7 @@ def main():
     from fdapde_core_tpu_torch.ops import assembly_kernels as ak
     from fdapde_core_tpu_torch.ops import dia_spmv as ds
     from fdapde_core_tpu_torch.ops import gather_spmv as gs
+    from fdapde_core_tpu_torch.ops import grid_mg
     from fdapde_core_tpu_torch.ops import local_stiffness as ls
     from fdapde_core_tpu_torch.ops.grid_assembly import stencil_from_coords
     from fdapde_core_tpu_torch.ops.grid_cg import grid_cg
@@ -3864,8 +3979,9 @@ def main():
             log(f"  {line.strip()}")
 
     k1 = phase_kernel_vs_plain(ak)
-    model, launches = phase_main_path(ak, gs, StructuredPoisson)
-    phase_harmonic(StructuredPoisson)
+    plain_coarse_cg = count_plain_coarse_solves(grid_mg)
+    model, launches = coarse_counted(4, lambda: phase_main_path(ak, gs, StructuredPoisson), True)
+    coarse_counted(5, lambda: phase_harmonic(StructuredPoisson), True)
     phase_jacobi(model, grid_cg)
     del model
     torch.cuda.empty_cache()
@@ -3873,18 +3989,19 @@ def main():
     k2, k2_mixed = phase_k2_vs_plain(gs)
     gs.ell_spmv_widened_launches = 0  # from here on, the paths' own
     torch.cuda.empty_cache()
-    k2_launches = phase_general_main_path(ak, gs)
+    k2_launches = coarse_counted(8, lambda: phase_general_main_path(ak, gs), True)
     torch.cuda.empty_cache()
-    phase_matfree_poisson(ak, gs)
+    coarse_counted(9, lambda: phase_matfree_poisson(ak, gs), True)
     torch.cuda.empty_cache()
-    phase_general_harmonic()
+    coarse_counted(10, phase_general_harmonic, True)
     torch.cuda.empty_cache()
 
     (pts, cells, bnd), t_mesh = synced_seconds(lambda: delaunay_mesh(NX_PDE))
     k456 = phase_local_stiffness(ak, gs, ls, pts, cells)
     torch.cuda.empty_cache()
-    pde, k6_launches, aux_run = phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh)
-    phase_pde_harmonic(pde)
+    pde, k6_launches, aux_run = coarse_counted(
+        12, lambda: phase_pde_main_path(ak, gs, ls, pts, cells, bnd, t_mesh), True)
+    coarse_counted(13, lambda: phase_pde_harmonic(pde))
     mesh = pde.domain
     del pde
     torch.cuda.empty_cache()
@@ -3899,7 +4016,7 @@ def main():
     k2_reg, k6_reg, k2_sliced = phase_regression(ak, gs, ls, mesh, obs)
     del mesh, obs
     torch.cuda.empty_cache()
-    k2_st, k6_st = phase_space_time(ak, gs, ls)
+    k2_st, k6_st = coarse_counted(19, lambda: phase_space_time(ak, gs, ls))
     torch.cuda.empty_cache()
     log(f"K2 launches by path: lane solve {k2_launches}, regression {k2_reg}, space-time {k2_st}; "
         f"K6: PDE init {k6_launches}, regression {k6_reg}, space-time {k6_st}")
@@ -3908,7 +4025,7 @@ def main():
 
     k3 = phase_k3(ak, gs)
     torch.cuda.empty_cache()
-    D, k7_launches = phase_dia_main_path(ak, gs, ds, ls)
+    D, k7_launches = coarse_counted(16, lambda: phase_dia_main_path(ak, gs, ds, ls))
     torch.cuda.empty_cache()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     G = stencil_from_coords(*perturbed_planes(N_MAIN, torch.float32, gen), N_MAIN)
@@ -3917,7 +4034,7 @@ def main():
     del D, G
     torch.cuda.empty_cache()
 
-    lattice, k2_banded = timed_phase(22, lambda: phase_banded(ak, gs))
+    lattice, k2_banded = timed_phase(22, lambda: phase_banded(ak, gs), True)
     new_paths.update({path: (k2, 0) for path, k2 in k2_banded.items()})
     torch.cuda.empty_cache()
     new_paths.update(timed_phase(23, lambda: phase_matfree_parabolic(ak, gs, ls, lattice)))
@@ -3955,15 +4072,22 @@ def main():
     k2_launches += sum(k2 for k2, _ in new_paths.values())
     k6_launches += sum(k6 for _, k6 in new_paths.values())
     torch.cuda.empty_cache()
-    sharded, halo_checks, nccl = timed_phase(32, lambda: phase_sharded(ak, gs, ds, pts, cells, bnd))
+    sharded, halo_checks, nccl = timed_phase(32, lambda: phase_sharded(ak, gs, ds, pts, cells, bnd),
+                                             True)
     by_kernel = {k: {path: row[k] for path, row in sharded.items() if row.get(k)}
-                 for k in ("K2", "K6", "K7")}
+                 for k in ("K2", "K6", "K7", "KC")}
     log("32 launches by path: " + "; ".join(f"{k} {v}" for k, v in by_kernel.items()))
     k2_launches += sum(by_kernel["K2"].values())
     k6_launches += sum(by_kernel["K6"].values())
     k7_launches += sum(by_kernel["K7"].values())
     log(f"K2 launches on float32 values with a float64 x in phases 8-32: "
         f"{gs.ell_spmv_widened_launches}")
+    kc_launches = sum(kc for kc, _ in COARSE_BY_PHASE.values())
+    log("KC launches by phase (card coarse solves on the plain loop): " + "; ".join(
+        f"{phase} {kc} ({plain})" for phase, (kc, plain) in COARSE_BY_PHASE.items())
+        + f"; in all {kc_launches}")
+    kc, t_kc = synced_seconds(lambda: phase_coarse_cg(grid_mg, plain_coarse_cg, StructuredPoisson))
+    log(f"phase 33: {t_kc:.2f} s")
 
     kernels = [dict(
         name="p1_stencil_layers",
@@ -4023,11 +4147,22 @@ def main():
         launches_sharded=by_kernel["K7"],
         halo=halo_checks["K7 halo"],
         **k7["DIA path"],
+    ), dict(
+        name="grid_coarse_cg",
+        route="cuda",
+        source="fdapde_core_tpu_torch/csrc/grid_coarse_cg.cu",
+        replaces=None,
+        launches=kc_launches,
+        launches_by_phase={phase: kc for phase, (kc, _) in COARSE_BY_PHASE.items()},
+        plain_on_card_by_phase={phase: plain for phase, (_, plain) in COARSE_BY_PHASE.items()},
+        launches_sharded=by_kernel["KC"],
+        **kc,
     )]
     log("32 NCCL ms a call in the one-rank group: " + json.dumps(nccl))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)  # again beside the results, which a log cut to its end keeps
     print(json.dumps({"kernels": kernels}))
+    check(not COARSE_FAULTS, "; ".join(COARSE_FAULTS))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

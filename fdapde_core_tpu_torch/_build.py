@@ -53,6 +53,8 @@ _SIGNATURES = {
     "p1_stiffness_edges_f64": (_VP, _VP, _I64, _F64, _VP),
     "p1_stiffness_edges_offdiag_f32": (_VP, _VP, _I64, _F64, _VP),
     "p1_stiffness_edges_offdiag_f64": (_VP, _VP, _I64, _F64, _VP),
+    "grid_coarse_cg_f32": (_VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP),
+    "grid_coarse_cg_f64": (_VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP),
 }
 
 

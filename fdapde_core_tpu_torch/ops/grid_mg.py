@@ -12,7 +12,11 @@ strided slices and elementwise work:
   grid (coarse node (I, J) = fine node (2I, 2J)),
 - weighted-Jacobi smoothing (symmetric pre/post, so the V-cycle is an SPD
   preconditioner, valid inside CG),
-- fixed unpreconditioned CG at the coarsest level.
+- fixed unpreconditioned CG at the coarsest level: on a CUDA float32 or
+  float64 vector, a 9-point (or narrower) stencil and m^2 <=
+  ``COARSE_KERNEL_CAP``, all of its iterations in one launch of
+  ``csrc/grid_coarse_cg.cu`` (``grid_coarse_cg``); otherwise, and always on
+  the CPU, the plain loop ``_coarse_cg``.
 
 Each level needs an odd node count m = n+1; coarsening stops when n goes
 odd or n // 2 < coarse_n.
@@ -20,12 +24,13 @@ odd or n // 2 < coarse_n.
 A V-cycle's stages are spans (``utils.profiling``) valued by their level
 (0 the finest): ``mg.smooth`` (pre and post), ``mg.residual``,
 ``mg.restrict`` (from the level), ``mg.prolong`` (onto it) and
-``mg.coarse``.
+``mg.coarse``, which holds an ``mg.coarse.kernel`` span around the launch
+where the kernel runs.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -34,6 +39,11 @@ from .grid_cg import _safe_div
 from .grid_dia import GridDIAMatrix, _pad2
 
 __all__ = ["GridMG", "mg_preconditioned_cg", "galerkin_coarsen"]
+
+# the largest m^2 the coarse-solve kernel takes (kCap in csrc/grid_coarse_cg.cu)
+COARSE_KERNEL_CAP = 8192
+# coarse-solve kernel launches since import (or since a caller last reset it to 0)
+grid_coarse_cg_launches = 0
 
 _W = {-1: 0.5, 0: 1.0, 1: 0.5}  # bilinear interpolation weights
 
@@ -90,6 +100,66 @@ def _stencil(data, offsets2d, x, m):
     return acc
 
 
+def _coarse_cg(data, offsets2d, m, b, n_iter):
+    """``n_iter`` unpreconditioned CG iterations on the stencil from x = 0,
+    with no early exit: the plain version of ``grid_coarse_cg``."""
+    x, r, p, rr = torch.zeros_like(b), b, b, torch.sum(b * b)
+    for _ in range(n_iter):
+        Ap = _stencil(data, offsets2d, p, m)
+        pAp = torch.sum(p * Ap)
+        alpha = _safe_div(rr, pAp, pAp > 0)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rr_new = torch.sum(r * r)
+        beta = _safe_div(rr_new, rr, rr > 0)
+        p = p * beta + r
+        rr = rr_new
+    return x
+
+
+def coarse_kernel_applies(b, offsets2d, m: int) -> bool:
+    """Whether ``grid_coarse_cg`` takes this solve: b a CUDA float32 or
+    float64 tensor, m^2 <= COARSE_KERNEL_CAP and every offset within the
+    9-point stencil."""
+    return (b.is_cuda and b.dtype in (torch.float32, torch.float64)
+            and m * m <= COARSE_KERNEL_CAP and len(offsets2d) <= len(_NINE_POINT)
+            and all(abs(di) <= 1 and abs(dj) <= 1 for di, dj in offsets2d))
+
+
+def grid_coarse_cg(layers, offsets2d, b, n_iter: int):
+    """``_coarse_cg``'s iterations in one launch of the CUDA kernel
+    ``csrc/grid_coarse_cg.cu`` (one thread block, nothing read back by the
+    host), counted in ``grid_coarse_cg_launches``. b: (m, m) with
+    ``coarse_kernel_applies(b, offsets2d, m)``, which states the kernel's
+    domain (the kernel refuses what lies outside it); layers: (K, m, m) of
+    b's dtype, contiguous, on b's device. Returns x (m, m)."""
+    global grid_coarse_cg_launches
+    m = b.shape[-1]
+    if (not b.is_cuda or b.shape != (m, m) or layers.shape != (len(offsets2d), m, m)
+            or layers.dtype != b.dtype or layers.device != b.device
+            or not layers.is_contiguous()):
+        raise ValueError(f"the coarse-solve kernel takes a CUDA (m, m) vector b and its ("
+                         f"{len(offsets2d)}, m, m) layers of b's dtype on b's device, contiguous; "
+                         f"got b {b.dtype} {tuple(b.shape)} on {b.device}, layers {layers.dtype} "
+                         f"{tuple(layers.shape)} on {layers.device}")
+    if b.device.index != torch.cuda.current_device():
+        with torch.cuda.device(b.device):
+            return grid_coarse_cg(layers, offsets2d, b, n_iter)
+    from .._build import library
+
+    lib = library()
+    fn = {torch.float32: lib.grid_coarse_cg_f32, torch.float64: lib.grid_coarse_cg_f64}[b.dtype]
+    b = b.contiguous()
+    x = torch.empty_like(b)
+    code = sum(((di + 1) * 3 + dj + 1) << (4 * k) for k, (di, dj) in enumerate(offsets2d))
+    err = fn(layers.data_ptr(), b.data_ptr(), x.data_ptr(), len(offsets2d), m, code, int(n_iter),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"grid_coarse_cg kernel launch failed: cudaError {err}")
+    grid_coarse_cg_launches += 1
+    return x
+
+
 def _restrict(r, mc):
     """Full weighting r_c = P^T r_f (coarse (I,J) <- fine (2I, 2J))."""
     rp = _pad2(r, 1)
@@ -128,6 +198,8 @@ class GridMG:
     omega: float
     nu: int
     coarse_iters: int
+    # the coarsest level's layers in a vector dtype, for the kernel
+    _coarse_cache: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @classmethod
     def build(cls, G: GridDIAMatrix, coarse_n: int = 32, omega: float = 0.8,
@@ -167,22 +239,23 @@ class GridMG:
             x = x + self.omega * inv_diag * (b - _stencil(data, offs, x, m))
         return x
 
+    def _coarse_layers(self, dtype):
+        """The coarsest level's layers cast to ``dtype`` once, contiguous
+        (the plain loop casts them in each product)."""
+        layers = self._coarse_cache.get(dtype)
+        if layers is None:
+            layers = self._coarse_cache[dtype] = self.datas[-1].to(dtype).contiguous()
+        return layers
+
     def _coarse_solve(self, b):
         lvl = self.n_levels - 1
         data, offs, m = self.datas[lvl], self.offsets[lvl], self.shapes[lvl]
         with span("mg.coarse", lvl):
-            x, r, p, rr = torch.zeros_like(b), b, b, torch.sum(b * b)
-            for _ in range(self.coarse_iters):
-                Ap = _stencil(data, offs, p, m)
-                pAp = torch.sum(p * Ap)
-                alpha = _safe_div(rr, pAp, pAp > 0)
-                x = x + alpha * p
-                r = r - alpha * Ap
-                rr_new = torch.sum(r * r)
-                beta = _safe_div(rr_new, rr, rr > 0)
-                p = p * beta + r
-                rr = rr_new
-        return x
+            if coarse_kernel_applies(b, offs, m):
+                with span("mg.coarse.kernel", lvl):
+                    return grid_coarse_cg(self._coarse_layers(b.dtype), offs, b,
+                                          self.coarse_iters)
+            return _coarse_cg(data, offs, m, b, self.coarse_iters)
 
     def _v(self, lvl, b):
         if lvl == self.n_levels - 1:
