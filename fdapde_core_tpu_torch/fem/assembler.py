@@ -30,6 +30,14 @@ writes (9, C)), and scatters them with the space's fixed-order
 inverse permuted to that order. ``local_matrices`` keeps JAX's (C, nb, nb)
 shape, as a view where K6 computed it. The scatter adds in a fixed order,
 so an assembly is the same from run to run on CUDA.
+
+Spans (``utils.profiling``): each call of ``assemble_matrix`` and
+``assemble_forcing`` is three stages, in this order: ``assembly.upload``
+(the host inputs to the device: coefficients or forcing values evaluated
+on the host, the mesh and the basis tables), ``assembly.local`` (the
+affine maps and the local matrices or vectors) and ``assembly.scatter``
+(the host scatter tables, built once per space, the fixed-order segment
+sum and, for a matrix, its pattern on the device).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from ..geometry.affine import affine_maps
 from ..linear_algebra.sparse import SparseMatrix
 from ..ops.local_stiffness import p1_stiffness_2d
 from ..pde.operators import Advection, BiLaplacian, Diffusion, Laplacian, Reaction
+from ..utils.profiling import span
 
 __all__ = ["assemble_dia", "assemble_forcing", "assemble_matrix", "local_matrices",
            "prepare_coefficient"]
@@ -150,34 +159,38 @@ def assemble_matrix(space, op, layout: str = "aos", dtype=torch.float64,
     """
     if layout not in ("aos", "soa"):
         raise ValueError(f"layout must be 'aos' or 'soa', got {layout!r}")
-    terms = []
-    for scale, leaf in op.spatial_terms:
-        if isinstance(leaf, BiLaplacian):
-            raise ValueError("bilaplacian requires the SPLINE discretization (splines/)")
-        kind, ckind = _KIND[type(leaf)]
-        if isinstance(leaf, Laplacian):
-            varying, coeff = False, None
+    with span("assembly.upload"):
+        terms = []
+        for scale, leaf in op.spatial_terms:
+            if isinstance(leaf, BiLaplacian):
+                raise ValueError("bilaplacian requires the SPLINE discretization (splines/)")
+            kind, ckind = _KIND[type(leaf)]
+            if isinstance(leaf, Laplacian):
+                varying, coeff = False, None
+            else:
+                cval = leaf.K if kind == "diffusion" else leaf.b if kind == "advection" else leaf.c
+                varying, coeff = prepare_coefficient(space, cval, ckind, dtype, device)
+            terms.append((scale, kind, varying, coeff))
+        nodes, cells, phi, grad, w = _mesh_tensors(space, dtype, device)
+
+    with span("assembly.local"):
+        coords_t = _p1_2d_coords(space, nodes, cells)
+        if any(kind != "laplacian" or coords_t is None for _, kind, _, _ in terms):
+            _, invJ, measure = affine_maps(nodes, cells)
         else:
-            cval = leaf.K if kind == "diffusion" else leaf.b if kind == "advection" else leaf.c
-            varying, coeff = prepare_coefficient(space, cval, ckind, dtype, device)
-        terms.append((scale, kind, varying, coeff))
+            invJ = measure = None  # K6 needs neither
+        nb = space.n_basis_per_cell
+        local = torch.zeros((nb, nb, space.mesh.n_cells), dtype=dtype, device=device)
+        for scale, kind, varying, coeff in terms:
+            term = local_matrices(kind, coeff, varying, phi, grad, w, invJ, measure, coords_t)
+            local = local + scale * term.permute(1, 2, 0)
 
-    nodes, cells, phi, grad, w = _mesh_tensors(space, dtype, device)
-    coords_t = _p1_2d_coords(space, nodes, cells)
-    if any(kind != "laplacian" or coords_t is None for _, kind, _, _ in terms):
-        _, invJ, measure = affine_maps(nodes, cells)
-    else:
-        invJ = measure = None  # K6 needs neither
-    nb = space.n_basis_per_cell
-    local = torch.zeros((nb, nb, space.mesh.n_cells), dtype=dtype, device=device)
-    for scale, kind, varying, coeff in terms:
-        term = local_matrices(kind, coeff, varying, phi, grad, w, invJ, measure, coords_t)
-        local = local + scale * term.permute(1, 2, 0)
-
-    rows, cols, _ = space.scatter
-    vals = space.segment_sum("matrix", device)(local.reshape(-1))
-    return SparseMatrix(torch.as_tensor(rows, device=device), torch.as_tensor(cols, device=device),
-                        vals, (space.n_dofs, space.n_dofs))
+    with span("assembly.scatter"):
+        rows, cols, _ = space.scatter
+        vals = space.segment_sum("matrix", device)(local.reshape(-1))
+        return SparseMatrix(torch.as_tensor(rows, device=device),
+                            torch.as_tensor(cols, device=device), vals,
+                            (space.n_dofs, space.n_dofs))
 
 
 def assemble_dia(space, op, dtype=torch.float64, device="cuda"):
@@ -203,24 +216,28 @@ def assemble_forcing(space, f, dtype=torch.float64, device="cuda") -> torch.Tens
     result is (n_dofs, T)).
     """
     C, nq = space.mesh.n_cells, space.n_quad
-    if callable(f):
-        from ..utils.callables import eval_at_points
+    with span("assembly.upload"):
+        if callable(f):
+            from ..utils.callables import eval_at_points
 
-        fv = np.asarray(eval_at_points(f, space.quadrature_nodes)).reshape(C, nq)
-    else:
-        fv = np.asarray(f.cpu() if isinstance(f, torch.Tensor) else f, dtype=np.float64)
-        if fv.ndim == 1 or fv.shape[1] == 1:
-            fv = fv.reshape(C, nq)
+            fv = np.asarray(eval_at_points(f, space.quadrature_nodes)).reshape(C, nq)
         else:
-            fv = fv.reshape(C, nq, -1)
-    fv = torch.as_tensor(fv, device=device).to(dtype)
+            fv = np.asarray(f.cpu() if isinstance(f, torch.Tensor) else f, dtype=np.float64)
+            if fv.ndim == 1 or fv.shape[1] == 1:
+                fv = fv.reshape(C, nq)
+            else:
+                fv = fv.reshape(C, nq, -1)
+        fv = torch.as_tensor(fv, device=device).to(dtype)
+        nodes, cells, phi, _, w = _mesh_tensors(space, dtype, device)
 
-    nodes, cells, phi, _, w = _mesh_tensors(space, dtype, device)
-    _, _, measure = affine_maps(nodes, cells)
-    if fv.dim() == 3:
-        loc = torch.einsum("cqt,qi,q->ict", fv, phi, w) * measure[None, :, None]
-        flat = loc.reshape(C * space.n_basis_per_cell, -1)
-    else:
-        loc = torch.einsum("cq,qi,q->ic", fv, phi, w) * measure[None, :]
-        flat = loc.reshape(-1)
-    return space.segment_sum("forcing", device)(flat)
+    with span("assembly.local"):
+        _, _, measure = affine_maps(nodes, cells)
+        if fv.dim() == 3:
+            loc = torch.einsum("cqt,qi,q->ict", fv, phi, w) * measure[None, :, None]
+            flat = loc.reshape(C * space.n_basis_per_cell, -1)
+        else:
+            loc = torch.einsum("cq,qi,q->ic", fv, phi, w) * measure[None, :]
+            flat = loc.reshape(-1)
+
+    with span("assembly.scatter"):
+        return space.segment_sum("forcing", device)(flat)

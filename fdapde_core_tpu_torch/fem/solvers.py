@@ -26,6 +26,11 @@ set-up raises anything; here only a numerical failure of the set-up
 (``LinAlgError``) does, and a failed native build raises. An operator that
 is not a ``SparseMatrix`` (DIA storage) keeps its preconditioner, where
 JAX's FSPAI set-up raises on it and is caught: the same rung.
+
+Spans (``utils.profiling``): an elliptic solve's preconditioner set-up is
+a ``precond.build`` span valued by its rung (``RUNGS``: 0 the auxiliary
+grid, 1 SA-AMG, 2 Jacobi or a caller's callable), and the escalation to
+GMRES(50) a ``krylov.recover`` span.
 """
 
 from __future__ import annotations
@@ -40,8 +45,12 @@ from ..linear_algebra.amg import AMG
 from ..linear_algebra.lumping import lump
 from ..linear_algebra.solvers import bicgstab, cg, gmres, jacobi_preconditioner
 from ..linear_algebra.sparse import SparseMatrix
+from ..utils.profiling import span
 
 __all__ = ["DirichletSystem", "masked_matrix", "solve_elliptic", "solve_parabolic"]
+
+# the value of a ``precond.build`` span: the preconditioner's rung
+RUNGS = {"auxgrid": 0, "amg": 1, "jacobi": 2, "callable": 2}
 
 
 class DirichletSystem(NamedTuple):
@@ -94,27 +103,35 @@ def solve_elliptic(A, b, mask, g, symmetric=True, rtol=1e-12, maxiter=None,
     (an SA-AMG V-cycle of the masked operator, ``linear_algebra/amg.py``,
     set up on the host). When the Krylov solve reports
     converged=False and ``recovery`` is set, escalate once to GMRES(50)
-    warm-started from the last finite iterate. Returns (x, SolveInfo).
+    warm-started from the last finite iterate. Returns (x, SolveInfo), the
+    info's ``rung`` the preconditioner's (a key of ``RUNGS``) and its
+    ``recovered`` whether the escalation ran.
     """
     sys = DirichletSystem(A, mask)
-    if preconditioner == "amg":
-        pre = AMG.build(masked_matrix(A, mask)).v_cycle
-    elif isinstance(preconditioner, tuple) and preconditioner[0] == "auxgrid":
-        from ..ops.auxgrid import AuxGridPreconditioner, AuxGridPreconditioner3D
+    auxgrid = isinstance(preconditioner, tuple) and preconditioner[0] == "auxgrid"
+    rung = ("auxgrid" if auxgrid else "amg" if preconditioner == "amg" else
+            "callable" if callable(preconditioner) else "jacobi")
+    with span("precond.build", RUNGS[rung]):
+        if rung == "amg":
+            pre = AMG.build(masked_matrix(A, mask)).v_cycle
+        elif auxgrid:
+            from ..ops.auxgrid import AuxGridPreconditioner, AuxGridPreconditioner3D
 
-        coords = preconditioner[1]
-        cls = AuxGridPreconditioner3D if coords.shape[1] == 3 else AuxGridPreconditioner
-        diag = sys.diagonal()
-        pre = cls.build(coords, diag, device=diag.device)
-    else:
-        pre = preconditioner or jacobi_preconditioner(sys.diagonal())
+            coords = preconditioner[1]
+            cls = AuxGridPreconditioner3D if coords.shape[1] == 3 else AuxGridPreconditioner
+            diag = sys.diagonal()
+            pre = cls.build(coords, diag, device=diag.device)
+        else:
+            pre = preconditioner or jacobi_preconditioner(sys.diagonal())
     b_mod = sys.rhs(b, g)
     x0 = torch.where(mask, g, 0.0)
     solver = cg if symmetric else bicgstab
     x, info = solver(sys, b_mod, M_inv=pre, x0=x0, rtol=rtol, maxiter=maxiter)
-    if recovery and not info.converged:
-        x, info = _recover_elliptic(A, sys, b_mod, x, x0, symmetric, rtol, maxiter, pre)
-    return x, info
+    recovered = recovery and not info.converged
+    if recovered:
+        with span("krylov.recover"):
+            x, info = _recover_elliptic(A, sys, b_mod, x, x0, symmetric, rtol, maxiter, pre)
+    return x, info._replace(rung=rung, recovered=recovered)
 
 
 _FSPAI_RECOVERY_MAX_DOFS = 200_000  # host-side set-up cost bound

@@ -46,6 +46,10 @@ class SolveInfo(NamedTuple):
     iterations: int
     residual: torch.Tensor  # final ||r||
     converged: bool
+    # set by ``fem.solvers.solve_elliptic``: the preconditioner's rung (a
+    # key of its ``RUNGS``) and whether the escalation to GMRES(50) ran
+    rung: str | None = None
+    recovered: bool = False
 
 
 def _as_operator(A) -> Callable:

@@ -17,15 +17,24 @@ The solver is parabolic iff the operator holds a ``dt()`` term (then
 data may carry one column per instant). The mesh and the FEM or spline
 space stay on the host (NumPy); matrices, vectors and the solve live on
 ``device``.
+
+Spans (``utils.profiling``): ``init`` is a ``pde.init`` span valued by
+the dofs, with a ``pde.init.stiff``, ``pde.init.mass`` and
+``pde.init.force`` span for each assembled term; ``solve`` is a
+``pde.solve`` span, which holds the preconditioner's ``precond.build``
+(one more, valued 1, when the "auto" ladder falls back to SA-AMG) and the
+Krylov loop's spans.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .operators import DifferentialOp, reaction
 
 __all__ = ["PDE"]
@@ -150,33 +159,40 @@ class PDE:
     # -- init: assembly (fem_solver_base.h:104-139) ---------------------------
     def init(self):
         kw = dict(dtype=self.dtype, device=self.device)
-        if self.discretization == "spline":
-            from ..splines import assembler as spline_asm
+        with span("pde.init", self.space.n_dofs):
+            if self.discretization == "spline":
+                from ..splines import assembler as spline_asm
 
-            self._stiff = spline_asm.assemble_operator(self.space, self.operator, **kw)
-            self._mass = spline_asm.assemble_mass(self.space, **kw)
-            assemble_forcing = spline_asm.assemble_forcing
-        else:
-            from ..fem.assembler import assemble_forcing, assemble_matrix
+                assemble_forcing = spline_asm.assemble_forcing
+                with span("pde.init.stiff"):
+                    self._stiff = spline_asm.assemble_operator(self.space, self.operator, **kw)
+                with span("pde.init.mass"):
+                    self._mass = spline_asm.assemble_mass(self.space, **kw)
+            else:
+                from ..fem.assembler import assemble_forcing, assemble_matrix
 
-            self._stiff = assemble_matrix(self.space, self.operator, **kw)
-            self._mass = assemble_matrix(self.space, reaction(1.0), **kw)
-        if self._forcing is not None:
-            self._force = assemble_forcing(self.space, self._forcing, **kw)
-        else:
-            self._force = torch.zeros(self.space.n_dofs, **kw)
+                with span("pde.init.stiff"):
+                    self._stiff = assemble_matrix(self.space, self.operator, **kw)
+                with span("pde.init.mass"):
+                    self._mass = assemble_matrix(self.space, reaction(1.0), **kw)
+            with span("pde.init.force"):
+                if self._forcing is not None:
+                    self._force = assemble_forcing(self.space, self._forcing, **kw)
+                else:
+                    self._force = torch.zeros(self.space.n_dofs, **kw)
         self.is_init = True
         return self
 
     # -- solve (fem_linear_{elliptic,parabolic}_solver.h) ---------------------
     def solve(self):
         t0 = time.time()
-        if not self.is_init:
-            self.init()
-        if self.is_parabolic:
-            self._solve_parabolic()
-        else:
-            self._solve_elliptic()
+        with span("pde.solve"):
+            if not self.is_init:
+                self.init()
+            if self.is_parabolic:
+                self._solve_parabolic()
+            else:
+                self._solve_elliptic()
         self.solve_seconds = time.time() - t0
         return self._solution
 
@@ -212,10 +228,14 @@ class PDE:
                 maxiter=self.solver_maxiter, preconditioner=pre,
             )
 
+        self.ladder_fallback = False
         if auto:
             try:
                 x, info = run(precond)
-            except Exception:  # the next rung of the ladder
+            except Exception as exc:  # the next rung of the ladder
+                warnings.warn(f"the auxiliary-grid rung failed ({type(exc).__name__}: {exc}); "
+                              "falling back to SA-AMG", stacklevel=3)
+                self.ladder_fallback = True
                 x, info = run("amg")
         else:
             x, info = run(precond)
@@ -250,7 +270,10 @@ class PDE:
 
     def report(self) -> dict:
         """Per-solve record: problem size, operator sparsity, solver
-        iterations and final residual."""
+        iterations and final residual; for an elliptic solve also the
+        preconditioner's rung ("auxgrid", "amg", "jacobi" or "callable"),
+        whether the "auto" ladder fell back from the auxiliary grid to
+        SA-AMG, and whether the escalation to GMRES(50) ran."""
         rec = {
             "discretization": self.discretization,
             "order": self.order,
@@ -265,6 +288,9 @@ class PDE:
             rec["solver_iterations"] = int(self.solve_info.iterations)
             rec["solver_residual"] = float(self.solve_info.residual)
             rec["solver_converged"] = bool(self.solve_info.converged)
+            rec["preconditioner"] = self.solve_info.rung
+            rec["ladder_fallback"] = self.ladder_fallback
+            rec["recovered"] = self.solve_info.recovered
         if hasattr(self, "step_info"):
             rec["step_iterations"] = self.step_info["iterations"].tolist()
             rec["escalated"] = self.step_info["escalated"]

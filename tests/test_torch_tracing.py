@@ -71,13 +71,15 @@ def test_regression_spans(fit, monkeypatch):
     """One root per call, the Psi build's location and host stages inside
     it, and one krylov.solve per CG solve (1 + n_probes for gcv) valued by
     the iterations the solve returns; the set-up's stages in the
-    constructor."""
+    constructor, the assembly's in its own three."""
     square = unit_square_mesh(12)
     with profiling.recording() as setup:
         mesh = fdt.Triangulation(square.nodes, square.cells, square.boundary_nodes)
         model = SmoothingRegression(mesh, -fdt.laplacian(), device=CPU)
     assert [(r.name, r.parent) for r in setup] == [("build.mesh", None), ("build.space", None),
-                                                  ("build.assembly", None)]
+                                                  ("build.assembly", None),
+                                                  ("assembly.upload", 2), ("assembly.local", 2),
+                                                  ("assembly.scatter", 2)]
     returned = []
     orig = regression.cg
 
