@@ -1,5 +1,6 @@
-"""Lagrange polynomial bases on the reference simplex (host-only NumPy; a
-copy of ``fdapde_core_tpu/fem/basis.py``).
+"""Lagrange polynomial bases on the reference simplex (a host NumPy copy of
+``fdapde_core_tpu/fem/basis.py``; ``LagrangeBasis.eval`` also takes a
+torch tensor and then evaluates on its device).
 
 Counterpart of fdaPDE-core fdaPDE/finite_elements/basis/multivariate_polynomial.h
 and the Vandermonde construction in lagrangian_basis.h:65-91: basis function i
@@ -18,6 +19,7 @@ from functools import lru_cache
 from itertools import product
 
 import numpy as np
+import torch
 
 from .reference_element import n_basis, reference_nodes
 
@@ -67,9 +69,19 @@ class LagrangeBasis:
         V = _monomials(self.nodes, self.exps)  # (nb, nb) Vandermonde
         self.coeffs = np.linalg.inv(V)  # column i = coeffs of psi_i
         self.n_basis = n_basis(M, R)
+        self._on_device = {}  # device -> (exps, coeffs) as float64 tensors
 
-    def eval(self, points: np.ndarray) -> np.ndarray:
-        """psi_i(p): (npts, nb)."""
+    def eval(self, points):
+        """psi_i(p): (npts, nb). For a float64 (npts, M) tensor, the same
+        monomials times coefficients as a tensor on its device."""
+        if isinstance(points, torch.Tensor):
+            key = str(points.device)
+            if key not in self._on_device:
+                self._on_device[key] = tuple(
+                    torch.as_tensor(a, dtype=torch.float64, device=points.device)
+                    for a in (self.exps, self.coeffs))
+            exps, coeffs = self._on_device[key]
+            return (points[:, None, :] ** exps).prod(2) @ coeffs
         return _monomials(np.atleast_2d(points), self.exps) @ self.coeffs
 
     def grad(self, points: np.ndarray) -> np.ndarray:

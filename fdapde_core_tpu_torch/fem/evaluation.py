@@ -11,14 +11,17 @@ finite_elements/basis/lagrangian_basis.h:203-283):
   binary incidence matrix over cells; D holds the subdomain measures.
 
 Psi is the port's ``SparseMatrix`` on ``device``; its products run on K2.
-The entries are computed on the host, as in JAX. A pointwise build is an
-``evaluation.basis`` span (``utils.profiling``; its value the points) made
-of ``evaluation.locate`` (the point location and its read on the host) and
-``evaluation.host``, whose stages are ``evaluation.affine_maps``,
-``evaluation.basis_values`` and ``evaluation.upload``. A pointwise row holds the
-distinct dofs of one cell, so it has no duplicates: its entries are put in
-column order directly, where JAX's ``from_coo`` sorts and deduplicates all
-of them (same pattern and values).
+A pointwise build runs on ``device`` from the uploaded points, where JAX's
+runs on the host: the cell ids stay there, and only the located points'
+affine maps (``geometry.affine.affine_maps``), pulled-back points and basis
+values are computed, in chunks of the locator's ``_BATCH`` points, in the
+operation order of the host build. It is an ``evaluation.basis`` span
+(``utils.profiling``; its value the points) made of ``evaluation.locate``
+(the upload of the points and the point location) and ``evaluation.host``,
+which holds the build, ``evaluation.device_build``. A pointwise row holds
+the distinct dofs of one cell, so it has no duplicates: its entries are
+put in column order directly, where JAX's ``from_coo`` sorts and
+deduplicates all of them (same pattern and values).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..geometry import point_location
+from ..geometry.affine import affine_maps
 from ..linear_algebra.sparse import SparseMatrix
 from ..utils.profiling import span
 
@@ -39,38 +44,50 @@ def eval_basis_pointwise(space, locs, device_locate: bool = False, dtype=torch.f
 
     device_locate=True runs the point location on ``device``
     (geometry.DeviceCellLocator, the same ids as the host locator): the
-    scalable path for millions of observation points."""
-    from ..geometry.affine import affine_maps_np
-
+    scalable path for millions of observation points. Otherwise the host
+    locator's ids are uploaded; the build is the same."""
     mesh = space.mesh
     locs = np.atleast_2d(np.asarray(locs, dtype=np.float64))
     with span("evaluation.basis", locs.shape[0]):
         with span("evaluation.locate"):
+            pts = torch.as_tensor(locs, device=device)
             if device_locate:
-                ids = mesh.locate_device(locs, device=device).cpu().numpy()
+                ids = mesh.locate_device(pts)
             else:
-                ids = mesh.locate(locs)
-        with span("evaluation.host"):
-            inside = np.nonzero(ids >= 0)[0]
-            e = ids[inside]
-            with span("evaluation.affine_maps"):
-                _, invJ, _ = affine_maps_np(mesh.nodes, mesh.cells)
-            with span("evaluation.basis_values"):
-                v0 = mesh.nodes[mesh.cells[e, 0]]
-                ref_pts = np.einsum("kmn,kn->km", invJ[e], locs[inside] - v0)
-                vals = space.ref_basis.eval(ref_pts)  # (k, nb)
-                nb = space.n_basis_per_cell
-                dofs = space.dofs[e]  # (k, nb), distinct within a row
-                order = np.argsort(dofs, axis=1, kind="stable")
-                rows = np.repeat(inside, nb).astype(np.int32)
-                cols = np.take_along_axis(dofs, order, axis=1).reshape(-1).astype(np.int32)
-                vals = np.take_along_axis(vals, order, axis=1).reshape(-1)
-            with span("evaluation.upload"):
-                Psi = SparseMatrix(
-                    torch.as_tensor(rows, device=device), torch.as_tensor(cols, device=device),
-                    torch.as_tensor(vals, device=device).to(dtype), (locs.shape[0], space.n_dofs),
-                )
+                ids = torch.as_tensor(mesh.locate(locs), device=device)
+        with span("evaluation.host"), span("evaluation.device_build"):
+            Psi = _pointwise_psi(space, pts, ids, dtype)
     return Psi, np.ones(locs.shape[0])
+
+
+def _pointwise_psi(space, pts, ids, dtype):
+    """Psi from the points (n, N) and their cell ids (n,) (-1 outside), on
+    their device: the located points' rows in order, psi_j(p) for the nb
+    dofs j of the point's cell in column order."""
+    mesh, nb = space.mesh, space.n_basis_per_cell
+    dev = pts.device
+    inside = torch.nonzero(ids >= 0)[:, 0]  # sorted; its count is the build's one host read
+    k = inside.shape[0]
+    nodes = torch.as_tensor(mesh.nodes, dtype=torch.float64, device=dev)
+    cells = torch.as_tensor(mesh.cells, device=dev)
+    dofs = cells if space.dofs is mesh.cells else torch.as_tensor(space.dofs, device=dev)
+    cols = torch.empty((k, nb), dtype=torch.int32, device=dev)
+    vals = torch.empty((k, nb), dtype=torch.float64, device=dev)
+    batch = point_location._BATCH
+    for s in range(0, k, batch):
+        i = inside[s:s + batch]
+        e = ids[i].long()
+        ce = cells[e]
+        _, invJ, _ = affine_maps(nodes, ce)  # (b, M, N)
+        d = pts[i] - nodes[ce[:, 0].long()]
+        ref = invJ[:, :, 0] * d[:, :1]  # invJ (p - v0), summed over N in order
+        for j in range(1, d.shape[1]):
+            ref = ref + invJ[:, :, j] * d[:, j:j + 1]
+        c, order = torch.sort(dofs[e], dim=1, stable=True)  # distinct within a row
+        cols[s:s + batch] = c
+        vals[s:s + batch] = space.ref_basis.eval(ref).gather(1, order)
+    return SparseMatrix(inside.to(torch.int32).repeat_interleave(nb), cols.reshape(-1),
+                        vals.reshape(-1).to(dtype), (pts.shape[0], space.n_dofs))
 
 
 def eval_basis_areal(space, incidence, dtype=torch.float64, device="cuda"):

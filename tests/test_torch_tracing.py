@@ -68,8 +68,8 @@ def test_records_nest_and_keep_values():
 
 @pytest.mark.parametrize("fit", [False, True], ids=["gcv", "fit"])
 def test_regression_spans(fit, monkeypatch):
-    """One root per call, the Psi build's location and host stages inside
-    it, and one krylov.solve per CG solve (1 + n_probes for gcv) valued by
+    """One root per call, the Psi build's location and its device build
+    inside it, and one krylov.solve per CG solve (1 + n_probes for gcv) valued by
     the iterations the solve returns; the set-up's stages in the
     constructor, the assembly's in its own three."""
     square = unit_square_mesh(12)
@@ -103,8 +103,7 @@ def test_regression_spans(fit, monkeypatch):
     assert recs[basis].parent == 0 and recs[basis].value == 300
     assert [r.name for r in _children(recs, basis)] == ["evaluation.locate", "evaluation.host"]
     host = recs.index(_children(recs, basis)[1])
-    assert [r.name for r in _children(recs, host)] == [
-        "evaluation.affine_maps", "evaluation.basis_values", "evaluation.upload"]
+    assert [r.name for r in _children(recs, host)] == ["evaluation.device_build"]
     solves = [r for r in recs if r.name == "krylov.solve"]
     assert len(solves) == (1 if fit else 1 + 3) == len(returned)
     assert [r.value for r in solves] == returned and all(r.parent == 0 for r in solves)
