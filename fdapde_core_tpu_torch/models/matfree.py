@@ -42,13 +42,7 @@ import numpy as np
 import torch
 
 from ..fem.solvers import DirichletSystem
-from ..linear_algebra.solvers import (
-    bicgstab,
-    bicgstab_chunked,
-    cg,
-    cg_chunked,
-    cg_split_programs,
-)
+from ..linear_algebra.solvers import _bicgstab, _cg, cg_split_programs
 from ..ops.auxgrid import AuxGridPreconditioner, AuxGridPreconditioner3D
 from ..ops.dia_split import BandedMGPreconditioner, build_banded_split, plan_split_width
 from ..ops.dia_split3d import (
@@ -80,7 +74,8 @@ def _banded_split(E, split_plan=None, dim=2):
 
     The split is unfolded (exactly A): the boundary stays with
     DirichletSystem, whose right-hand side needs A's boundary columns. The
-    Dirichlet fold happens only inside the multigrid build (``_banded_mg``).
+    Dirichlet fold happens only inside the multigrid build
+    (``_build_preconditioner``).
     """
     if dim == 3:
         W1, W2 = plan_split_3d(E) if split_plan is None else split_plan
@@ -99,88 +94,95 @@ def _banded_split(E, split_plan=None, dim=2):
     return S
 
 
-def _route(op, boundary, format, preconditioner, split_plan, dim=2):
-    """(operator, preconditioner name) after the "auto" structure check:
-    (the banded split, "banded_mg") or (op, "auxgrid"). An explicit
-    "banded_mg" that the band plan rejects raises ValueError."""
-    if preconditioner in ("auto", "banded_mg") and format == "ell":
-        S = _banded_split(op, split_plan, dim)
-        if S is not None:
-            return S, "banded_mg"
-    if preconditioner == "banded_mg":
-        raise ValueError(_NO_BAND)
-    return op, "auxgrid"
-
-
-def _banded_mg(S, boundary):
-    """The split's multigrid, built on its float32 Dirichlet fold."""
-    cls = BandedMGPreconditioner3D if isinstance(S, BandedSplit3D) else BandedMGPreconditioner
-    return cls.build(S.astype(torch.float32).fold_dirichlet(boundary))
-
-
-def _aux_grid(coords, diag32, grid_n, bbox):
-    """The device-built aux grid over the dof coordinates (a tuple of (n,)
-    tensors, 2 or 3 of them) in the unit box unless ``bbox`` is given."""
-    dim = len(coords)
-    cls = AuxGridPreconditioner if dim == 2 else AuxGridPreconditioner3D
-    if bbox is None:
-        bbox = ((0.0,) * dim, (1.0,) * dim)
-    return cls.build_device(tuple(coords), diag32, grid_n=grid_n, bbox=bbox)
-
-
-def _aux_diag32(op, boundary):
-    return DirichletSystem(op, boundary).diagonal().to(torch.float32)
-
-
-def _p1_operator(model, nodes, cells, boundary, max_degree=None, format="ell", max_cols=None,
-                 kappa=None, preconditioner="auto", split_plan=None, device="cuda"):
-    """The operator half of MatrixFreePoisson and MatrixFreeParabolic:
-    sets model's mesh tensors, the incidence table of load_vector, the
-    assembled operator ``op`` (the banded split where ``_route`` takes it)
-    and the ``preconditioner`` name; builds no preconditioner."""
-    model.nodes = torch.as_tensor(nodes, device=device)
-    model.cells = torch.as_tensor(cells, device=device).to(torch.int32)
-    model.boundary = torch.as_tensor(boundary, device=device).to(torch.bool)
-    model.n_dofs = model.nodes.shape[0]
-    model.format = format
-    model.dim = dim = model.nodes.shape[1]
-    if dim not in (2, 3):
-        raise ValueError(f"2D/3D only, got embedding dim {dim}")
+def _build_operator(model, build, order=1, max_degree=None, format="ell", max_cols=None,
+                    preconditioner="auto", split_plan=None):
+    """The operator of the three models, after ``model.dim`` and
+    ``model.boundary``: ``build(max_degree)`` makes the model's SoA
+    operator and returns (operator, overflowed). Sets the incidence table of
+    load_vector (``adj``, ``adj_mask``), ``format``, the assembled
+    operator ``op`` and the ``preconditioner`` name after the "auto"
+    structure check: (the banded split, "banded_mg") or (the operator,
+    "auxgrid"); an explicit "banded_mg" that the band plan rejects raises
+    ValueError. Builds no preconditioner."""
+    dim = model.dim
     if max_degree is None:
         max_degree = 8 if dim == 2 else 24
     if max_cols is None:
-        # 2D: neighbours + self; 3D: the Euler bound on the vertex link (an
-        # interior vertex of F tets has 2 + F/2 neighbours) + self + 1
-        # (Freudenthal, max_degree 24: 16 slots for 15 entries)
-        max_cols = max_degree + 1 if dim == 2 else max_degree // 2 + 4
-
-    coords = [model.nodes[:, d].contiguous() for d in range(dim)]
-    corners = [model.cells[:, j].contiguous() for j in range(dim + 1)]
-    if kappa is not None:
-        kappa = torch.as_tensor(kappa, dtype=model.nodes.dtype, device=device)
-    soa_cls = MatrixFreeSoA if dim == 2 else MatrixFreeSoA3D
-    mf, over = soa_cls.build(*coords, *corners, model.n_dofs, max_degree, kappa=kappa)
+        # 2D P1: neighbours + self; P2 vertex rows: 1 + deg + 2 deg; 3D P1:
+        # the Euler bound on the vertex link (an interior vertex of F tets
+        # has 2 + F/2 neighbours) + self + 1 (Freudenthal, max_degree 24:
+        # 16 slots for 15 entries)
+        max_cols = (max_degree // 2 + 4 if dim == 3 else
+                    max_degree + 1 if order == 1 else 3 * max_degree + 1)
+    mf, over = build(max_degree)
     if bool(over):
         raise ValueError(
-            f"a node exceeds max_degree={max_degree} cell incidences; "
+            f"a dof exceeds max_degree={max_degree} cell incidences; "
             "rebuild with a larger bound"
         )
     # the load_vector combine rides the adjacency regardless of format
     model.adj, model.adj_mask = mf.adj, mf.adj_mask
+    model.format = format
     if format == "ell":
-        E, overc = mf.to_ell(max_cols)
+        op, overc = mf.to_ell(max_cols)
+        del mf
         if bool(overc):
             raise ValueError(
                 f"a row exceeds {max_cols} distinct columns; "
                 "rebuild with a larger max_cols"
             )
-        op = E
     elif format == "matfree":
         op = mf
     else:
         raise ValueError(format)
-    model.op, model.preconditioner = _route(op, model.boundary, format, preconditioner,
-                                            split_plan, dim)
+    model.op, model.preconditioner = op, "auxgrid"
+    if preconditioner in ("auto", "banded_mg") and format == "ell":
+        S = _banded_split(op, split_plan, dim)
+        if S is not None:
+            model.op, model.preconditioner = S, "banded_mg"
+    if preconditioner == "banded_mg" and model.preconditioner != "banded_mg":
+        raise ValueError(_NO_BAND)
+
+
+def _build_preconditioner(model, coords, grid_n, bbox, diagonal=None):
+    """The float32 preconditioner of ``model.op``: on "banded_mg" the
+    split's multigrid, built on its float32 Dirichlet fold; otherwise the
+    aux grid built on the device over the dof coordinates (a list of (n,)
+    tensors, 2 or 3 of them) in the unit box unless ``bbox`` is given, from
+    ``diagonal()`` (default: the Dirichlet system's diagonal)."""
+    if model.preconditioner == "banded_mg":
+        S = model.op.astype(torch.float32)
+        cls = BandedMGPreconditioner3D if isinstance(S, BandedSplit3D) else BandedMGPreconditioner
+        return cls.build(S.fold_dirichlet(model.boundary))
+    if diagonal is None:
+        diagonal = DirichletSystem(model.op, model.boundary).diagonal
+    dim = len(coords)
+    cls = AuxGridPreconditioner if dim == 2 else AuxGridPreconditioner3D
+    if bbox is None:
+        bbox = ((0.0,) * dim, (1.0,) * dim)
+    return cls.build_device(tuple(coords), diagonal().to(torch.float32), grid_n=grid_n,
+                            bbox=bbox)
+
+
+def _p1_operator(model, nodes, cells, boundary, max_degree=None, format="ell", max_cols=None,
+                 kappa=None, preconditioner="auto", split_plan=None, device="cuda"):
+    """The mesh tensors and operator of MatrixFreePoisson and
+    MatrixFreeParabolic (``MatrixFreeSoA(3D).build`` with kappa)."""
+    model.nodes = torch.as_tensor(nodes, device=device)
+    model.cells = torch.as_tensor(cells, device=device).to(torch.int32)
+    model.boundary = torch.as_tensor(boundary, device=device).to(torch.bool)
+    model.n_dofs = model.nodes.shape[0]
+    model.dim = dim = model.nodes.shape[1]
+    if dim not in (2, 3):
+        raise ValueError(f"2D/3D only, got embedding dim {dim}")
+    coords = [model.nodes[:, d].contiguous() for d in range(dim)]
+    corners = [model.cells[:, j].contiguous() for j in range(dim + 1)]
+    if kappa is not None:
+        kappa = torch.as_tensor(kappa, dtype=model.nodes.dtype, device=device)
+    soa_cls = MatrixFreeSoA if dim == 2 else MatrixFreeSoA3D
+    _build_operator(model, lambda D: soa_cls.build(*coords, *corners, model.n_dofs, D,
+                                                   kappa=kappa),
+                    1, max_degree, format, max_cols, preconditioner, split_plan)
 
 
 class MatrixFreePoisson:
@@ -206,11 +208,8 @@ class MatrixFreePoisson:
         _p1_operator(self, nodes, cells, boundary, max_degree, format, max_cols, kappa,
                      preconditioner, split_plan, device)
         self.system = DirichletSystem(self.op, self.boundary)
-        if self.preconditioner == "banded_mg":
-            self.aux = _banded_mg(self.op, self.boundary)
-        else:
-            self.aux = _aux_grid([self.nodes[:, d] for d in range(self.dim)],
-                                 _aux_diag32(self.op, self.boundary), grid_n, bbox)
+        self.aux = _build_preconditioner(self, [self.nodes[:, d] for d in range(self.dim)],
+                                         grid_n, bbox)
 
     def load_vector(self, f_cells):
         """P1 load b_i = sum_T |T|/(d+1) f(centroid_T) over incident cells;
@@ -228,10 +227,8 @@ class MatrixFreePoisson:
         iterations; the iterates are the same."""
         if g is None:
             g = torch.zeros_like(b)
-        if chunk is not None:
-            return _solve_chunked(self.op, self.boundary, self.aux, b, g,
-                                  True, rtol, maxiter, chunk, on_chunk)
-        return _solve(self.op, self.boundary, self.aux, b, g, True, rtol, maxiter)
+        return _solve(self.op, self.boundary, self.aux, b, g, True, rtol, maxiter,
+                      chunk=chunk, on_chunk=on_chunk)
 
 
 def _load_vector(coords, dofs, adj, adj_mask, f_cells, order: int = 1):
@@ -270,28 +267,18 @@ def _rel_residual(sys, x, b_mod):
     return torch.sqrt(torch.sum(res * res) / torch.sum(b_mod * b_mod))
 
 
-def _solve_chunked(op, bnd, aux, b, g, symmetric, rtol, maxiter, chunk,
-                   on_chunk, u0=None):
-    sys = DirichletSystem(op, bnd)
-    b_mod = sys.rhs(b, g)
-    x0 = torch.where(bnd, g, 0.0 if u0 is None else u0)
-    solver = cg_chunked if symmetric else bicgstab_chunked
-    x, info = solver(sys, b_mod, M_inv=functools.partial(_aux_apply, aux), x0=x0,
-                     rtol=rtol, maxiter=maxiter, chunk=chunk, on_chunk=on_chunk)
-    return x, info.iterations, _rel_residual(sys, x, b_mod)
-
-
-def _solve(op, bnd, aux, b, g, symmetric, rtol, maxiter, u0=None):
+def _solve(op, bnd, aux, b, g, symmetric, rtol, maxiter, u0=None, chunk=None, on_chunk=None):
     """CG (symmetric) or BiCGStab on the Dirichlet system with the float32
     preconditioner apply (JAX's ``_solve_fn``, ``_general_solve_fn`` and,
-    warm-started from u0 on the free dofs, ``_parabolic_step_fn``);
-    returns (x, iterations, true relative residual)."""
+    warm-started from u0 on the free dofs, ``_parabolic_step_fn``); with
+    ``chunk``, on_chunk(k, ||r||) is called every chunk iterations, the
+    iterates unchanged. Returns (x, iterations, true relative residual)."""
     sys = DirichletSystem(op, bnd)
     b_mod = sys.rhs(b, g)
     x0 = torch.where(bnd, g, 0.0 if u0 is None else u0)
-    solver = cg if symmetric else bicgstab
-    x, info = solver(sys, b_mod, M_inv=functools.partial(_aux_apply, aux),
-                     x0=x0, rtol=rtol, maxiter=maxiter)
+    solver = _cg if symmetric else _bicgstab
+    x, info = solver(sys, b_mod, functools.partial(_aux_apply, aux), x0, rtol, 0.0, maxiter,
+                     None if chunk is None else int(chunk), on_chunk)
     return x, info.iterations, _rel_residual(sys, x, b_mod)
 
 
@@ -391,8 +378,6 @@ class MatrixFreeElliptic:
         dim = len(coords)
         if dim not in (2, 3):
             raise ValueError(f"2D/3D only, got embedding dim {dim}")
-        if max_degree is None:
-            max_degree = 8 if dim == 2 else 24
         dtype = coords[0].dtype
         if _space is None:
             if order != 1:
@@ -437,66 +422,30 @@ class MatrixFreeElliptic:
         self.dim = dim
         self.n_dofs = n_dofs
         self.boundary = torch.as_tensor(boundary, device=device).to(torch.bool)
-        self.format = format
         self.is_symmetric = all(v is None for v in badv)
-        if max_cols is None and format == "ell":
-            # 2D P1: neighbours + self; P2 vertex rows: 1 + deg + 2 deg;
-            # 3D P1: the Euler bound on the vertex link, 2 + F/2 neighbours
-            # for F incident tets, + self + 1 for boundary links
-            if dim == 3:
-                max_cols = max_degree // 2 + 4
-            else:
-                max_cols = max_degree + 1 if order == 1 else 3 * max_degree + 1
-
         if dim == 3:
-            mf, over = MatrixFreeSoA3D.build_general(*coords, *dofs, n_dofs, max_degree, **coef)
+            soa_build = functools.partial(MatrixFreeSoA3D.build_general, *coords, *dofs, n_dofs)
         elif order == 1:
-            mf, over = MatrixFreeSoA.build_general(*coords, *dofs, n_dofs, max_degree, **coef)
+            soa_build = functools.partial(MatrixFreeSoA.build_general, *coords, *dofs, n_dofs)
         else:
-            mf, over = MatrixFreeP2SoA.build(*coords, dofs, n_dofs, max_degree, **coef)
-        if bool(over):
-            raise ValueError(
-                f"a dof exceeds max_degree={max_degree} cell incidences; "
-                "rebuild with a larger bound"
-            )
-        self.adj, self.adj_mask = mf.adj, mf.adj_mask
+            soa_build = functools.partial(MatrixFreeP2SoA.build, *coords, dofs, n_dofs)
+        _build_operator(self, lambda D: soa_build(D, **coef), order, max_degree, format,
+                        max_cols, preconditioner, split_plan)
         self.dofs = dofs
         self._coords = coords
-        if format == "ell":
-            E, overc = mf.to_ell(max_cols)
-            del mf
-            if bool(overc):
-                raise ValueError(
-                    f"a row exceeds {max_cols} distinct columns; "
-                    "rebuild with a larger max_cols"
-                )
-            self.op = E
-        elif format == "matfree":
-            self.op = mf
-        else:
-            raise ValueError(format)
-        self.op, self.preconditioner = _route(self.op, self.boundary, format, preconditioner,
-                                              split_plan, dim)
         self.system = DirichletSystem(self.op, self.boundary)
-        if self.preconditioner == "banded_mg":
-            self.aux = _banded_mg(self.op, self.boundary)
         if gather_kernel == "lane" and format == "ell" and self.preconditioner == "auxgrid":
             # float32 copy of the ELL for the inner solves; the
             # full-precision ELL stays as op_ref for the outer residuals
             self.op_ref = self.op
-            lane_src = (self.op.astype(torch.float32)
-                        if self.op.vals.dtype == torch.float64 else self.op)
-            self.op = LaneRoutedELL.from_ell(lane_src)
-            self.system = DirichletSystem(self.op_ref, self.boundary)
+            self.op = LaneRoutedELL.from_ell(self.op.astype(torch.float32))
             self.preconditioner = "auxgrid+lane"
-        if self.preconditioner.startswith("auxgrid"):
-            lane_aux = (aux_kernel == "lane" and dim == 2
-                        and self.preconditioner == "auxgrid+lane")
-            if lane_aux and grid_n is None:
-                grid_n = lane_friendly_grid_n(n_dofs)
-            self.aux = _aux_grid(dof_coords, _aux_diag32(self.op, self.boundary), grid_n, bbox)
-            if lane_aux:
-                self.aux = LaneAuxGrid.from_aux(self.aux)
+        lane_aux = aux_kernel == "lane" and dim == 2 and self.preconditioner == "auxgrid+lane"
+        if lane_aux and grid_n is None:
+            grid_n = lane_friendly_grid_n(n_dofs)
+        self.aux = _build_preconditioner(self, dof_coords, grid_n, bbox)
+        if lane_aux:
+            self.aux = LaneAuxGrid.from_aux(self.aux)
 
     @classmethod
     def from_space(cls, space, K=None, b=None, c=None, **kw):
@@ -530,11 +479,8 @@ class MatrixFreeElliptic:
                     rtol, maxiter, chunk or 50, on_chunk)
             if g is None:
                 g = torch.zeros_like(b)
-            if chunk is not None:
-                return _solve_chunked(self.op, self.boundary, self.aux, b, g,
-                                      self.is_symmetric, rtol, maxiter, chunk, on_chunk)
             return _solve(self.op, self.boundary, self.aux, b, g, self.is_symmetric, rtol,
-                          maxiter)
+                          maxiter, chunk=chunk, on_chunk=on_chunk)
 
 
 def _lane_refined_solve(op_ref, lane, bnd, aux, b, g, rtol, maxiter, chunk,
@@ -600,11 +546,8 @@ class MatrixFreeParabolic:
         ones = torch.ones(self.cells.shape[0], dtype=self.nodes.dtype, device=self.nodes.device)
         self.mdiag = self.load_vector(ones)  # lumped mass
         self.op = self.op.with_added_diagonal(self.mdiag / self.dt)
-        if self.preconditioner == "banded_mg":
-            self.aux = _banded_mg(self.op, self.boundary)
-        else:
-            self.aux = _aux_grid([self.nodes[:, d] for d in range(self.dim)],
-                                 self.op.diagonal().to(torch.float32), grid_n, bbox)
+        self.aux = _build_preconditioner(self, [self.nodes[:, d] for d in range(self.dim)],
+                                         grid_n, bbox, self.op.diagonal)
 
     load_vector = MatrixFreePoisson.load_vector
 
@@ -619,10 +562,8 @@ class MatrixFreeParabolic:
         b = self.mdiag * u / self.dt
         if f is not None:
             b = b + f
-        if chunk is not None:
-            return _solve_chunked(self.op, self.boundary, self.aux, b, g, True, rtol, maxiter,
-                                  chunk, on_chunk, u0=u)
-        return _solve(self.op, self.boundary, self.aux, b, g, True, rtol, maxiter, u0=u)
+        return _solve(self.op, self.boundary, self.aux, b, g, True, rtol, maxiter, u0=u,
+                      chunk=chunk, on_chunk=on_chunk)
 
     def solve(self, u0, n_steps: int, f=None, g=None, rtol: float = 1e-9,
               maxiter: int = 100, chunk: int | None = None,

@@ -35,7 +35,7 @@ from .dia_split3d import (
     plan_split_3d,
 )
 from .ell import ELLMatrix, build_ell_adjacency, local_matvec
-from .gather_spmv import LaneRoutedELL, ell_spmv, ell_spmv_reference
+from .gather_spmv import ELLSoA, LaneRoutedELL, ell_spmv, ell_spmv_reference
 from .grid3d import GridDIA3D, p1_cube_stencil, prune_zero_offsets_grid3d
 from .grid_assembly import GRID_OFFSETS2D, stencil_from_coords
 from .grid_dia import GridDIAMatrix, prune_zero_offsets_grid
@@ -44,7 +44,6 @@ from .lane_aux import LaneAuxGrid, lane_friendly_grid_n
 from .local_stiffness import p1_stiffness_2d, p1_stiffness_edges, p1_stiffness_edges_offdiag
 from .matfree import MatrixFreeLocal, p1_local_stiffness, p1_local_stiffness_3d
 from .matfree_soa import (
-    ELLSoA,
     MatrixFreeP2SoA,
     MatrixFreeSoA,
     MatrixFreeSoA3D,

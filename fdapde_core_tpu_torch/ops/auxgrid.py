@@ -20,7 +20,7 @@ node's contributions are summed by one thread in increasing position of
 the flattened (4, n) table, the order ``segment_sum`` adds them in on the
 CPU, with no atomics, so the apply is bitwise the same from run to run.
 P z_g, which JAX gathers, is the (4, n) (in 3D (8, n)) table read as a
-rectangular (n, m^d) ELL on K2's compact form (``ell_spmv``).
+rectangular (n, m^d) ``ELLSoA`` on K2's compact form, built once (``P``).
 
 An apply's two grid transfers are spans (``utils.profiling``):
 ``auxgrid.restrict`` (P^T r) and ``auxgrid.interpolate`` (the smoother
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import span
-from .gather_spmv import SlicedELL, ell_spmv
+from .gather_spmv import ELLSoA, SlicedELL
 from .grid_dia import GridDIAMatrix
 from .grid_mg import GridMG
 
@@ -73,8 +73,9 @@ class AuxGridPreconditioner:
 
     idx: (4, n) int32 grid node ids; w: (4, n) bilinear weights; dinv: (n,)
     inverse diagonal of the mesh operator; mg: GridMG over the grid
-    stencil; n_grid: grid cells per side (m = n_grid + 1 nodes); PT: P^T
-    as a SlicedELL, built from idx and w.
+    stencil; n_grid: grid cells per side (m = n_grid + 1 nodes); P: the
+    (n, m^d) interpolation as an ELLSoA over (w, idx); PT: P^T as a
+    SlicedELL, built from idx and w.
     """
 
     DIM = 2
@@ -86,7 +87,9 @@ class AuxGridPreconditioner:
         self.mg = mg
         self.omega = omega
         self.n_grid = n_grid
-        self.PT = interp_transpose_ell(idx, w, idx.shape[1], (n_grid + 1) ** self.DIM)
+        m_d = (n_grid + 1) ** self.DIM
+        self.P = ELLSoA(w, idx, (idx.shape[1], m_d))
+        self.PT = interp_transpose_ell(idx, w, idx.shape[1], m_d)
 
     @classmethod
     def build(cls, nodes, diag, grid_n: int | None = None, bbox=None,
@@ -185,7 +188,7 @@ class AuxGridPreconditioner:
     def interpolate(self, z_g):
         """P z_g: the (4, n) (3D: (8, n)) table as a rectangular (n, m^d)
         ELL on K2."""
-        return ell_spmv(self.w, self.idx, z_g)
+        return self.P @ z_g
 
     def __call__(self, r):
         with span("auxgrid.restrict"):

@@ -12,8 +12,8 @@ The combine is a gather, not a scatter: a precomputed table ``adj[d, k]``
 lists the flat (cell * nb + slot) positions incident to dof d (padded to
 the largest degree), so each dof's sum runs in the table's order, with no
 atomics. ``ELLMatrix`` is the assembled (n, K) row-ELL of the same
-operator; its product is the K2 kernel on the slot-major (K, n) copy of
-its tables (``ops/gather_spmv.ell_spmv``).
+operator, a view of one slot-major (K, n) ``ops/gather_spmv.ELLSoA``
+whose product is the K2 kernel.
 
 Name clash: JAX's ``fdapde_core_tpu.ops.ell_spmv`` is this module's
 element-local combine. In this package ``ops.ell_spmv`` is K2's wrapper,
@@ -24,8 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from .gather_spmv import ell_warp_widths
-from .matfree_soa import ELLSoA, _compact_sorted
+from .gather_spmv import ELLSoA, ell_warp_widths
+from .matfree_soa import _compact_sorted
 
 __all__ = ["ELLMatrix", "build_ell_adjacency", "ell_spmv", "local_matvec"]
 
@@ -68,40 +68,34 @@ def ell_spmv(A_loc, dofs, adj, mask, x):
 class ELLMatrix:
     """Assembled row-ELL sparse matrix: vals/cols (n, K), padded rows carry
     col = row and val = 0 (no mask in the SpMV), no duplicate (row, col)
-    pairs (``from_local`` merges them). The product is K2 on the
-    slot-major (K, n) copy of the tables, with its warp widths (``warp_w``:
-    given by ``from_local``, shared by the matrices ``astype`` and
-    ``with_added_diagonal`` make; None reads all K slots)."""
+    pairs (``from_local`` merges them). It holds one table, the slot-major
+    (K, n) ``ELLSoA`` that does the product, diagonal, ``astype`` and
+    ``with_added_diagonal``; vals and cols are its transposed views, and
+    ``warp_w`` its warp widths (given by ``from_local``; None reads all K
+    slots)."""
 
     def __init__(self, vals, cols, shape, warp_w=None):
-        self.vals = vals  # (n, K)
-        self.cols = cols  # (n, K) int32
-        self.shape = tuple(shape)
-        self._slot_major = ELLSoA(vals.T.contiguous(), cols.T.contiguous(), self.shape, warp_w)
+        self._slot_major = E = ELLSoA(vals.T, cols.T, shape, warp_w)
+        self.vals, self.cols, self.shape, self.warp_w = E.vals.T, E.cols.T, E.shape, warp_w
 
-    @property
-    def warp_w(self):
-        return self._slot_major.warp_w
+    @classmethod
+    def _of(cls, E):
+        """The matrix over the slot-major ``ELLSoA`` E (no copy)."""
+        return cls(E.vals.T, E.cols.T, E.shape, E.warp_w)
 
     def __matmul__(self, x):
         return self._slot_major @ x
 
     def diagonal(self):
-        rows = torch.arange(self.shape[0], dtype=self.cols.dtype, device=self.cols.device)
-        return torch.where(self.cols == rows[:, None], self.vals, 0.0).sum(dim=1)
+        return self._slot_major.diagonal()
 
     def astype(self, dtype):
-        return ELLMatrix(self.vals.to(dtype), self.cols, self.shape, self.warp_w)
+        return ELLMatrix._of(self._slot_major.astype(dtype))
 
     def with_added_diagonal(self, d):
         """A + diag(d): only the first (row == col) slot of each row changes
         (the diagonal is in every FEM pattern)."""
-        rows = torch.arange(self.shape[0], dtype=self.cols.dtype, device=self.cols.device)
-        isdiag = self.cols == rows[:, None]
-        first = isdiag & (torch.cumsum(isdiag, dim=1) == 1)
-        d = torch.as_tensor(d, device=self.vals.device)
-        return ELLMatrix(self.vals + torch.where(first, d[:, None], 0.0), self.cols, self.shape,
-                         self.warp_w)
+        return ELLMatrix._of(self._slot_major.with_added_diagonal(d))
 
     @classmethod
     def from_local(cls, A_loc, dofs, adj, adj_mask, max_cols: int):
@@ -127,5 +121,4 @@ class ELLMatrix:
         vals_all = vals_all.reshape(n, D * nb).T
         row_ids = torch.arange(n, dtype=torch.int32, device=adj.device)
         vals, cols, overflowed = _compact_sorted(cols_all, vals_all, row_ids, n, max_cols)
-        E = cls(vals.T.contiguous(), cols.T.contiguous(), (n, n), ell_warp_widths(cols))
-        return E, overflowed
+        return cls(vals.T, cols.T, (n, n), ell_warp_widths(cols)), overflowed

@@ -1,4 +1,5 @@
-"""ELL gather SpMV (K2) and the ``LaneRoutedELL`` operator built on it.
+"""ELL gather SpMV (K2), ``ELLSoA`` (the one owner of its compact form's
+product) and ``LaneRoutedELL`` (JAX's name for it).
 
 Port of ``fdapde_core_tpu/ops/pallas_gather_spmv.py``. On the TPU the
 SpMV of a scattered-band matrix (the numbering ``plan_split_width``
@@ -14,19 +15,22 @@ so the port keeps what ``_spmv`` computes and drops the routing:
   ``ell_spmv_launches``; on a CPU tensor it runs the plain version
   ``ell_spmv_reference``. ``warp_w`` (``ell_warp_widths``) gives each
   group of 32 rows the slots its widest row uses, so the kernel reads the
-  table in place without its padding (SELL-32 with no sort); the table
-  tables built with at most one entry per (row, col) carry them
-  (``ELLSoA`` from ``to_ell``, ``ELLMatrix.from_local``), computed once
-  per pattern and passed on by ``LaneRoutedELL`` and
-  ``parallel.HaloELLSolver``; any other table reads all K slots.
+  table in place without its padding (SELL-32 with no sort); tables built
+  with at most one entry per (row, col) carry them (``to_ell``,
+  ``ELLMatrix.from_local``), computed once per pattern and shared by the
+  operators made from them; any other table reads all K slots.
+- ``ELLSoA`` is the (K, n) table as an operator, and every compact product
+  of the package goes through it: the assembled ELLs (``to_ell``), the
+  banded splits' remainders, ``ELLMatrix`` (a view of one ``ELLSoA``),
+  ``LaneRoutedELL``, ``WindowedELL``'s stacked windows, the aux grid's P
+  and the shards of ``parallel.HaloELLSolver`` / ``HaloLaneSolver``. It
+  alone decides the dtype a product is computed in (``__matmul__``).
 - ``LaneRoutedELL`` keeps the JAX class's contract (``from_ell``, ``@``,
   ``diagonal``, ``astype``, ``shape``, ``with_vals``, ``n_src``,
   ``n_remainder``) over the assembled (K, n) table itself. The routing
   arguments of ``from_ell`` are accepted and ignored, nothing falls to a
   remainder (``n_remainder == 0``), and neither the 16384 band limit nor
   the rectangular window limit applies.
-
-The same wrapper serves ``ops/matfree_soa.ELLSoA.__matmul__``.
 
 K2's second form serves every ``SparseMatrix`` product and the aux grid's
 P^T: ``SlicedELL``, a sliced ELL (SELL-C-sigma) that pads each slice of 32
@@ -39,10 +43,13 @@ launches in ``ell_spmv_launches``.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
-__all__ = ["LaneRoutedELL", "SlicedELL", "ell_row_widths", "ell_spmv", "ell_spmv_reference",
-           "ell_warp_widths", "sliced_ell_spmm", "sliced_ell_spmm_reference", "warp_widths"]
+__all__ = ["ELLSoA", "LaneRoutedELL", "SlicedELL", "ell_row_widths", "ell_spmv",
+           "ell_spmv_reference", "ell_warp_widths", "sliced_ell_spmm", "sliced_ell_spmm_reference",
+           "warp_widths"]
 
 # kernel launches of either form since import (or since a caller last reset
 # it to 0)
@@ -368,35 +375,93 @@ def sliced_ell_spmm(A, X, backward: bool = False):
     return Y
 
 
-def _square_diagonal(E):
-    """E's diagonal when E is square; zeros for a rectangular operator."""
-    n_rows, n_src = E.shape
-    if n_src == n_rows:
-        return E.diagonal()
-    return torch.zeros(n_rows, dtype=E.vals.dtype, device=E.vals.device)
+class ELLSoA:
+    """An (n, n_src) sparse matrix as a compact row-ELL in slot-major
+    layout, the table of K2's compact form, and the one owner of its
+    product. vals (K, n) float32, float64 or bfloat16 and cols (K, n) int32
+    are kept contiguous; a row's padding carries col = row and val = 0 after
+    its entries (no mask in the product). ``warp_w``: the pattern's warp
+    widths (``ell_warp_widths``), given only for a table that holds at most
+    one entry per (row, col) (``to_ell``, ``ELLMatrix.from_local``) and
+    shared by every operator made from this one (``astype``,
+    ``with_added_diagonal``, ``LaneRoutedELL``'s ``with_vals``); None reads
+    all K slots.
 
+    ``A @ x`` takes an (n_src,) x and computes y in
+    ``accumulation_dtype(vals, x)``: float32 values on a float64 x go to the
+    kernel's widening entry with no table copy, and the table is converted
+    only where the kernel has no entry for the pair (bfloat16 values on a
+    float64 x). The table passed to ``ell_spmv`` is the same tensor from
+    product to product."""
 
-class LaneRoutedELL:
-    """Operator protocol (@, diagonal, astype, shape) over an assembled
-    (K, n) ELL, applied by the K2 kernel with the table's warp widths.
-    Build with ``from_ell``."""
-
-    def __init__(self, vals, cols, diag, n: int, n_src: int | None = None,
-                 keep_remap: bool = False, warp_w=None):
-        self.vals = vals  # (K, n) float32, float64 or bfloat16
-        self.cols = cols  # (K, n) int32
-        # (ceil(n / 32),) int32 shared by every operator on these cols, or
-        # None: all K slots
+    def __init__(self, vals, cols, shape, warp_w=None):
+        self.vals = vals.contiguous()
+        self.cols = cols.contiguous()
+        self.shape = tuple(shape)
         self.warp_w = warp_w
-        self._diag = diag
-        self.n = n
-        self.n_src = n if n_src is None else n_src
-        self.n_remainder = 0  # no routing, so nothing falls to a remainder
-        self._keep_remap = keep_remap
 
     @property
-    def shape(self):
-        return (self.n, self.n_src)
+    def dtype(self):
+        """The dtype of a product on an operand of the table's own precision
+        (float32 for bfloat16 values)."""
+        return accumulation_dtype(self.vals.dtype)
+
+    def __matmul__(self, x):
+        if x.shape != (self.shape[1],):
+            raise ValueError(f"operand must be ({self.shape[1]},), got {tuple(x.shape)}")
+        acc = accumulation_dtype(self.vals.dtype, x.dtype)
+        vals = self.vals
+        if acc != self.dtype and vals.dtype != torch.float32:
+            vals = vals.to(acc)
+        return ell_spmv(vals, self.cols, x.to(acc).contiguous(), self.warp_w)
+
+    def _with(self, vals):
+        """This operator with new (K, n) values on its pattern: cols and
+        warp widths shared."""
+        E = copy.copy(self)
+        E.vals = vals.contiguous()
+        return E
+
+    def diagonal(self):
+        """The (n,) diagonal in the values' dtype; zeros for a rectangular
+        operator."""
+        n, n_src = self.shape
+        if n != n_src:
+            return torch.zeros(n, dtype=self.vals.dtype, device=self.vals.device)
+        rows = torch.arange(n, dtype=self.cols.dtype, device=self.cols.device)
+        return torch.where(self.cols == rows[None, :], self.vals, 0.0).sum(dim=0)
+
+    def astype(self, dtype):
+        return self._with(self.vals.to(dtype))
+
+    def with_added_diagonal(self, d):
+        """A + diag(d): only the first (row == col) slot of each row changes
+        (padding also carries col = row, with val 0, after the real
+        entries; the diagonal is always structurally present in FEM
+        operators)."""
+        rows = torch.arange(self.shape[0], dtype=self.cols.dtype, device=self.cols.device)
+        isdiag = self.cols == rows[None, :]
+        first = isdiag & (torch.cumsum(isdiag, dim=0) == 1)
+        d = torch.as_tensor(d, device=self.vals.device)
+        return self._with(self.vals + torch.where(first, d[None, :], 0.0))
+
+
+class LaneRoutedELL(ELLSoA):
+    """JAX's lane-routed operator: an ``ELLSoA`` over an assembled (K, n)
+    ELL (its product, diagonal, astype and warp widths) under the JAX
+    class's contract (``from_ell``, ``n``, ``n_src``, ``n_remainder``,
+    ``with_vals``). Build with ``from_ell``."""
+
+    n_remainder = 0  # no routing, so nothing falls to a remainder
+    _keep_remap = False
+
+    @property
+    def n(self):
+        return self.shape[0]
+
+    @property
+    def n_src(self):
+        return self.shape[1]
 
     @classmethod
     def from_ell(cls, E, p_max=None, rounds: int = 16, bandwidth=None,
@@ -406,18 +471,13 @@ class LaneRoutedELL:
         ``fuse`` tune the TPU routing schedule and are ignored.
         ``keep_remap`` enables ``with_vals``. Raises ValueError when a
         column lies outside [0, n_src)."""
-        n_rows, n_src = E.shape
+        n_src = E.shape[1]
         accumulation_dtype(E.vals.dtype)
         if E.cols.numel() and (int(E.cols.min()) < 0 or int(E.cols.max()) >= n_src):
             raise ValueError(f"ELL columns must lie in [0, {n_src})")
-        return cls(E.vals.contiguous(), E.cols.contiguous(), _square_diagonal(E), n_rows,
-                   n_src=n_src, keep_remap=keep_remap, warp_w=getattr(E, "warp_w", None))
-
-    def __matmul__(self, v):
-        if v.shape != (self.n_src,):
-            raise ValueError(f"operand must be ({self.n_src},), got {tuple(v.shape)}")
-        acc = accumulation_dtype(self.vals.dtype)
-        return ell_spmv(self.vals, self.cols, v.to(acc).contiguous(), self.warp_w)
+        op = cls(E.vals, E.cols, E.shape, E.warp_w)
+        op._keep_remap = keep_remap
+        return op
 
     def with_vals(self, E):
         """The operator with E's values on this operator's sparsity (E must
@@ -431,12 +491,4 @@ class LaneRoutedELL:
             )
         if tuple(E.shape) != self.shape or not torch.equal(E.cols, self.cols):
             raise ValueError("E must have this operator's shape and cols")
-        return LaneRoutedELL(E.vals.contiguous(), self.cols, _square_diagonal(E), self.n,
-                             n_src=self.n_src, keep_remap=True, warp_w=self.warp_w)
-
-    def diagonal(self):
-        return self._diag
-
-    def astype(self, dtype):
-        return LaneRoutedELL(self.vals.to(dtype), self.cols, self._diag.to(dtype),
-                             self.n, n_src=self.n_src, warp_w=self.warp_w)
+        return self._with(E.vals)

@@ -3,12 +3,13 @@
 Port of ``fdapde_core_tpu/ops/matfree_soa.py``: per-cell closed-form local
 stiffness from per-corner (C,) gathers, a (D, n) slot-major incidence
 table, the matrix-free operator over it, and its conversion to an
-assembled (K, n) row-ELL whose SpMV is the K2 kernel
-(``ops/gather_spmv.ell_spmv``). The P2 operator (``MatrixFreeP2SoA``)
-stores the same three per-cell scalars as P1 and rebuilds its 6 x 6 local
-matrix from universal tables (``_p2_tables``) in every product. The tet
-operator (``MatrixFreeSoA3D``) stores six off-diagonals per cell, the
-diagonal coming from the zero row sums of its diffusion part.
+assembled (K, n) row-ELL, ``ELLSoA`` (defined beside K2 in
+``ops/gather_spmv.py``, re-exported here under JAX's module). The P2
+operator (``MatrixFreeP2SoA``) stores the same three per-cell scalars
+as P1 and rebuilds its 6 x 6 local matrix from universal tables
+(``_p2_tables``) in every product. The tet operator (``MatrixFreeSoA3D``)
+stores six off-diagonals per cell, the diagonal coming from the zero row
+sums of its diffusion part.
 
 Index types follow the JAX package: corner ids, incidence positions and ELL
 columns are int32 (the largest intermediate, ``(slot*nb + j)*C + cell``,
@@ -23,7 +24,7 @@ from math import factorial
 import numpy as np
 import torch
 
-from .gather_spmv import accumulation_dtype, ell_spmv, ell_warp_widths
+from .gather_spmv import ELLSoA, ell_warp_widths
 
 __all__ = [
     "p1_offdiag_soa",
@@ -304,53 +305,6 @@ def _ell_from_entries(A, dofs, adj, adj_mask, n_dofs: int, max_cols: int):
     row_ids = torch.arange(n, dtype=torch.int32, device=adj.device)
     vals, cols, overflowed = _compact_sorted(cols_all, vals_all, row_ids, n, max_cols)
     return ELLSoA(vals, cols, (n, n), ell_warp_widths(cols)), overflowed
-
-
-class ELLSoA:
-    """Assembled row-ELL in SoA layout: vals/cols (K, n); padded entries
-    carry col = row id and val = 0 after the row's entries (no mask in the
-    SpMV). The SpMV is the K2 kernel (``ops/gather_spmv.ell_spmv``).
-    ``warp_w``: the pattern's warp widths (``ell_warp_widths``), given only
-    by a builder whose table holds at most one entry per (row, col)
-    (``_ell_from_entries``, ``ELLMatrix.from_local``) and shared by the
-    tables ``astype`` and ``with_added_diagonal`` make; None (any other
-    table) reads all K slots."""
-
-    def __init__(self, vals, cols, shape, warp_w=None):
-        self.vals = vals
-        self.cols = cols
-        self.shape = tuple(shape)
-        self.warp_w = warp_w
-
-    def __matmul__(self, v):
-        if v.shape != (self.shape[1],):
-            raise ValueError(f"operand must be ({self.shape[1]},), got {tuple(v.shape)}")
-        acc = accumulation_dtype(self.vals.dtype, v.dtype)
-        vals = self.vals
-        # float32 values against a float64 v are widened in the kernel
-        if accumulation_dtype(vals.dtype) != acc and vals.dtype != torch.float32:
-            vals = vals.to(acc)
-        return ell_spmv(vals.contiguous(), self.cols.contiguous(), v.to(acc).contiguous(),
-                        self.warp_w)
-
-    def diagonal(self):
-        rows = torch.arange(self.shape[0], dtype=self.cols.dtype, device=self.cols.device)
-        return torch.where(self.cols == rows[None, :], self.vals, 0.0).sum(dim=0)
-
-    def astype(self, dtype):
-        return ELLSoA(self.vals.to(dtype), self.cols, self.shape, self.warp_w)
-
-    def with_added_diagonal(self, d):
-        """A + diag(d): only the first (row == col) slot of each row changes
-        (padding also carries col = row, with val 0, after the real
-        entries; the diagonal is always structurally present in FEM
-        operators)."""
-        rows = torch.arange(self.shape[0], dtype=self.cols.dtype, device=self.cols.device)
-        isdiag = self.cols == rows[None, :]
-        first = isdiag & (torch.cumsum(isdiag, dim=0) == 1)
-        d = torch.as_tensor(d, device=self.vals.device)
-        vals = self.vals + torch.where(first, d[None, :], 0.0)
-        return ELLSoA(vals, self.cols, self.shape, self.warp_w)
 
 
 # P2: on an affine triangle every P2 weak-form integral is a per-cell scalar

@@ -9,11 +9,11 @@ values instead of the whole vector:
     windows = stack_i x[i R - B : i R + R + B]
     y_blk   = sum_k vals[blk, k, :] * windows[blk, idx_local[blk, k, :]]
 
-The port runs the product on K2's compact form (``gather_spmv.ell_spmv``)
+The port runs the product on K2's compact form (a ``gather_spmv.ELLSoA``)
 over the stacked windows: the window-local columns rebased once by
 blk * (R + 2B) into the flattened windows, the slots in JAX's order, so a
-product equals ``ELLSoA @ x`` bitwise. B stays 128-aligned, as in JAX, so
-both packages build the same layout.
+product equals ``ELLSoA @ x`` bitwise, in every dtype pair. B stays
+128-aligned, as in JAX, so both packages build the same layout.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .gather_spmv import accumulation_dtype, ell_spmv
+from .gather_spmv import ELLSoA
 
 __all__ = ["WindowedELL", "window_bandwidth"]
 
@@ -36,23 +36,25 @@ def window_bandwidth(cols):
 class WindowedELL:
     """Block-windowed view of an ELLSoA for scattered-banded matrices.
 
-    vals (NB, K, R); idx (NB, K*R) int32 window-local columns; rows beyond
-    n are padding (val 0, idx clamped in range). n, R (block rows) and B
-    (window halo = bandwidth, 128-aligned) are static.
+    vals (NB, K, R), a view of the one table; idx (NB, K*R) int32
+    window-local columns; rows beyond n are padding (val 0, idx clamped in
+    range). n, R (block rows) and B (window halo = bandwidth, 128-aligned)
+    are static.
     """
 
     def __init__(self, vals, idx, n: int, R: int, B: int):
-        self.vals = vals
         self.idx = idx
         self.n = n
         self.R = R
         self.B = B
         NB, K, _ = vals.shape
         base = torch.arange(NB, dtype=idx.dtype, device=idx.device)[:, None, None] * self.wwin
-        # K2's (K, NB * R) table over the flattened (NB * wwin,) windows
-        self._k2 = (vals.permute(1, 0, 2).reshape(K, NB * R).contiguous(),
-                    (idx.reshape(NB, K, R) + base).permute(1, 0, 2).reshape(K, NB * R)
-                    .to(torch.int32).contiguous())
+        # the one table: K2's (K, NB * R) compact ELL over the flattened
+        # (NB * wwin,) windows; vals is its (NB, K, R) view
+        self._k2 = ELLSoA(vals.permute(1, 0, 2).reshape(K, NB * R),
+                          (idx.reshape(NB, K, R) + base).permute(1, 0, 2).reshape(K, NB * R)
+                          .to(torch.int32), (NB * R, NB * self.wwin))
+        self.vals = self._k2.vals.reshape(K, NB, R).permute(1, 0, 2)
 
     @property
     def shape(self):
@@ -78,7 +80,7 @@ class WindowedELL:
         NB = -(-n // R)
         padn = NB * R - n
         colsb = F.pad(E.cols, (0, padn)).reshape(K, NB, R).transpose(0, 1)
-        valsb = F.pad(E.vals, (0, padn)).reshape(K, NB, R).transpose(0, 1).contiguous()
+        valsb = F.pad(E.vals, (0, padn)).reshape(K, NB, R).transpose(0, 1)
         base = torch.arange(NB, dtype=E.cols.dtype, device=E.cols.device) * R - B
         loc = torch.clamp(colsb - base[:, None, None], 0, R + 2 * B - 1)
         return cls(valsb, loc.reshape(NB, K * R).to(torch.int32), n, R, B)
@@ -86,14 +88,9 @@ class WindowedELL:
     def __matmul__(self, v):
         if v.shape != (self.n,):
             raise ValueError(f"operand must be ({self.n},), got {tuple(v.shape)}")
-        NB, R, B = self.nb, self.R, self.B
-        vals, cols = self._k2
-        acc = accumulation_dtype(vals.dtype, v.dtype)
-        if accumulation_dtype(vals.dtype) != acc:  # e.g. float32 values, float64 v
-            vals = vals.to(acc)
-        xp = F.pad(v.to(acc), (B, NB * R + B - self.n))
-        wins = xp.unfold(0, self.wwin, R).reshape(-1)  # (NB * wwin,) stacked windows
-        return ell_spmv(vals, cols, wins)[: self.n]
+        xp = F.pad(v, (self.B, self.nb * self.R + self.B - self.n))
+        wins = xp.unfold(0, self.wwin, self.R).reshape(-1)  # (NB * wwin,) stacked windows
+        return (self._k2 @ wins)[: self.n]
 
     def diagonal(self):
         """Diagonal via the rebased index: entry (blk, k, r) is on the

@@ -6,11 +6,11 @@ after RCM, ``parallel/reorder.py``) every nonzero of a row owned by shard
 p lies within H = bandwidth of the row, so a product needs only the two
 H-wide edge strips of the neighbouring blocks (``ShardMesh.halo``).
 Columns are rebased to halo-local indices at set-up, so the local product
-is K2's compact form (``ops/gather_spmv.ell_spmv``) on the shard's (K,
-block) table over the (block + 2H) halo-extended vector; K2 takes any
-operand length. The halo-local columns move the padding column to local
-row + H, so where E carries warp widths the shard's come from the global
-pattern's row widths, cut to the shard's rows.
+is K2's compact form on the shard's (K, block) table over the (block + 2H)
+halo-extended vector, a rectangular ``ops/gather_spmv.ELLSoA``. The
+halo-local columns move the padding column to local row + H, so where E
+carries warp widths the shard's come from the global pattern's row widths,
+cut to the shard's rows.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.gather_spmv import accumulation_dtype, ell_row_widths, ell_spmv, warp_widths
+from ..ops.gather_spmv import ELLSoA, ell_row_widths, warp_widths
 from .cg import sharded_cg
 from .comm import ShardMesh
 from .halo import _inv_diag, _maybe_escalate
@@ -29,7 +29,7 @@ __all__ = ["HaloELLSolver"]
 class HaloELLSolver:
     """Distributed Jacobi-CG for an ELLSoA operator over a 1D ShardMesh.
 
-    E: ``ops/matfree_soa.ELLSoA`` (vals/cols (K, n); padded entries carry
+    E: ``ops/gather_spmv.ELLSoA`` (vals/cols (K, n); padded entries carry
     col = row, val = 0), banded with bandwidth H <= n/P: RCM-reorder
     imported meshes first. Dirichlet dofs are pinned by masking
     (free_mask), as in ``HaloDIASolver``.
@@ -44,7 +44,6 @@ class HaloELLSolver:
         self.K, self.n = K, n = vals.shape
         self.block = block = -(-n // self.P)
         self.n_pad = block * self.P
-        self.dtype = accumulation_dtype(vals.dtype)
         rows = torch.arange(n, device=dev)
         self.H = H = max(int((cols - rows[None, :]).abs().max()) if n else 0, 1)
         if H > block:
@@ -59,13 +58,19 @@ class HaloELLSolver:
         c = torch.cat([c, lrows[v.shape[1]:].expand(K, -1)], dim=1)
         # halo-local columns in [0, block + 2H)
         self.lcols = torch.clamp(c - start + H, 0, block + 2 * H - 1).to(torch.int32).contiguous()
-        self.diag = torch.where(c == lrows[None, :], self.vals, 0.0).sum(dim=0).to(self.dtype)
         # the global rows' widths where E's builder vouches for them (None:
         # all K slots); the pad rows past n hold only padding
         self.warp_w = None
-        if getattr(E, "warp_w", None) is not None:
+        if E.warp_w is not None:
             row_w = ell_row_widths(cols)[start:start + block]
             self.warp_w = warp_widths(F.pad(row_w, (0, block - row_w.shape[0])))
+        self.dtype = self._op().dtype
+        self.diag = torch.where(c == lrows[None, :], self.vals, 0.0).sum(dim=0).to(self.dtype)
+
+    def _op(self):
+        """This shard's (block, block + 2H) operator over the halo-extended
+        vector (built from the current tables: an escalation recasts vals)."""
+        return ELLSoA(self.vals, self.lcols, (self.block, self.block + 2 * self.H), self.warp_w)
 
     def _pad_local(self, v):
         v = torch.as_tensor(v, device=self.device_mesh.device).to(self.dtype)
@@ -75,8 +80,7 @@ class HaloELLSolver:
 
     def _spmv(self, x):
         """This shard's rows of A x: K2 on the halo-extended vector."""
-        ext = self.device_mesh.halo_extend(x, self.H)
-        return ell_spmv(self.vals, self.lcols, ext, self.warp_w)
+        return self._op() @ self.device_mesh.halo_extend(x, self.H)
 
     def _prec(self, free):
         inv_diag = _inv_diag(self.diag, free)

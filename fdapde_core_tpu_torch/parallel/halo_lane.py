@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from ..ops.auxgrid import interp_transpose_ell
-from ..ops.gather_spmv import ell_spmv
+from ..ops.gather_spmv import ELLSoA
 from .comm import ShardMesh
 from .halo_ell import HaloELLSolver
 
@@ -35,7 +35,7 @@ __all__ = ["HaloLaneSolver"]
 class HaloLaneSolver(HaloELLSolver):
     """Distributed preconditioned CG over per-shard ELL tables.
 
-    E: ``ops/matfree_soa.ELLSoA`` with bandwidth H <= block (RCM first).
+    E: ``ops/gather_spmv.ELLSoA`` with bandwidth H <= block (RCM first).
     aux: an ``AuxGridPreconditioner`` (or its 3D form) built for this dof
     numbering, applied distributed; None: per-shard Jacobi.
     """
@@ -54,23 +54,23 @@ class HaloLaneSolver(HaloELLSolver):
             w = aux.w[:, start:start + block]
             dinv = aux.dinv[start:start + block]
             pad = block - idx.shape[1]
-            idx = F.pad(idx, (0, pad)).contiguous()
-            w = F.pad(w, (0, pad)).contiguous()
+            idx = F.pad(idx, (0, pad))
+            w = F.pad(w, (0, pad))
             dinv = F.pad(dinv, (0, pad), value=1.0)
             mm = (aux.n_grid + 1) ** aux.DIM
-            self.aux_parts = (idx, w, dinv, aux.mg, interp_transpose_ell(idx, w, block, mm))
+            self.aux_parts = (ELLSoA(w, idx, (block, mm)), dinv, aux.mg,
+                              interp_transpose_ell(idx, w, block, mm))
 
     def _prec(self, free):
         if self.aux_parts is None:
             return super()._prec(free)
-        idx, w, dinv, mg, PT = self.aux_parts
+        P, dinv, mg, PT = self.aux_parts
         omega = float(self.aux.omega)
         psum = self.device_mesh.psum
 
         def pre(r):
-            rw = r.to(w.dtype)
-            z_g = mg.v_cycle(psum(PT @ rw))
-            z = ell_spmv(w, idx, z_g)
+            rw = r.to(dinv.dtype)
+            z = P @ mg.v_cycle(psum(PT @ rw))
             return (omega * dinv * rw + z).to(r.dtype) * free
 
         return pre

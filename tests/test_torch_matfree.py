@@ -544,6 +544,62 @@ def test_soa_pipeline_matches_jax():
             close(got, assemble_matrix(ts_, L, device="cpu").vals, f"{name}: soa vs assemble_matrix", 1e-13)
 
 
+# the dtype pairs of a compact product: (table, operand)
+_COMPACT_PAIRS = ((torch.float64, torch.float64), (torch.float32, torch.float32),
+                  (torch.bfloat16, torch.float32), (torch.float32, torch.float64))
+
+
+def _check_compact_faces():
+    """The one compact-ELL operator (``gather_spmv.ELLSoA``) behind its
+    faces: ELLSoA, ELLMatrix, LaneRoutedELL, WindowedELL and the aux grid's
+    P, on the n = 24 lattice Poisson ELL (WindowedELL's band) and its
+    (4, n) bilinear table, over the table / operand dtype pairs f64/f64,
+    f32/f32, bf16/f32 and f32/f64: each product in
+    ``accumulation_dtype(vals, x)`` (float32 values on a float64 x give
+    float64 in every face, LaneRoutedELL included) and torch.equal to
+    ``ell_spmv_reference`` on the widened table; astype, with_vals and
+    with_added_diagonal share the warp widths; ELLMatrix and WindowedELL
+    hold one table (their vals are views of the slot-major storage); a
+    rectangular operator's diagonal is zeros and its operand check takes
+    n_src."""
+    from fdapde_core_tpu_torch.ops import ELLMatrix, WindowedELL
+
+    x, y, c0, c1, c2, _ = irregular_mesh_device_soa(24, 0.2, device="cpu")
+    E, _ = tms.MatrixFreeSoA.build(x, y, c0, c1, c2, x.shape[0], 8)[0].to_ell(9)
+    P = AuxGridPreconditioner.build_device((x, y), torch.ones_like(x), grid_n=16,
+                                           dtype=torch.float64).P
+    n, n_grid = E.shape[0], P.shape[1]
+    assert isinstance(P, tms.ELLSoA) and P.shape == (n, n_grid) and P.warp_w is None
+    assert torch.equal(P.diagonal(), torch.zeros(n, dtype=torch.float64)), "rectangular diagonal"
+    with pytest.raises(ValueError):
+        P @ torch.zeros(n, dtype=torch.float64)
+    M = ELLMatrix(E.vals.T, E.cols.T, E.shape, E.warp_w)
+    faces = (("ELLSoA", E, E), ("ELLMatrix", M, E),
+             ("LaneRoutedELL", LaneRoutedELL.from_ell(E, keep_remap=True), E),
+             ("WindowedELL", WindowedELL.from_ell(E, block_rows=128), E), ("aux P", P, P))
+    rng = np.random.default_rng(17)
+    for name, F, T in faces:
+        for vdt, xdt in _COMPACT_PAIRS:
+            what = f"{name} {vdt} x {xdt}"
+            Fd, Td = F.astype(vdt), T.astype(vdt)
+            v = torch.from_numpy(rng.standard_normal(T.shape[1])).to(xdt)
+            acc = gs.accumulation_dtype(vdt, xdt)
+            got = Fd @ v
+            assert got.dtype == acc, what
+            ref = gs.ell_spmv_reference(Td.vals.to(acc), Td.cols, v.to(acc))
+            assert torch.equal(got, ref), what
+            if T.warp_w is not None and name != "WindowedELL":
+                d = torch.ones(n, dtype=vdt)
+                assert Fd.warp_w is Fd.with_added_diagonal(d).warp_w is E.warp_w, what
+        if name == "LaneRoutedELL":
+            assert F.with_vals(E.with_added_diagonal(torch.ones(n))).warp_w is E.warp_w, name
+    assert M.vals.data_ptr() == M._slot_major.vals.data_ptr() and M.vals.shape == E.vals.T.shape
+    M32 = M.astype(torch.float32)
+    assert M32.vals.data_ptr() == M32._slot_major.vals.data_ptr(), "ELLMatrix holds two tables"
+    W = faces[3][1]
+    assert W.vals.data_ptr() == W._k2.vals.data_ptr(), "WindowedELL holds two tables"
+
+
 def test_lane_routed_ell_matches_jax(tmp_path):
     """LaneRoutedELL on K2 against JAX's lane-routed Pallas kernel on the
     scrambled n_side = 64 FEM ELL: f64 to rtol 1e-13, f32 tables to 1e-5
@@ -742,6 +798,7 @@ def test_lane_routed_ell_matches_jax(tmp_path):
     jc = jnp.asarray(const)
     assert bool(jnp.isnan((jc - jc.min()) / jnp.maximum(jc.max() - jc.min(), 1e-300)).all()), \
         "JAX's float32 guard no longer underflows"
+    _check_compact_faces()
     _check_halo_ell_and_lane_match_jax(tmp_path)
 
 
@@ -1023,10 +1080,13 @@ def test_models_match_jax():
     iterations grow with n in both packages (within 1 of each other); the
     banded route against the port's solve_parabolic(lumped=True) on the
     same mesh to 1e-10, and chunked stepping bitwise equal. The port
-    validates gather_kernel / aux_kernel up front. aux_kernel="lane" and
-    from_space (order 1 and 2) against JAX: the same aux grid, equal
-    iterations, solutions to 1e-10 relative; P2 reproduces x^2 + y^2 to
-    1e-10 of max|u|."""
+    validates gather_kernel / aux_kernel up front. The shared build: the
+    max_degree / max_cols overflows and "banded_mg" without a band raise in
+    all three models, solve(chunk=...) takes solve()'s iterates, and
+    MatrixFreeParabolic preconditions the shifted operator on both routes.
+    aux_kernel="lane" and from_space (order 1 and 2) against JAX: the same
+    aux grid, equal iterations, solutions to 1e-10 relative; P2 reproduces
+    x^2 + y^2 to 1e-10 of max|u|."""
     n = 48
     C = 2 * n * n
     rng = np.random.default_rng(21)
@@ -1084,9 +1144,28 @@ def test_models_match_jax():
         assert tm.preconditioner == jm.preconditioner == "banded_mg", name
         assert tm.aux.mg.shapes == tuple(jm.aux.mg.shapes), name
         compare(name, jm, tm, 1e-10)
-    with pytest.raises(ValueError):  # the scrambled numbering has no band
-        MatrixFreePoisson(_t(np.stack([xs, ys], 1)), _t(cells_s), _t(bnd_s),
-                          preconditioner="banded_mg", device="cpu")
+    # the one operator build of the three models: a max_degree or max_cols
+    # overflow and an explicit "banded_mg" on the scrambled numbering (no
+    # band) raise in each
+    mesh_s = (_t(np.stack([xs, ys], 1)), _t(cells_s), _t(bnd_s))
+    for cls, extra in ((MatrixFreePoisson, {}), (MatrixFreeElliptic, dict(K=1.0)),
+                       (MatrixFreeParabolic, dict(dt=0.01))):
+        for kw, match in ((dict(max_degree=3), "max_degree=3"),
+                          (dict(max_cols=4), "4 distinct columns"),
+                          (dict(preconditioner="banded_mg"), "no concentrated band")):
+            with pytest.raises(ValueError, match=match):
+                cls(*mesh_s, device="cpu", **extra, **kw)
+    # solve(chunk=...) takes solve()'s iterates (CG and BiCGStab), calling
+    # on_chunk every chunk iterations
+    for tm in (MatrixFreePoisson(_t(nodes), _t(cells), _t(bnd), preconditioner="auxgrid",
+                                 device="cpu"),
+               MatrixFreeElliptic((_t(x), _t(y)), _t(cells), _t(bnd), device="cpu", **adv)):
+        tb, seen = tm.load_vector(_t(f)), []
+        x1, k1, r1 = tm.solve(tb, rtol=1e-10, maxiter=300)
+        xc, kc, rc = tm.solve(tb, rtol=1e-10, maxiter=300, chunk=3,
+                              on_chunk=lambda k, rn: seen.append(k))
+        assert torch.equal(xc, x1) and kc == k1 and torch.equal(rc, r1), type(tm).__name__
+        assert seen == list(range(3, k1, 3)) + [k1], seen
 
     # MatrixFreeParabolic on both routes, and against solve_parabolic
     n_p, dt, steps = 24, 0.01, 4
@@ -1139,6 +1218,17 @@ def test_models_match_jax():
     assert np.abs(_np(tu) - _np(us[:, -1])).max() <= 1e-10
     uc, _ = tp.solve(_t(u0), n_steps=steps, rtol=1e-11, maxiter=200, chunk=5)
     assert torch.equal(uc, tu), "chunked stepping differs"
+    # both routes precondition the shifted operator A + M_L / dt: the
+    # banded V-cycle is its fold's, the aux grid's inverse diagonal its own
+    tpois = MatrixFreePoisson(_t(nodes_p), _t(cells_p), _t(bp), device="cpu")
+    assert torch.equal(tp.op.diagonal(), tpois.op.diagonal() + tp.mdiag / dt)
+    r32 = torch.from_numpy(rng.standard_normal(tp.n_dofs)).float()
+    fold = tds.BandedMGPreconditioner.build(tp.op.astype(torch.float32).fold_dirichlet(_t(bp)))
+    assert tp.preconditioner == "banded_mg" and torch.equal(tp.aux(r32), fold(r32))
+    tpa = MatrixFreeParabolic(_t(nodes_p), _t(cells_p), _t(bp), dt, preconditioner="auxgrid",
+                              device="cpu")
+    d = tpa.op.diagonal().float()
+    assert torch.equal(tpa.aux.dinv, torch.where(d != 0, 1 / d, 1.0)), "aux grid not shifted"
 
     # gather_kernel / aux_kernel validation (JAX accepts these silently)
     mesh = ((_t(xs), _t(ys)), _t(cells_s), _t(bnd_s))
