@@ -308,9 +308,20 @@ Phases (each raises on failure; nothing is caught):
     51, K = 9) in f32 and f64 (relative gap 1e-5 / 1e-12, also after one
     iteration; a zero right-hand side gives x = 0; bitwise stable), its
     launch count zeroed just before, and time both with CUDA events.
+34. time the V-cycle's finer-level stage kernels (csrc/grid_mg_levels.cu:
+    the Jacobi sweep from x and from x = 0, the residual, the
+    restriction, the prolongation with its correction) with CUDA events
+    at the main paths' level shapes (3201^2 f32 K = 5, the aux grid's
+    level 0; 3201^2 f32 K = 9, the banded level 0; 1601^2 f32 K = 9;
+    721^2 f64 K = 5, the pde cell's aux level 0) against their bytes
+    bound (each input read once, each output written once, 3.35 TB/s),
+    the plain stage and their launch counts (one a stage); hold each
+    stage and a whole V-cycle on a hierarchy from each shape bitwise to
+    the plain ones; report the wrappers' host microseconds a launch.
 
 Phases 4-32 count their V-cycle coarse solves: KC's launches, and those
-of card vectors that took the plain loop. Phases 4, 5, 8, 9, 10, 12, 22
+of card vectors that took the plain loop; and log the stage kernels'
+launches. Phases 4, 5, 8, 9, 10, 12, 22
 and 32 run a 2D GridMG on the card, so each must launch KC and take the
 plain loop for none; checked after the last phase.
 
@@ -3855,6 +3866,7 @@ def timed_phase(number, fn, runs_grid_mg=False):
 
 # phase -> (KC launches, coarse solves of card vectors that took the plain loop)
 COARSE_BY_PHASE = {}
+LEVEL_BY_PHASE = {}  # phase -> stage-kernel launches on the finer levels
 PLAIN_COARSE_ON_CARD = [0]
 COARSE_FAULTS = []  # checked once every phase has run, so one run names them all
 
@@ -3881,10 +3893,13 @@ def coarse_counted(phase, fn, runs_grid_mg=False):
     from fdapde_core_tpu_torch.ops import grid_mg
 
     kc, plain = grid_mg.grid_coarse_cg_launches, PLAIN_COARSE_ON_CARD[0]
+    levels = grid_mg.grid_mg_level_launches
     out = fn()
     kc, plain = grid_mg.grid_coarse_cg_launches - kc, PLAIN_COARSE_ON_CARD[0] - plain
     COARSE_BY_PHASE[phase] = (kc, plain)
-    log(f"phase {phase}: KC launches {kc}, card coarse solves on the plain loop {plain}")
+    LEVEL_BY_PHASE[phase] = grid_mg.grid_mg_level_launches - levels
+    log(f"phase {phase}: KC launches {kc}, card coarse solves on the plain loop {plain}, "
+        f"stage-kernel launches {LEVEL_BY_PHASE[phase]}")
     if runs_grid_mg and kc == 0:
         COARSE_FAULTS.append(f"phase {phase} runs a 2D GridMG on the card but never launched KC")
     if runs_grid_mg and plain:
@@ -3947,6 +3962,125 @@ def phase_coarse_cg(grid_mg, plain_coarse_cg, StructuredPoisson):
                                              library_ms=None, bound_ms=bound, bound_by="latency")
     check(grid_mg.grid_coarse_cg_launches > 0, "KC's launch count did not rise")
     return dict(out["float32"], float64=out["float64"])
+
+
+# the stage kernels' timing shapes: (name, m, K, layer and vector dtype)
+LEVEL_SHAPES = (("aux level 0", 3201, 5, torch.float32), ("banded level 0", 3201, 9, torch.float32),
+                ("level 1", 1601, 9, torch.float32), ("pde aux level 0", 721, 5, torch.float64))
+
+
+def level_layers(m, K, dtype, gen):
+    """(K, m, m) layers of a diagonally dominant stencil with variable
+    coefficients: K = 5 the 5-point offsets, K = 9 the 9-point window."""
+    from fdapde_core_tpu_torch.ops.grid_mg import _NINE_POINT
+
+    offsets = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)) if K == 5 else _NINE_POINT
+    lay = -0.25 * torch.rand((K, m, m), generator=gen, dtype=dtype, device=DEVICE)
+    lay[offsets.index((0, 0))] = 2.0 + torch.rand((m, m), generator=gen, dtype=dtype,
+                                                  device=DEVICE)
+    return lay, offsets
+
+
+def host_us(fn, n):
+    """Host microseconds a call of fn, enqueued n times without a wait."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / n
+
+
+def phase_level_kernels(grid_mg):
+    """Phase 34: the finer levels' stage kernels at the main paths' level
+    shapes against their bytes bound and the plain stages, each stage and
+    a V-cycle held bitwise to the plain ones; returns the measurements by
+    shape, the wrappers' host us a launch and the launches they made."""
+    from fdapde_core_tpu_torch.ops.grid_dia import GridDIAMatrix
+    from fdapde_core_tpu_torch.ops.grid_mg import GridMG, LevelKernels
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 34)
+    stream = torch.cuda.current_stream().cuda_stream
+    launches0 = grid_mg.grid_mg_level_launches
+    bits = lambda t: t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)  # noqa: E731
+    out = {}
+    for name, m, K, dtype in LEVEL_SHAPES:
+        layers, offsets = level_layers(m, K, dtype, gen)
+        mc, size = (m + 1) // 2, torch.finfo(dtype).bits // 8
+        n, nc = m * m, mc * mc
+        ops = LevelKernels(layers, offsets, dtype)
+        plain = GridMG([layers], (offsets,), (m,), 0.8, 1, 64)
+        b = torch.randn((m, m), generator=gen, dtype=dtype, device=DEVICE)
+        x = torch.randn((m, m), generator=gen, dtype=dtype, device=DEVICE)
+        e = torch.randn((mc, mc), generator=gen, dtype=dtype, device=DEVICE)
+        xp = x.clone()  # the prolongation's in-place target
+        stages = {  # name: (kernel, plain, bytes)
+            "sweep": (lambda: ops.smooth(b, x, 0.8, 1, stream), lambda: plain._smooth(0, x, b),
+                      n * (K + 3) * size),
+            "sweep_from_zero": (lambda: ops.smooth(b, None, 0.8, 1, stream),
+                                lambda: plain._smooth(0, torch.zeros_like(b), b), n * 3 * size),
+            "residual": (lambda: ops.residual(b, x, stream),
+                         lambda: b - grid_mg._stencil(layers, offsets, x, m), n * (K + 3) * size),
+            "restrict": (lambda: ops.restrict(x, stream), lambda: grid_mg._restrict(x, mc),
+                         (n + nc) * size),
+            "prolong": (lambda: ops.prolong_add(e, xp, stream),
+                        lambda: x + grid_mg._prolong(e, m), (2 * n + nc) * size),
+        }
+        row = {}
+        for stage, (kernel, plain_fn, nbytes) in stages.items():
+            before = grid_mg.grid_mg_level_launches
+            got = kernel()
+            check(grid_mg.grid_mg_level_launches == before + 1,
+                  f"{name} {stage}: {grid_mg.grid_mg_level_launches - before} launches")
+            check(torch.equal(bits(got), bits(plain_fn())), f"{name} {stage}: not bitwise the plain")
+            ms, plain_ms = time_ms(kernel, 50), time_ms(plain_fn, 5)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            row[stage] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                              launches=1)
+            log(f"stage kernels {name} (m={m}, K={K}, {dtype}) {stage}: {ms:.4f} ms, bound "
+                f"{bound:.4f} ms ({100 * bound / ms:.0f} %), plain {plain_ms:.4f} ms, 1 launch, "
+                f"bitwise the plain stage")
+        mg = GridMG.build(GridDIAMatrix(layers, offsets, (m, m)))
+        r = torch.randn(n, generator=gen, dtype=dtype, device=DEVICE)
+        before = grid_mg.grid_mg_level_launches
+        got = mg.v_cycle(r)
+        per_level = (grid_mg.grid_mg_level_launches - before) / (mg.n_levels - 1)
+        apply = grid_mg.level_kernels_apply
+        grid_mg.level_kernels_apply = lambda *a: False
+        try:
+            want = mg.v_cycle(r)
+            plain_vc = time_ms(lambda: mg.v_cycle(r), 3)
+        finally:
+            grid_mg.level_kernels_apply = apply
+        check(torch.equal(bits(got), bits(want)), f"{name}: the V-cycle is not bitwise the plain")
+        check(per_level <= 8, f"{name}: {per_level} launches a finer level")
+        vc = time_ms(lambda: mg.v_cycle(r), 20)
+        vc_host = host_us(lambda: mg.v_cycle(r), 20) / 1e3
+        log(f"stage kernels {name}: V-cycle on levels {mg.shapes} bitwise the plain one, "
+            f"{per_level:.0f} launches a finer level; {vc:.4f} ms on the card ({vc_host:.4f} host "
+            f"ms to enqueue), plain {plain_vc:.4f} ms")
+        out[name] = dict(m=m, K=K, dtype=str(dtype), stages=row, vcycle_ms=vc,
+                         vcycle_host_ms=vc_host, vcycle_plain_ms=plain_vc,
+                         vcycle_levels=list(mg.shapes), launches_per_level=per_level)
+        del layers, ops, plain, mg, b, x, xp, e, r, got, want
+        torch.cuda.empty_cache()
+    # the wrappers' host cost a launch, where the card outruns the host
+    layers, offsets = level_layers(51, 9, torch.float32, gen)
+    ops = LevelKernels(layers, offsets, torch.float32)
+    b = torch.randn((51, 51), generator=gen, device=DEVICE)
+    x = torch.randn((51, 51), generator=gen, device=DEVICE)
+    r = torch.empty_like(b)
+    lib_args = (*ops._lay, b.data_ptr(), x.data_ptr(), r.data_ptr(), *ops._grid, stream)
+    wrapper = dict(
+        residual_us=host_us(lambda: ops.residual(b, x, stream), 4000),
+        smooth_nu2_us_a_launch=host_us(lambda: ops.smooth(b, None, 0.8, 2, stream), 2000) / 2,
+        c_call_us=host_us(lambda: ops._residual(*lib_args), 4000),
+        current_stream_us=host_us(lambda: torch.cuda.current_stream().cuda_stream, 4000))
+    log("stage kernels: host us a launch: " + ", ".join(f"{k} {v:.2f}" for k, v in wrapper.items()))
+    check(grid_mg.grid_mg_level_launches > launches0, "the stage kernels' launch count did not rise")
+    return dict(shapes=out, host_us=wrapper, launches=grid_mg.grid_mg_level_launches - launches0)
 
 
 def main():
@@ -4088,6 +4222,11 @@ def main():
         + f"; in all {kc_launches}")
     kc, t_kc = synced_seconds(lambda: phase_coarse_cg(grid_mg, plain_coarse_cg, StructuredPoisson))
     log(f"phase 33: {t_kc:.2f} s")
+    level_launches = sum(LEVEL_BY_PHASE.values())
+    log("stage-kernel launches by phase: " + "; ".join(
+        f"{phase} {n}" for phase, n in LEVEL_BY_PHASE.items()) + f"; in all {level_launches}")
+    levels, t_levels = synced_seconds(lambda: phase_level_kernels(grid_mg))
+    log(f"phase 34: {t_levels:.2f} s")
 
     kernels = [dict(
         name="p1_stencil_layers",
@@ -4157,6 +4296,16 @@ def main():
         plain_on_card_by_phase={phase: plain for phase, (_, plain) in COARSE_BY_PHASE.items()},
         launches_sharded=by_kernel["KC"],
         **kc,
+    ), dict(
+        name="grid_mg_levels",
+        route="cuda",
+        source="fdapde_core_tpu_torch/csrc/grid_mg_levels.cu",
+        replaces=None,
+        launches=level_launches,
+        launches_by_phase=LEVEL_BY_PHASE,
+        launches_phase_34=levels["launches"],
+        host_us=levels["host_us"],
+        shapes=levels["shapes"],
     )]
     log("32 NCCL ms a call in the one-rank group: " + json.dumps(nccl))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

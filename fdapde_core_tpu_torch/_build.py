@@ -55,6 +55,14 @@ _SIGNATURES = {
     "p1_stiffness_edges_offdiag_f64": (_VP, _VP, _I64, _F64, _VP),
     "grid_coarse_cg_f32": (_VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP),
     "grid_coarse_cg_f64": (_VP, _VP, _VP, _I64, _I64, _I64, _I64, _VP),
+    "grid_mg_smooth_f32": (_VP, _I64, _VP, _VP, _VP, _I64, _I64, _I64, _F64, _I64, _I64, _VP),
+    "grid_mg_smooth_f64": (_VP, _I64, _VP, _VP, _VP, _I64, _I64, _I64, _F64, _I64, _I64, _VP),
+    "grid_mg_residual_f32": (_VP, _I64, _VP, _VP, _VP, _I64, _I64, _I64, _VP),
+    "grid_mg_residual_f64": (_VP, _I64, _VP, _VP, _VP, _I64, _I64, _I64, _VP),
+    "grid_mg_restrict_f32": (_VP, _VP, _I64, _VP),
+    "grid_mg_restrict_f64": (_VP, _VP, _I64, _VP),
+    "grid_mg_prolong_add_f32": (_VP, _VP, _I64, _VP),
+    "grid_mg_prolong_add_f64": (_VP, _VP, _I64, _VP),
 }
 
 

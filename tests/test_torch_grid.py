@@ -40,6 +40,7 @@ from fdapde_core_tpu_torch.ops import grid_cg as tcg
 from fdapde_core_tpu_torch.ops import grid_mg as tmg
 from fdapde_core_tpu_torch.ops import grid_mg3d as tmg3
 from fdapde_core_tpu_torch.ops.grid_dia import GridDIAMatrix, prune_zero_offsets_grid
+from fdapde_core_tpu_torch.utils import profiling
 
 
 def _raw_operator(n, seed=4, amp=0.1):
@@ -202,6 +203,38 @@ def test_galerkin_coarsen_matches_jax():
     for mg in (mgt, built):
         zt = mg.v_cycle(torch.from_numpy(r)).numpy()
         np.testing.assert_allclose(zt, zj, rtol=0, atol=1e-12 * np.abs(zj).max())
+
+    # the finer levels' stage kernels (csrc/grid_mg_levels.cu) take a CUDA
+    # f32 / f64 vector on offsets within the 9-point window and f32 / f64 /
+    # bf16 layers on its device; a CPU V-cycle takes the plain stages: no
+    # launch, no mg.kernel span, and the JAX parity above is theirs
+    cuda0, nine = torch.device("cuda", 0), tmg._NINE_POINT
+    vec = lambda dt, device=cuda0: SimpleNamespace(is_cuda=device.type == "cuda", dtype=dt,  # noqa: E731
+                                                   device=device)
+    lay = lambda dt, device=cuda0: SimpleNamespace(dtype=dt, device=device)  # noqa: E731
+    for b, layers, offsets, takes in [
+        (vec(torch.float32), lay(torch.float32), nine, True),
+        (vec(torch.float64), lay(torch.bfloat16), nine[3:6] + nine[1:2] + nine[7:8], True),
+        (vec(torch.float32), lay(torch.float64), nine, True),
+        (vec(torch.float64, torch.device("cpu")), lay(torch.float64, torch.device("cpu")), nine,
+         False),                                                    # the CPU
+        (vec(torch.bfloat16), lay(torch.bfloat16), nine, False),    # no bf16 vectors
+        (vec(torch.float32), lay(torch.float16), nine, False),      # no f16 layers
+        (vec(torch.float32), lay(torch.float32, torch.device("cuda", 1)), nine, False),
+        (vec(torch.float32), lay(torch.float32), nine + ((0, 0),), False),  # ten offsets
+        (vec(torch.float32), lay(torch.float32), ((0, 0), (0, 2)), False),  # a wide offset
+    ]:
+        assert tmg.level_kernels_apply(b, layers, offsets) is takes, (b, layers, offsets)
+    with profiling.recording() as recs:
+        built.v_cycle(torch.from_numpy(r))
+    names = [rec.name for rec in recs]
+    assert names.count("mg.smooth") == 2 * (built.n_levels - 1) and "mg.kernel" not in names
+    assert tmg.grid_mg_level_launches == 0 and not built._level_cache
+    with pytest.raises(ValueError, match="CUDA"):  # the wrappers refuse CPU tensors
+        tmg.grid_mg_residual(built.datas[0], built.offsets[0], torch.zeros(33, 33),
+                             torch.zeros(33, 33))
+    with pytest.raises(ValueError, match="CUDA"):
+        tmg.LevelKernels(built.datas[1], built.offsets[1], torch.float64)
 
     # 3D: galerkin_coarsen3d of the folded 15-point stencil (27-point out)
     # and once more against JAX's GridMG3D levels, to 1e-12 of scale; the
