@@ -27,10 +27,18 @@ set-up raises anything; here only a numerical failure of the set-up
 is not a ``SparseMatrix`` (DIA storage) keeps its preconditioner, where
 JAX's FSPAI set-up raises on it and is caught: the same rung.
 
-Spans (``utils.profiling``): an elliptic solve's preconditioner set-up is
-a ``precond.build`` span valued by its rung (``RUNGS``: 0 the auxiliary
-grid, 1 SA-AMG, 2 Jacobi or a caller's callable), and the escalation to
-GMRES(50) a ``krylov.recover`` span.
+Spans (``utils.profiling``): a solve's preconditioner set-up, once an
+elliptic solve or a trajectory, is a ``precond.build`` span valued by its
+rung (``RUNGS``: 0 the auxiliary grid, 1 SA-AMG, 2 Jacobi or a caller's
+callable); a trajectory's set-up outside its steps and its preconditioner
+(K = A + M/dt, the placement of F, g and u0) a ``parabolic.setup`` span;
+each implicit-Euler step a ``parabolic.step`` span valued by its Krylov
+iterations; the escalation to GMRES(50), of an elliptic solve or of a whole
+trajectory, a ``krylov.recover`` span.
+
+An auxiliary grid that fails to build raises ``AuxGridBuildError``, the
+one failure on which ``PDE``'s "auto" ladder takes its next rung; an
+error of the solve itself (a kernel's launch, device memory) propagates.
 """
 
 from __future__ import annotations
@@ -47,10 +55,17 @@ from ..linear_algebra.solvers import bicgstab, cg, gmres, jacobi_preconditioner
 from ..linear_algebra.sparse import SparseMatrix
 from ..utils.profiling import span
 
-__all__ = ["DirichletSystem", "masked_matrix", "solve_elliptic", "solve_parabolic"]
+__all__ = ["AuxGridBuildError", "DirichletSystem", "masked_matrix", "solve_elliptic",
+           "solve_parabolic"]
 
 # the value of a ``precond.build`` span: the preconditioner's rung
 RUNGS = {"auxgrid": 0, "amg": 1, "jacobi": 2, "callable": 2}
+
+
+class AuxGridBuildError(RuntimeError):
+    """The auxiliary grid's set-up failed for this mesh (the cause is
+    chained); out of device memory is not such a failure and propagates as
+    it is."""
 
 
 class DirichletSystem(NamedTuple):
@@ -92,6 +107,35 @@ def masked_matrix(A, mask):
     return A.with_vals(vals)
 
 
+def _build_preconditioner(sys, preconditioner):
+    """(M_inv, rung) for the masked operator ``sys``, set up inside a
+    ``precond.build`` span valued by its rung. preconditioner: None
+    (Jacobi), a callable M_inv(r), ("auxgrid", dof_coords) (3D coordinates
+    take ``AuxGridPreconditioner3D``; a failed build raises
+    ``AuxGridBuildError``) or "amg" (SA-AMG of the masked matrix)."""
+    auxgrid = isinstance(preconditioner, tuple) and preconditioner[0] == "auxgrid"
+    rung = ("auxgrid" if auxgrid else "amg" if preconditioner == "amg" else
+            "callable" if callable(preconditioner) else "jacobi")
+    with span("precond.build", RUNGS[rung]):
+        if rung == "amg":
+            pre = AMG.build(masked_matrix(sys.A, sys.mask)).v_cycle
+        elif auxgrid:
+            from ..ops.auxgrid import AuxGridPreconditioner, AuxGridPreconditioner3D
+
+            coords = preconditioner[1]
+            cls = AuxGridPreconditioner3D if coords.shape[1] == 3 else AuxGridPreconditioner
+            diag = sys.diagonal()
+            try:
+                pre = cls.build(coords, diag, device=diag.device)
+            except torch.OutOfMemoryError:
+                raise
+            except Exception as exc:
+                raise AuxGridBuildError(f"{type(exc).__name__}: {exc}") from exc
+        else:
+            pre = preconditioner or jacobi_preconditioner(sys.diagonal())
+    return pre, rung
+
+
 def solve_elliptic(A, b, mask, g, symmetric=True, rtol=1e-12, maxiter=None,
                    recovery=True, preconditioner=None):
     """Solve A u = b with Dirichlet data g on the ``mask`` dofs.
@@ -108,21 +152,7 @@ def solve_elliptic(A, b, mask, g, symmetric=True, rtol=1e-12, maxiter=None,
     ``recovered`` whether the escalation ran.
     """
     sys = DirichletSystem(A, mask)
-    auxgrid = isinstance(preconditioner, tuple) and preconditioner[0] == "auxgrid"
-    rung = ("auxgrid" if auxgrid else "amg" if preconditioner == "amg" else
-            "callable" if callable(preconditioner) else "jacobi")
-    with span("precond.build", RUNGS[rung]):
-        if rung == "amg":
-            pre = AMG.build(masked_matrix(A, mask)).v_cycle
-        elif auxgrid:
-            from ..ops.auxgrid import AuxGridPreconditioner, AuxGridPreconditioner3D
-
-            coords = preconditioner[1]
-            cls = AuxGridPreconditioner3D if coords.shape[1] == 3 else AuxGridPreconditioner
-            diag = sys.diagonal()
-            pre = cls.build(coords, diag, device=diag.device)
-        else:
-            pre = preconditioner or jacobi_preconditioner(sys.diagonal())
+    pre, rung = _build_preconditioner(sys, preconditioner)
     b_mod = sys.rhs(b, g)
     x0 = torch.where(mask, g, 0.0)
     solver = cg if symmetric else bicgstab
@@ -164,22 +194,26 @@ def _recover_elliptic(A, sys, b_mod, x, x0, symmetric, rtol, maxiter, pre):
 
 
 def solve_parabolic(A, Mass, F, mask, g, u0, times, rtol=1e-12, maxiter=None,
-                    lumped=False, symmetric=True, recovery=True, return_info=False):
+                    lumped=False, symmetric=True, recovery=True, return_info=False,
+                    preconditioner=None):
     """Implicit-Euler time stepping (fem_linear_parabolic_solver.h:37-72).
 
     A: stiffness, Mass: mass matrix (SparseMatrix), F: (n, m) forcing per
     time instant, g: (n, m) Dirichlet data per instant, u0: (n,) initial
     condition, times: (m,) uniform grid (dt from the first two entries, as
     upstream). lumped=True row-sum lumps the mass matrix (lumping.h:30), so
-    M/dt is diagonal. Each step solves with a Jacobi preconditioner of the
-    masked K, CG when symmetric else BiCGStab, warm-started from
-    where(mask, g_next, u_prev).
+    M/dt is diagonal. Each step solves with one preconditioner of the
+    masked K, built once before the first step (``preconditioner`` as in
+    ``solve_elliptic``: None for Jacobi, a callable, ("auxgrid",
+    dof_coords) or "amg"), CG when symmetric else BiCGStab, warm-started
+    from where(mask, g_next, u_prev).
 
     Recovery: every step's (converged, iterations) is kept; a stalled step
     poisons every later one, so if any step failed and ``recovery`` is set,
-    the whole trajectory is run again once with GMRES(50), with a warning.
-    return_info=True also returns {"converged": (m-1,) bool,
-    "iterations": (m-1,) int64, "escalated": bool}, host tensors.
+    the whole trajectory is run again once with GMRES(50) on the same
+    preconditioner, with a warning. return_info=True also returns
+    {"converged": (m-1,) bool, "iterations": (m-1,) int64, "escalated":
+    bool, "rung": the preconditioner's (a key of ``RUNGS``)}, host tensors.
 
     Returns the (n, m) solution, column 0 = u0.
     """
@@ -187,33 +221,36 @@ def solve_parabolic(A, Mass, F, mask, g, u0, times, rtol=1e-12, maxiter=None,
                        dtype=np.float64).reshape(-1)
     dt = float(times[1] - times[0])
     dev = A.vals.device
-    if lumped:
-        mdiag = lump(Mass) / dt
+    with span("parabolic.setup"):
+        if lumped:
+            mdiag = lump(Mass) / dt
 
-        def mass_apply(v):
-            return mdiag * v
+            def mass_apply(v):
+                return mdiag * v
 
-        K = A + _diag_sparse(mdiag)
-    else:
-        def mass_apply(v):
-            return Mass @ v / dt
+            K = A + _diag_sparse(mdiag)
+        else:
+            def mass_apply(v):
+                return Mass @ v / dt
 
-        K = A + Mass * (1.0 / dt)
+            K = A + Mass * (1.0 / dt)
 
-    mask = torch.as_tensor(mask, device=dev)
-    sys = DirichletSystem(K, mask)
-    pre = jacobi_preconditioner(sys.diagonal())
-    F = torch.as_tensor(F, device=dev)
-    g = torch.as_tensor(g, device=dev)
-    u0 = torch.as_tensor(u0, device=dev).reshape(-1)
+        mask = torch.as_tensor(mask, device=dev)
+        sys = DirichletSystem(K, mask)
+        F = torch.as_tensor(F, device=dev)
+        g = torch.as_tensor(g, device=dev)
+        u0 = torch.as_tensor(u0, device=dev).reshape(-1)
+    pre, rung = _build_preconditioner(sys, preconditioner)
 
     def run(krylov, **kw):
         u, us, conv, iters = u0, [u0], [], []
         for k in range(1, F.shape[1]):
-            rhs = mass_apply(u) + F[:, k]
-            b_mod = sys.rhs(rhs, g[:, k])
-            x0 = torch.where(mask, g[:, k], u)
-            u, info = krylov(sys, b_mod, M_inv=pre, x0=x0, rtol=rtol, maxiter=maxiter, **kw)
+            with span("parabolic.step") as step:
+                rhs = mass_apply(u) + F[:, k]
+                b_mod = sys.rhs(rhs, g[:, k])
+                x0 = torch.where(mask, g[:, k], u)
+                u, info = krylov(sys, b_mod, M_inv=pre, x0=x0, rtol=rtol, maxiter=maxiter, **kw)
+                step.value = int(info.iterations)
             us.append(u)
             conv.append(bool(info.converged))
             iters.append(int(info.iterations))
@@ -229,11 +266,12 @@ def solve_parabolic(A, Mass, F, mask, g, u0, times, rtol=1e-12, maxiter=None,
             stacklevel=2,
         )
         escalated = True
-        out, conv, iters = run(gmres, restart=50)
+        with span("krylov.recover"):
+            out, conv, iters = run(gmres, restart=50)
     if return_info:
         return out, {"converged": torch.tensor(conv, dtype=torch.bool),
                      "iterations": torch.tensor(iters, dtype=torch.int64),
-                     "escalated": escalated}
+                     "escalated": escalated, "rung": rung}
     return out
 
 

@@ -22,8 +22,11 @@ Spans (``utils.profiling``): ``init`` is a ``pde.init`` span valued by
 the dofs, with a ``pde.init.stiff``, ``pde.init.mass`` and
 ``pde.init.force`` span for each assembled term; ``solve`` is a
 ``pde.solve`` span, which holds the preconditioner's ``precond.build``
-(one more, valued 1, when the "auto" ladder falls back to SA-AMG) and the
-Krylov loop's spans.
+(one a solve, also a parabolic one; one more, valued 1, when the "auto"
+ladder falls back to SA-AMG), a parabolic solve's ``parabolic.setup``
+spans (here the Dirichlet data's columns and the upload of them and of
+the initial condition; K in ``solve_parabolic``) and ``parabolic.step``
+spans, and the Krylov loop's spans.
 """
 
 from __future__ import annotations
@@ -47,11 +50,11 @@ _AUTO_PRECOND_DOFS = 20_000
 class PDE:
     """An initialized boundary-value problem over a mesh.
 
-    solver_preconditioner (elliptic solves): None (Jacobi below 20,000
-    dofs, "auto" above), "auto" (the auxiliary grid, 2D or 3D after the dof
-    coordinates, and SA-AMG where the auxiliary grid fails to build or
-    solve),
-    "auxgrid", "amg" or a callable M_inv(r). Parabolic solves take Jacobi.
+    solver_preconditioner (elliptic and parabolic solves): None (Jacobi
+    below 20,000 dofs, "auto" above), "auto" (the auxiliary grid, 2D or 3D
+    after the dof coordinates, and SA-AMG where the auxiliary grid fails to
+    build), "auxgrid", "amg" or a callable M_inv(r). A parabolic solve
+    builds it once, for K = A + M/dt, and every step reuses it.
     """
 
     def __init__(
@@ -205,40 +208,42 @@ class PDE:
             return torch.zeros(self.space.n_dofs, dtype=torch.bool, device=self.device), None
         return torch.as_tensor(self.space.boundary_dofs, device=self.device), self._dirichlet
 
+    def _on_ladder(self, run):
+        """run(preconditioner) on the rung that ``solver_preconditioner``
+        selects, for the elliptic and the parabolic solve alike. "auto"
+        (also the default beyond _AUTO_PRECOND_DOFS): the auxiliary grid
+        first (3D dof coordinates take the 3D grid), then SA-AMG where the
+        auxiliary grid fails to build (``AuxGridBuildError``); any other
+        error, a kernel's or the device's in the solve among them,
+        propagates. Sets ``ladder_fallback`` when it falls back."""
+        from ..fem.solvers import AuxGridBuildError
+
+        precond = self.solver_preconditioner
+        auto = precond == "auto" or (precond is None and self.space.n_dofs >= _AUTO_PRECOND_DOFS)
+        if precond == "auxgrid" or auto:
+            precond = ("auxgrid", self.space.dof_coords)
+        self.ladder_fallback = False
+        try:
+            return run(precond)
+        except AuxGridBuildError as exc:  # the next rung of the ladder
+            if not auto:
+                raise
+            warnings.warn(f"the auxiliary-grid rung failed to build ({exc}); "
+                          "falling back to SA-AMG", stacklevel=4)
+            self.ladder_fallback = True
+            return run("amg")
+
     def _solve_elliptic(self):
         from ..fem.solvers import solve_elliptic
 
         mask, g = self._boundary()
         g = np.zeros(self.space.n_dofs) if g is None else g.reshape(-1)
         g = torch.as_tensor(g, device=self.device).to(self.dtype)
-
-        # preconditioner selection. "auto" (also the default beyond
-        # _AUTO_PRECOND_DOFS): the auxiliary grid first (3D dof coordinates
-        # take the 3D grid), then SA-AMG for domains no covering grid
-        # preconditions (an aux-grid build or solve failure)
-        precond = self.solver_preconditioner
-        auto = precond == "auto" or (precond is None and self.space.n_dofs >= _AUTO_PRECOND_DOFS)
-        if precond == "auxgrid" or auto:
-            precond = ("auxgrid", self.space.dof_coords)
-
-        def run(pre):
-            return solve_elliptic(
-                self._stiff, self._force.reshape(-1), mask, g,
-                symmetric=self.operator.is_symmetric, rtol=self.solver_rtol,
-                maxiter=self.solver_maxiter, preconditioner=pre,
-            )
-
-        self.ladder_fallback = False
-        if auto:
-            try:
-                x, info = run(precond)
-            except Exception as exc:  # the next rung of the ladder
-                warnings.warn(f"the auxiliary-grid rung failed ({type(exc).__name__}: {exc}); "
-                              "falling back to SA-AMG", stacklevel=3)
-                self.ladder_fallback = True
-                x, info = run("amg")
-        else:
-            x, info = run(precond)
+        x, info = self._on_ladder(lambda pre: solve_elliptic(
+            self._stiff, self._force.reshape(-1), mask, g,
+            symmetric=self.operator.is_symmetric, rtol=self.solver_rtol,
+            maxiter=self.solver_maxiter, preconditioner=pre,
+        ))
         self._solution = x
         self.solve_info = info
         self.success = bool(info.converged)
@@ -252,28 +257,31 @@ class PDE:
             raise ValueError("parabolic problems need an initial condition (pde.h:83)")
         T = self.times.size
         mask, g = self._boundary()
-        if g is None:
-            g = np.zeros((self.space.n_dofs, T))
-        elif g.ndim == 1:
-            g = np.tile(g[:, None], (1, T))
-        F = self._force
-        if F.dim() == 1:
-            F = F[:, None].expand(-1, T)
-        self._solution, self.step_info = solve_parabolic(
-            self._stiff, self._mass, F, mask,
-            torch.as_tensor(g, device=self.device).to(self.dtype),
-            torch.as_tensor(self._initial_condition, device=self.device).to(self.dtype),
-            self.times, rtol=self.solver_rtol, maxiter=self.solver_maxiter,
-            lumped=self.lumped_mass, symmetric=self.operator.is_symmetric, return_info=True,
-        )
+        with span("parabolic.setup"):
+            if g is None:
+                g = np.zeros((self.space.n_dofs, T))
+            elif g.ndim == 1:
+                g = np.tile(g[:, None], (1, T))
+            F = self._force
+            if F.dim() == 1:
+                F = F[:, None].expand(-1, T)
+            g = torch.as_tensor(g, device=self.device).to(self.dtype)
+            u0 = torch.as_tensor(self._initial_condition, device=self.device).to(self.dtype)
+        self._solution, self.step_info = self._on_ladder(lambda pre: solve_parabolic(
+            self._stiff, self._mass, F, mask, g, u0, self.times, rtol=self.solver_rtol,
+            maxiter=self.solver_maxiter, lumped=self.lumped_mass,
+            symmetric=self.operator.is_symmetric, return_info=True, preconditioner=pre,
+        ))
         self.success = bool(self.step_info["converged"].all())
 
     def report(self) -> dict:
         """Per-solve record: problem size, operator sparsity, solver
-        iterations and final residual; for an elliptic solve also the
-        preconditioner's rung ("auxgrid", "amg", "jacobi" or "callable"),
-        whether the "auto" ladder fell back from the auxiliary grid to
-        SA-AMG, and whether the escalation to GMRES(50) ran."""
+        iterations and final residual (a parabolic solve: each step's
+        iterations), the preconditioner's rung ("auxgrid", "amg", "jacobi"
+        or "callable"), whether the "auto" ladder fell back from the
+        auxiliary grid to SA-AMG, and whether the escalation to GMRES(50)
+        ran (``recovered``; a parabolic solve's trajectory rerun
+        ``escalated``)."""
         rec = {
             "discretization": self.discretization,
             "order": self.order,
@@ -294,6 +302,8 @@ class PDE:
         if hasattr(self, "step_info"):
             rec["step_iterations"] = self.step_info["iterations"].tolist()
             rec["escalated"] = self.step_info["escalated"]
+            rec["preconditioner"] = self.step_info["rung"]
+            rec["ladder_fallback"] = self.ladder_fallback
         if hasattr(self, "solve_seconds"):
             rec["solve_seconds"] = round(self.solve_seconds, 4)
         return rec

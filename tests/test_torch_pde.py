@@ -1041,3 +1041,205 @@ def test_pde_harmonic_and_l2_slope():
         errors.append(np.sqrt(pde.l2_error(g)))
     slopes = np.log2(np.array(errors[:-1]) / np.array(errors[1:]))
     assert np.all((slopes > 1.9) & (slopes < 2.1)), slopes
+
+
+# -- the heat equation on the preconditioner ladder (portbench's heat_0p5m) ---
+
+HEAT_TIMES = np.linspace(0.0, 1.0, 11)
+# the benchmark's heat_0p5m limits for the solve; the squared L2 error is
+# implicit Euler's at dt = 0.1 on a 625-dof mesh (5.2e-6 to 5.4e-6 for mu
+# in [0.5, 2]), not the benchmark's
+HEAT_LIMITS = {"true_residual": 5e-11, "trajectory_gap": 1e-10, "l2_error": 2e-5}
+
+
+def _portbench(rel):
+    """A module of the benchmark (``portbench/``, no JAX), loaded by path."""
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / rel
+    spec = importlib.util.spec_from_file_location(rel.replace("/", "_")[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _heat_mode(p):
+    return np.sin(2 * np.pi * p[..., 0]) * np.sin(2 * np.pi * p[..., 1])
+
+
+def _heat_pde(pts, cells, bnd, mu, times=HEAT_TIMES, **kw):
+    """The heat_0p5m problem, u = sin(2 pi x) sin(2 pi y) e^-t with zero
+    Dirichlet data, through the PDE API on the CPU."""
+    pde = fdt.PDE(fdt.Triangulation(pts, cells, bnd), fdt.dt() - mu * fdt.laplacian(),
+                  times=times, order=1, device=CPU, **kw)
+    q, c = pde.quadrature_nodes(), pde.dof_coords()
+    pde.set_forcing((8 * np.pi ** 2 * mu - 1) * _heat_mode(q)[:, None] * np.exp(-times)[None, :])
+    pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
+    pde.set_initial_condition(_heat_mode(c))
+    return pde
+
+
+@pytest.mark.parametrize("mu", [0.5, 2.0])
+def test_parabolic_auxgrid_passes_the_heat_reference(mu):
+    """solve_parabolic with the aux-grid preconditioner, on the assembled
+    heat problem at nx = 24 over 11 instants, passes the check of
+    ``portbench/reference/heat_0p5m.py`` (its residual and trajectory
+    limits); its steps take under a third of Jacobi's iterations, and the
+    two trajectories agree to 1e-9.
+
+    The benchmark's plain reference is this test's yardstick on purpose:
+    the heat trajectory is held to one independent reference (plain NumPy
+    and SciPy, none of the port) wherever it is checked, so a change to that
+    reference changes what this test checks too."""
+    reference = _portbench("portbench/reference/heat_0p5m.py")
+    pts, cells, bnd = _delaunay(24)
+    pde = _heat_pde(pts, cells, bnd, mu)
+    pde.init()
+    mask = _t(pde.space.boundary_dofs)
+    g = torch.zeros(pde.n_dofs, HEAT_TIMES.size, dtype=torch.float64)
+    u0 = _t(_heat_mode(pde.dof_coords()))
+    runs = {}
+    for name, pre in (("auxgrid", ("auxgrid", pde.dof_coords())), ("jacobi", None)):
+        runs[name] = tsolvers.solve_parabolic(
+            pde.stiff(), pde.mass(), pde.force(), mask, g, u0, HEAT_TIMES, rtol=1e-12,
+            maxiter=2000, return_info=True, preconditioner=pre)
+    (x, info), (xj, infoj) = runs["auxgrid"], runs["jacobi"]
+    assert info["rung"] == "auxgrid" and infoj["rung"] == "jacobi"
+    assert bool(info["converged"].all()) and not info["escalated"]
+    assert int(info["iterations"].max()) * 3 < int(infoj["iterations"].min()), (info, infoj)
+    data = {"nodes": pts, "cells": cells, "boundary": bnd, "times": HEAT_TIMES}
+    checks = reference.check(data, [(0, {"mu": mu}, {"x": x})], {"limits": HEAT_LIMITS}, None, CPU)
+    assert all(value <= limit for _, value, limit in checks), checks
+    assert np.abs(_np(x) - _np(xj)).max() <= 1e-9 * np.abs(_np(xj)).max()
+
+
+def _failing_aux_build(monkeypatch):
+    def failing_build(*a, **k):
+        raise ValueError("no covering grid")
+
+    monkeypatch.setattr(AuxGridPreconditioner, "build", failing_build)
+
+
+# (mesh nx, instants, solver_preconditioner, a plant, the rung report() names, fell back)
+HEAT_LADDER = {
+    "auto_at_20449_dofs": (142, 3, None, None, "auxgrid", False),
+    "auxgrid_at_625_dofs": (24, 11, "auxgrid", None, "auxgrid", False),
+    "jacobi_default_at_625_dofs": (24, 11, None, None, "jacobi", False),
+    "auto_falls_back_to_amg": (24, 11, "auto", _failing_aux_build, "amg", True),
+}
+
+
+@pytest.mark.parametrize("case", list(HEAT_LADDER))
+def test_parabolic_pde_takes_the_ladder(case, monkeypatch):
+    """The parabolic branch of PDE takes the elliptic branch's preconditioner
+    ladder: "auto" by default at 20,000 dofs or more (the auxiliary grid),
+    an explicit "auxgrid" below it, Jacobi by default below it, and SA-AMG
+    with a warning when the auxiliary grid fails to build; report() names
+    the rung and the fall-back."""
+    nx, count, pre, plant, rung, fell_back = HEAT_LADDER[case]
+    if plant is not None:
+        plant(monkeypatch)
+    pts, cells, bnd = _delaunay(nx)
+    pde = _heat_pde(pts, cells, bnd, 1.0, times=np.linspace(0.0, 1.0, count),
+                    solver_preconditioner=pre)
+    assert (pde.n_dofs >= 20_000) == (nx == 142)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pde.solve()
+    assert any("falling back to SA-AMG" in str(w.message) for w in caught) == fell_back
+    rep = pde.report()
+    assert rep["success"] and not rep["escalated"], rep
+    assert (rep["preconditioner"], rep["ladder_fallback"]) == (rung, fell_back)
+    assert len(rep["step_iterations"]) == count - 1
+    assert max(rep["step_iterations"]) <= (400 if rung == "jacobi" else 40), rep
+
+
+def _raising_apply(monkeypatch):
+    def apply(self, r):
+        raise RuntimeError("a kernel launch failed")
+
+    monkeypatch.setattr(AuxGridPreconditioner, "__call__", apply)
+
+
+def _out_of_memory_build(monkeypatch):
+    def build(*a, **k):
+        raise torch.OutOfMemoryError("out of device memory")
+
+    monkeypatch.setattr(AuxGridPreconditioner, "build", build)
+
+
+LADDER_ERRORS = {"solve_raises": (_raising_apply, "a kernel launch failed"),
+                 "build_out_of_memory": (_out_of_memory_build, "out of device memory")}
+
+
+@pytest.mark.parametrize("fault", list(LADDER_ERRORS))
+@pytest.mark.parametrize("problem", ["elliptic", "parabolic"])
+def test_auto_ladder_falls_back_only_on_a_failed_build(problem, fault, monkeypatch):
+    """The "auto" ladder takes SA-AMG only where the auxiliary grid fails
+    to build: an error of the aux-grid solve (a kernel's launch) and out of
+    device memory in the build propagate from solve(), elliptic and
+    parabolic alike, with no fall-back, no warning and no SA-AMG built."""
+    plant, match = LADDER_ERRORS[fault]
+    plant(monkeypatch)
+    amg_builds = []
+    orig = tamg.AMG.build.__func__
+    monkeypatch.setattr(tamg.AMG, "build",
+                        classmethod(lambda cls, *a, **k: amg_builds.append(1) or orig(cls, *a, **k)))
+    pts, cells, bnd = _delaunay(24)
+    if problem == "parabolic":
+        pde = _heat_pde(pts, cells, bnd, 1.0, solver_preconditioner="auto")
+    else:
+        pde = fdt.PDE(fdt.Triangulation(pts, cells, bnd), -fdt.laplacian(), order=1,
+                      device=CPU, solver_preconditioner="auto")
+        pde.set_forcing(np.ones(pde.quadrature_nodes().shape[0]))
+        pde.set_dirichlet_bc(np.zeros(pde.n_dofs))
+    with warnings.catch_warnings(record=True) as caught, pytest.raises(RuntimeError, match=match):
+        warnings.simplefilter("always")
+        pde.solve()
+    assert not any("falling back to SA-AMG" in str(w.message) for w in caught)
+    assert not pde.ladder_fallback and amg_builds == []
+
+
+@pytest.mark.parametrize("rerun", [False, True], ids=["converged", "gmres_rerun"])
+def test_parabolic_preconditioner_built_once(rerun, monkeypatch):
+    """One preconditioner a trajectory: a pde.solve span holds one
+    precond.build (rung 0, the auxiliary grid) and AuxGridPreconditioner
+    is built once, also when the stalled trajectory is rerun with
+    GMRES(50), which runs inside one krylov.recover span on the same
+    preconditioner; each implicit-Euler step is a parabolic.step span
+    valued by its Krylov iterations (the first pass's are step_info's when
+    nothing is rerun)."""
+    from fdapde_core_tpu_torch.utils import profiling
+
+    builds = []
+    orig = AuxGridPreconditioner.build.__func__
+    monkeypatch.setattr(AuxGridPreconditioner, "build",
+                        classmethod(lambda cls, *a, **k: builds.append(1) or orig(cls, *a, **k)))
+    pts, cells, bnd = _delaunay(24)
+    pde = _heat_pde(pts, cells, bnd, 1.0, solver_preconditioner="auxgrid",
+                    solver_maxiter=2 if rerun else None)
+    steps = HEAT_TIMES.size - 1
+    profiling.stop_recording()
+    profiling.take_records()
+    with warnings.catch_warnings(record=True) as caught, profiling.recording() as recs:
+        warnings.simplefilter("always")
+        pde.solve()
+    assert any("re-running the trajectory" in str(w.message) for w in caught) == rerun
+    assert builds == [1]
+    (solve,) = [i for i, r in enumerate(recs) if r.name == "pde.solve"]
+    assert [(r.name, r.value) for r in recs if r.name == "precond.build"] == [("precond.build", 0)]
+    assert all(recs[i].root == solve for i, r in enumerate(recs) if r.name == "precond.build")
+    recovers = [i for i, r in enumerate(recs) if r.name == "krylov.recover"]
+    assert len(recovers) == int(rerun)
+    step_recs = [(i, r) for i, r in enumerate(recs) if r.name == "parabolic.step"]
+    first = [r for i, r in step_recs if recs[i].parent not in recovers]
+    assert len(first) == steps and len(step_recs) == steps * (1 + rerun)
+    assert all(r.parent == solve for r in first)
+    rep = pde.report()
+    assert rep["preconditioner"] == "auxgrid" and rep["escalated"] == rerun
+    if rerun:
+        assert all(r.value == 2 for r in first)
+    else:
+        assert [r.value for r in first] == rep["step_iterations"]
+        assert all(any(recs[j].name == "krylov.solve" and recs[j].parent == i
+                       for j in range(len(recs))) for i, _ in step_recs)
