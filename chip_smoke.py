@@ -109,7 +109,9 @@ Phases (each raises on failure; nothing is caught):
     bound, bitwise stable, equal to today's route, i.e. the (D, n) ELL,
     built here; timed with today's route, a torch.sparse CSR SpMV and the
     plain version against its bound; padding ratio printed), the same three
-    at the sort windows SIGMAS (padding and time of each, results equal),
+    at the sort windows SIGMAS (padding and time of each, results equal)
+    and on a 16-column block stored either way (the Hutchinson block
+    solve's products: each column equal to its vector launch, both timed),
     and one profiled fit's device busy share;
 19. drive SpaceTimeSmoothing with the launch counts zeroed on a monitoring
     design, 2,000 sites x 365 daily times, over unit_square_mesh(256) (P1,
@@ -1633,6 +1635,10 @@ def phase_regression(ak, gs, ls, mesh, obs):
                                                            ("Psi^T", Psi.T))}
     for name, S in (("P", model.P), ("Psi", Psi), ("Psi^T", Psi.T)):
         sigma_sweep(gs, name, S)
+        # the Hutchinson block solve's products: 16 probes (gcv's default),
+        # the block stored either way
+        for transposed in (True, False):
+            k2_table(gs, f"{name}, probe block", S, 16, transposed=transposed, race=False)
     profiled("fit", lambda: model.fit(obs, y, best, rtol=1e-10))
     return k2, k6, tables["Psi^T"]
 

@@ -17,13 +17,18 @@ elimination in JAX only because the TPU has no float64 LU; here it is
 Operators are callables or objects with ``@``. Convergence is
 ``||r|| <= max(rtol*||b||, atol)`` with an iteration cap; a non-finite
 residual stops the loop with ``converged=False``. The loops read one scalar
-per iteration on the host.
+per iteration on the host. ``cg`` on an (n, k) block runs the k solves as
+one loop (``_block_cg``), as JAX's vmap of ``cg`` does: each column keeps
+its own iterates and stops on its own, and the host reads the count of
+columns still active.
 
 Spans (``utils.profiling``): each solve of ``cg``, ``bicgstab``, their
 chunked forms and ``cg_split_programs`` is a ``krylov.solve`` span whose
-value is its iterations; inside it, each operator product is
-``krylov.operator``, each preconditioner apply ``precond.apply`` and each
-host read of the residual ``krylov.read``.
+value is its iterations (a block solve's: the sum over its columns);
+inside it, each operator product is ``krylov.operator``, each
+preconditioner apply ``precond.apply`` and each host read of the residual
+or the active count ``krylov.read``. A block solve holds them inside a
+``krylov.block`` span valued by its column count.
 """
 
 from __future__ import annotations
@@ -144,8 +149,78 @@ def _cg(A, b, M_inv, x0, rtol, atol, maxiter, chunk, on_chunk):
     return state[0], SolveInfo(k, rnorm, bool(rnorm <= tol) and math.isfinite(float(rnorm)))
 
 
+def _block_active(rnorm, tol, its, maxiter):
+    """The columns still to iterate: residual above tolerance and finite,
+    fewer than maxiter iterations."""
+    return (rnorm > tol) & torch.isfinite(rnorm) & (its < maxiter)
+
+
+@_solve_span
+def _block_cg(A, B, M_inv, X0, rtol, atol, maxiter, check_every):
+    """``cg`` on the k columns of an (n, k) block B in one loop. Each column
+    has its own alpha, beta, rz, tolerance max(rtol ||b_j||, atol) and
+    iteration count; the operator and the preconditioner take the whole
+    block. A column stops when its residual is at or below its tolerance,
+    not finite, or has had maxiter iterations; from then on its x, r and p
+    are selected unchanged. The stop mask stays on the device and the host
+    reads its count every ``check_every`` iterations, ending the loop when
+    no column is active: the iterates do not depend on how often it reads.
+    The blocks keep B's layout. Returns (X, SolveInfo(sum of the columns'
+    iterations, (k,) final residual norms, every column converged))."""
+    k = B.shape[1]
+    with span("krylov.block", k):
+        op = _spanned("krylov.operator", _as_operator(A))
+        pre = _spanned("precond.apply", _as_operator(M_inv) if M_inv is not None else _identity)
+        if maxiter is None:
+            maxiter = 10 * B.shape[0]
+        tol = torch.clamp_min(rtol * torch.linalg.vector_norm(B, dim=0), atol)
+        # X, R, P and the workspace are buffers of their own in B's layout,
+        # updated in place (the preconditioner may return R)
+        X = torch.zeros_like(B) if X0 is None else torch.empty_like(B).copy_(X0)
+        R = torch.sub(B, op(X), out=torch.empty_like(B))
+        P = torch.empty_like(B).copy_(pre(R))
+        rz = torch.linalg.vecdot(R, P, dim=0)
+        rnorm = torch.linalg.vector_norm(R, dim=0)
+        its = torch.zeros(k, dtype=torch.int64, device=B.device)
+        active = _block_active(rnorm, tol, its, maxiter)
+        T = torch.empty_like(B)  # each update's workspace
+        step = 0
+        while True:
+            if step % check_every == 0 and int(_read(active.sum())) == 0:
+                break
+            Ap = op(P)
+            alpha = rz / torch.linalg.vecdot(P, Ap, dim=0)
+            torch.mul(P, alpha, out=T).add_(X)  # x + alpha p
+            torch.where(active, T, X, out=X)
+            torch.sub(R, torch.mul(Ap, alpha, out=T), out=T)  # r - alpha Ap
+            torch.where(active, T, R, out=R)
+            del Ap
+            Z = pre(R)
+            rz_new = torch.linalg.vecdot(R, Z, dim=0)
+            beta = rz_new / rz
+            torch.mul(P, beta, out=T).add_(Z)  # z + beta p
+            torch.where(active, T, P, out=P)
+            del Z
+            rz = torch.where(active, rz_new, rz)
+            rnorm = torch.linalg.vector_norm(R, dim=0)
+            its += active
+            active &= _block_active(rnorm, tol, its, maxiter)
+            step += 1
+        iterations = int(_read(its.sum()))
+        converged = bool(_read(((rnorm <= tol) & torch.isfinite(rnorm)).all()))
+    return X, SolveInfo(iterations, rnorm, converged)
+
+
 def cg(A, b, M_inv=None, x0=None, rtol=1e-12, atol=0.0, maxiter=None):
-    """Preconditioned conjugate gradients for SPD A. Returns (x, SolveInfo)."""
+    """Preconditioned conjugate gradients for SPD A. Returns (x, SolveInfo).
+
+    A 2-D b of shape (n, k) runs the k solves A x_j = b_j as one block loop
+    (``_block_cg``: each column its own scalars, tolerance and stop, the
+    operator and preconditioner applied to the block); the SolveInfo then
+    holds the sum of the columns' iterations, their (k,) final residual
+    norms, and whether every column converged."""
+    if b.dim() == 2:
+        return _block_cg(A, b, M_inv, x0, rtol, atol, maxiter, 1)
     return _cg(A, b, M_inv, x0, rtol, atol, maxiter, None, None)
 
 

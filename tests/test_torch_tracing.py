@@ -69,9 +69,10 @@ def test_records_nest_and_keep_values():
 @pytest.mark.parametrize("fit", [False, True], ids=["gcv", "fit"])
 def test_regression_spans(fit, monkeypatch):
     """One root per call, the Psi build's location and its device build
-    inside it, and one krylov.solve per CG solve (1 + n_probes for gcv) valued by
-    the iterations the solve returns; the set-up's stages in the
-    constructor, the assembly's in its own three."""
+    inside it, and one krylov.solve per CG solve valued by the iterations
+    the solve returns: the fit's, and for gcv one block solve of the probes
+    holding a krylov.block span valued by the probe count; the set-up's
+    stages in the constructor, the assembly's in its own three."""
     square = unit_square_mesh(12)
     with profiling.recording() as setup:
         mesh = fdt.Triangulation(square.nodes, square.cells, square.boundary_nodes)
@@ -104,13 +105,19 @@ def test_regression_spans(fit, monkeypatch):
     assert [r.name for r in _children(recs, basis)] == ["evaluation.locate", "evaluation.host"]
     host = recs.index(_children(recs, basis)[1])
     assert [r.name for r in _children(recs, host)] == ["evaluation.device_build"]
-    solves = [r for r in recs if r.name == "krylov.solve"]
-    assert len(solves) == (1 if fit else 1 + 3) == len(returned)
-    assert [r.value for r in solves] == returned and all(r.parent == 0 for r in solves)
-    for i, s in enumerate(recs):
-        if s.name == "krylov.solve":
-            kids = {r.name for r in _children(recs, i)}
-            assert kids == {"krylov.operator", "precond.apply", "krylov.read"}, kids
+    solves = [i for i, r in enumerate(recs) if r.name == "krylov.solve"]
+    assert len(solves) == (1 if fit else 2) == len(returned)
+    assert [recs[i].value for i in solves] == returned and all(recs[i].parent == 0 for i in solves)
+    blocks = [i for i, r in enumerate(recs) if r.name == "krylov.block"]
+    if fit:
+        assert blocks == []
+    else:  # the probes' block solve: its loop inside a krylov.block span
+        (block,) = blocks
+        assert recs[block].parent == solves[1] and recs[block].value == 3
+        assert _children(recs, solves[1]) == [recs[block]]
+    for i in solves[:1] + blocks:
+        kids = {r.name for r in _children(recs, i)}
+        assert kids == {"krylov.operator", "precond.apply", "krylov.read"}, kids
     assert all(r.root == 0 for r in recs)
 
 
